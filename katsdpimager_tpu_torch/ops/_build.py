@@ -1,0 +1,148 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+
+The sources are compiled at first use with ``nvcc`` for ``sm_90a`` into
+one shared library with a plain C interface, loaded with :mod:`ctypes`.
+The library lands in ``katsdpimager_tpu_torch/_build/<hash>/``, keyed by
+a hash of the sources and the compiler flags, so an edited source is
+rebuilt and an unchanged one is reused within a checkout.
+
+Every C entry point launches on the stream it is given (the wrapper
+passes ``torch.cuda.current_stream().cuda_stream``) and returns
+``cudaGetLastError()``; :func:`check` raises when that is non-zero.  A
+failed build raises: there is no fallback.
+
+No ``-use_fast_math``: K4's epilogue needs accurate ``sincosf`` for
+W-phases far beyond ±π, and K2 must not reassociate its adds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_PKG = os.path.dirname(_HERE)
+_CSRC = os.path.join(_PKG, "csrc")
+_BUILD = os.path.join(_PKG, "_build")
+_LIBNAME = "libktpu_torch.so"
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+#: C entry points and their argument types (pointers and the stream are
+#: ``c_void_p``, so 64-bit addresses are never cut to 32 bits).
+SIGNATURES = {
+    # slot, n, iu, iv, su, sv, sre, sim, tab, accr, acci,
+    # NC, Mc, P, K, ts, nt2, stream
+    "ktt_grid_planes": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _I, _I, _I, _I, _P],
+    # accr, acci, occ, gr, gi, P, N, ts, nt2, stream
+    "ktt_combine_planes": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # xr, xi, tw, yr, yi, P, N, stream
+    "ktt_cb_col_fft": [_P, _P, _P, _P, _P, _I, _I, _P],
+    # xr, xi, tw, taper, scal, imgT, P, N, stream
+    "ktt_epi_col_fft": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(_CSRC, "*.cu"))
+                  + glob.glob(os.path.join(_CSRC, "*.cuh")))
+
+
+def _key() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found: the port's CUDA kernels are built "
+                       "from csrc/ at first use and need the CUDA toolkit")
+
+
+def lib_path() -> str:
+    return os.path.join(_BUILD, _key(), _LIBNAME)
+
+
+def build() -> str:
+    """Compile ``csrc/*.cu`` unless the keyed library exists; return its
+    path.  Writes to a temporary name first, then renames, so a cut
+    build never leaves a library that looks finished."""
+    out = lib_path()
+    if os.path.exists(out):
+        return out
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    cu = [p for p in sources() if p.endswith(".cu")]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(out))
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", _CSRC, "-o", tmp, *cu]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError("nvcc failed (exit %d):\n%s\n%s" % (
+            res.returncode, " ".join(cmd), res.stderr[-8000:]))
+    os.replace(tmp, out)
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """Build if needed, load, and declare every entry point's types."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error at launch."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def stream_of(t) -> int:
+    """The handle of PyTorch's current stream on ``t``'s device."""
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def expect(t, name: str, dtype, shape, device) -> None:
+    """Raise unless ``t`` has the dtype, shape and device a kernel takes
+    and is contiguous."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")

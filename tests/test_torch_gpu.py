@@ -1,0 +1,154 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``gpu``: each test skips without a CUDA device.  Run them on a
+machine with one, without the JAX test configuration (that machine has
+no JAX): ``python -m pytest tests/test_torch_gpu.py -m gpu --noconftest``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from katsdpimager_tpu_torch.ops import fused_fft, fused_gridder, mxu_gridder
+from katsdpimager_tpu_torch.parallel import multichannel
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _plan_case(seed, *, pixels, K, ts, P, n, mc=256, w_planes=4, O=8):
+    rng = np.random.default_rng(seed)
+    kernel = (rng.normal(size=(w_planes, O, K))
+              + 1j * rng.normal(size=(w_planes, O, K))).astype(np.complex64)
+    lim = pixels // 2 - K - 1
+    uv = np.clip(rng.normal(scale=lim / 3, size=(n, 2)), -lim, lim
+                 ).astype(np.int16)
+    sub = rng.integers(0, O, size=(n, 2)).astype(np.int16)
+    wp = rng.integers(0, w_planes, size=n).astype(np.int16)
+    vis = (rng.normal(size=(n, P))
+           + 1j * rng.normal(size=(n, P))).astype(np.complex64)
+    wg = rng.uniform(0.5, 2.0, size=(P, pixels, pixels)).astype(np.float32)
+    plan = mxu_gridder.plan_chunks_tiled(
+        uv, sub, wp, vis, np.ones_like(vis, np.float32), pixels=pixels,
+        kernel_width=K, ts=ts, mc=mc)
+    return kernel, wg, plan
+
+
+def _planes(dev, kernel, wg, plan, *, pixels, ts, plain):
+    t = [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in
+         (kernel, wg, plan.uv, plan.sub_uv, plan.w_plane, plan.vis,
+          plan.anchor, plan.valid)]
+    n = int(plan.valid.any(axis=1).sum())
+    return fused_gridder.grid_chunks_planes(
+        *t, None, n, pixels=pixels, ts=ts, plain=plain)
+
+
+@pytest.mark.parametrize("ts,K,P", [(64, 60, 1), (64, 16, 2), (32, 16, 1)])
+def test_k1_k2_match_plain(cuda, ts, K, P):
+    """K1's written blocks within 2e-5 of peak of the plain version (f32
+    summation order); K2 bitwise on the same planes."""
+    pixels = 1024
+    kernel, wg, plan = _plan_case(1, pixels=pixels, K=K, ts=ts, P=P,
+                                  n=20000)
+    ar, ai, occ = _planes(cuda, kernel, wg, plan, pixels=pixels, ts=ts,
+                          plain=False)
+    pr, pi, pocc = _planes(cuda, kernel, wg, plan, pixels=pixels, ts=ts,
+                           plain=True)
+    torch.cuda.synchronize()
+    assert torch.equal(occ, pocc)
+    gk = fused_gridder.combine_planes(ar, ai, occ, pixels=pixels, ts=ts)
+    gp = fused_gridder.combine_planes_plain(pr, pi, occ, pixels=pixels,
+                                            ts=ts)
+    scale = max(gp[0].abs().max().item(), gp[1].abs().max().item())
+    for k, p in zip(gk, gp):
+        assert torch.isfinite(k).all()
+        assert (k - p).abs().max().item() <= 2e-5 * scale
+    # K2 on identical inputs is bitwise equal to its plain version
+    same = fused_gridder.combine_planes_plain(ar, ai, occ, pixels=pixels,
+                                              ts=ts)
+    for k, p in zip(gk, same):
+        assert torch.equal(k, p)
+
+
+def test_k2_masks_nan(cuda):
+    """Unwritten colour-plane blocks poisoned with NaN never reach the
+    combined grid."""
+    pixels, ts, K = 512, 64, 16
+    kernel, wg, plan = _plan_case(2, pixels=pixels, K=K, ts=ts, P=1, n=300)
+    t = [torch.from_numpy(np.ascontiguousarray(x)).to(cuda) for x in
+         (kernel, plan.uv, plan.sub_uv, plan.w_plane, plan.vis,
+          plan.anchor, plan.valid)]
+    kern, uv, sub, wp, vis, anc, val = t
+    n = int(plan.valid.any(axis=1).sum())
+    nt2 = mxu_gridder.colour_tiles(pixels, ts)
+    iu, iv, su, sv = fused_gridder.tap_indices(kern, uv, sub, wp, anc,
+                                               pixels=pixels, ts=ts)
+    sre, sim = fused_gridder.samples(vis, val, None, None, anc, su, sv,
+                                     kernel_width=K, ts=ts)
+    slot = fused_gridder.chunk_slots(anc, n, ts=ts, nt2=nt2)
+    ext2 = nt2 * 2 * ts
+    accr = torch.full((2, 2, 1, ext2, ext2), float("nan"), device=cuda)
+    acci = torch.full_like(accr, float("nan"))
+    fused_gridder.grid_planes(slot, n, iu, iv, su, sv, sre, sim,
+                              fused_gridder.conj_table(kern), accr, acci,
+                              ts=ts)
+    occ = fused_gridder.occupancy(slot, n, nt2)
+    gr, gi = fused_gridder.combine_planes(accr, acci, occ, pixels=pixels,
+                                          ts=ts)
+    assert torch.isfinite(gr).all() and torch.isfinite(gi).all()
+    assert gr.abs().max().item() > 0
+
+
+@pytest.mark.parametrize("n", [256, 1024, 4096, 8192])
+def test_k3_k4_match_plain(cuda, n):
+    gen = torch.Generator(device="cpu").manual_seed(n)
+    P = 1 if n > 1024 else 2
+    gr = torch.randn((P, n, n), generator=gen).to(cuda)
+    gi = torch.randn((P, n, n), generator=gen).to(cuda)
+    img = torch.randn((P, n, n), generator=gen).to(cuda)
+    taper = (0.5 + torch.rand(n, generator=gen)).to(cuda)
+    scal = torch.tensor([700.0, 1.0 / (n * 16)], device=cuda)
+    kr, ki = fused_fft.cb_col_fft(gr, gi)
+    pr, pi = fused_fft.cb_col_fft_plain(gr, gi)
+    scale = max(pr.abs().max().item(), pi.abs().max().item())
+    assert (kr - pr).abs().max().item() <= 1e-5 * scale
+    assert (ki - pi).abs().max().item() <= 1e-5 * scale
+    out_k = fused_fft.epi_col_fft(pr, pi, img.clone(), taper, scal)
+    out_p = fused_fft.epi_col_fft_plain(pr, pi, img.clone(), taper, scal)
+    scale = out_p.abs().max().item()
+    assert (out_k - out_p).abs().max().item() <= 1e-5 * scale
+
+
+def test_kernels_reject_unsupported(cuda):
+    x = torch.zeros((1, 384, 384), device=cuda)
+    with pytest.raises(NotImplementedError):
+        fused_fft.cb_col_fft(x, x)
+    y = torch.zeros((1, 256, 256), dtype=torch.float64, device=cuda)
+    with pytest.raises(TypeError):
+        fused_fft.cb_col_fft(y, y)
+
+
+@pytest.mark.parametrize("weight_type", ["natural", "uniform"])
+def test_step_matches_plain(cuda, weight_type):
+    cfg = multichannel.MultiChannelConfig(
+        pixels=512, num_pols=1, kernel_width=16, oversample=8, w_planes=8,
+        w_slices=2, chunks_per_slice=256, chunk_size=128, rv=32, ru=32,
+        weight_type=weight_type)
+    batch = multichannel.make_example_batch(cfg, 1, seed=3, device=cuda)
+    args = multichannel.channel_args(batch, 0)
+    got = multichannel.single_channel_step(cfg)(*args)[0]
+    ref = multichannel.single_channel_step(cfg, plain=True)(*args)[0]
+    taper = batch.taper1d[0]
+    t2 = torch.outer(taper, taper)
+    inside = t2 >= 0.002 * t2.max()
+    peak = ref.abs().max().item()
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs()[:, inside].max().item() <= 1e-4 * peak
