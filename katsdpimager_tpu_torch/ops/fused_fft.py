@@ -1,8 +1,9 @@
-r"""Fused grid -> image transform: kernels K3 and K4.
+r"""Fused grid <-> image transforms: kernels K3, K4, K6 and K7.
 
-Counterpart of :func:`katsdpimager_tpu.ops.pallas_fft.grid_to_image_fused_parts`.
-The 2-D unnormalised inverse DFT of the checkerboarded grid runs as two
-column passes; the imaging corrections ride on the second:
+Counterpart of :func:`katsdpimager_tpu.ops.pallas_fft.grid_to_image_fused_parts`
+and :func:`~katsdpimager_tpu.ops.pallas_fft.image_to_grid_fused_parts`.
+Each 2-D unnormalised DFT runs as two column passes, with the imaging
+corrections riding on one of them.  Grid -> image (inverse DFT):
 
 - **K3** (:func:`cb_col_fft`): ``y = colDFT(cb * x)``, stored transposed
   (the JAX path's XLA transpose between the passes is folded into the
@@ -11,13 +12,22 @@ column passes; the imaging corrections ride on the second:
   ``imgT += Y.re * cos(ph) * common - Y.im * sin(ph) * common`` in place,
   with ``common = cb * n / taper^2`` and ``ph = 2 pi w (n - 1)``.
 
+Image -> grid (forward DFT, for the degridder):
+
+- **K6** (:func:`pre_col_fft`): from the transposed model image,
+  ``layer = img * cb / (taper^2 n) * exp(-2 pi i w (n - 1))`` in
+  registers, then ``colDFT(layer)``, stored transposed;
+- **K7** (:func:`cbout_col_fft`): ``cb * colDFT(x)``, stored in place:
+  ``colDFT(swap(colDFT(layerT))) == DFT2(layer)`` the right way round.
+
 The dirty image stays TRANSPOSED across the W-slice loop (every factor is
 symmetric in (row, col)); the caller transposes it once per channel.
 
 The kernels are hand-written CUDA (``csrc/fft.cu``) for power-of-two N
 from 256 to 8192; other sizes raise on CUDA.  Each has a plain PyTorch
 version here (``torch.fft.ifft(..., norm="forward")`` is the
-unnormalised inverse), which CPU tensors run at any even N.
+unnormalised inverse, ``torch.fft.fft`` the unnormalised forward), which
+CPU tensors run at any even N.
 """
 
 from __future__ import annotations
@@ -189,3 +199,121 @@ def grid_to_image_fused_parts(gr, gi, imageT, kernel1d, w, pixel_size, *,
     k4 = epi_col_fft_plain if plain else epi_col_fft
     ar_t, ai_t = k3(gr, gi)
     return k4(ar_t, ai_t, imageT, taper, scal)
+
+
+# ---------------------------------------------------------------------------
+# K6
+
+
+def pre_col_fft_plain(imageT, taper, scal):
+    """Plain PyTorch version of K6 (same arguments as :func:`pre_col_fft`),
+    with the f32 formulas of the JAX prologue."""
+    n = imageT.shape[-1]
+    dev = imageT.device
+    w, ps = scal[0], scal[1]
+    idx = torch.arange(n, device=dev, dtype=torch.float32)
+    half = 0.5 * n
+    lm_r = ((idx - half) * ps)[:, None]
+    lm_c = ((idx - half) * ps)[None, :]
+    n_lm = sqrt_rn(1.0 - lm_r * lm_r - lm_c * lm_c)
+    phase = ((-2.0 * math.pi) * w) * (n_lm - 1.0)
+    taper2 = taper[:, None] * taper[None, :]
+    pre = imageT * (checkerboard(n, dev) / (taper2 * n_lm))
+    y = torch.fft.fft(torch.complex(pre * torch.cos(phase),
+                                    pre * torch.sin(phase)), dim=-2)
+    return (y.real.transpose(-1, -2).contiguous(),
+            y.imag.transpose(-1, -2).contiguous())
+
+
+def pre_col_fft(imageT, taper, scal):
+    """K6: image -> layer prologue, unnormalised forward DFT of every
+    column, transposed store.
+
+    imageT (P, N, N) f32, the TRANSPOSED real model image; taper (N,) f32;
+    scal (2,) f32 ``[w, pixel_size]`` on the device.  Returns a new
+    (P, N, N) f32 pair.
+
+    CPU tensors run :func:`pre_col_fft_plain`; CUDA tensors launch
+    ``ktt_pre_col_fft`` (``csrc/fft.cu``) or raise.
+
+    Replaces ``katsdpimager_tpu/ops/pallas_fft.py:_make_pre_col_kernel``
+    and the transpose after it.  Bound like K3 (shared-memory radix-2
+    passes, strided column loads); the prologue is computed from the
+    indices as the columns load, so it adds no memory pass."""
+    if imageT.device.type == "cpu":
+        return pre_col_fft_plain(imageT, taper, scal)
+    dev = imageT.device
+    P, n, _ = imageT.shape
+    _check_kernel_size(n)
+    _build.expect(imageT, "imageT", torch.float32, (P, n, n), dev)
+    _build.expect(taper, "taper", torch.float32, (n,), dev)
+    _build.expect(scal, "scal", torch.float32, (2,), dev)
+    tw = twiddles(n, dev)
+    yr = torch.empty_like(imageT)
+    yi = torch.empty_like(imageT)
+    err = _build.load().ktt_pre_col_fft(
+        imageT.data_ptr(), tw.data_ptr(), taper.data_ptr(), scal.data_ptr(),
+        yr.data_ptr(), yi.data_ptr(), P, n, _build.stream_of(imageT))
+    _build.check(err, "ktt_pre_col_fft")
+    pre_col_fft.launches += 1
+    return yr, yi
+
+
+pre_col_fft.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K7
+
+
+def cbout_col_fft_plain(xr, xi):
+    """Plain PyTorch version of K7: ``cb * fft(xr + i xi, dim=-2)``
+    unnormalised, as an f32 re/im pair."""
+    cb = checkerboard(xr.shape[-1], xr.device)
+    y = torch.fft.fft(torch.complex(xr, xi), dim=-2)
+    return (y.real * cb).contiguous(), (y.imag * cb).contiguous()
+
+
+def cbout_col_fft(xr, xi):
+    """K7: unnormalised forward DFT of every column, times the output
+    checkerboard, stored in place of its column.  xr/xi (P, N, N) f32
+    (K6's transposed output) -> the (P, N, N) f32 grid planes.
+
+    CPU tensors run :func:`cbout_col_fft_plain`; CUDA tensors launch
+    ``ktt_cbout_col_fft`` (``csrc/fft.cu``) or raise.
+
+    Replaces ``katsdpimager_tpu/ops/pallas_fft.py:_make_cbout_col_kernel``.
+    Bound like K3."""
+    if xr.device.type == "cpu":
+        return cbout_col_fft_plain(xr, xi)
+    P, n, _ = xr.shape
+    _check_kernel_size(n)
+    _build.expect(xr, "xr", torch.float32, (P, n, n), xr.device)
+    _build.expect(xi, "xi", torch.float32, (P, n, n), xr.device)
+    tw = twiddles(n, xr.device)
+    yr = torch.empty_like(xr)
+    yi = torch.empty_like(xr)
+    err = _build.load().ktt_cbout_col_fft(
+        xr.data_ptr(), xi.data_ptr(), tw.data_ptr(), yr.data_ptr(),
+        yi.data_ptr(), P, n, _build.stream_of(xr))
+    _build.check(err, "ktt_cbout_col_fft")
+    cbout_col_fft.launches += 1
+    return yr, yi
+
+
+cbout_col_fft.launches = 0
+
+
+def image_to_grid_fused_parts(imageT, kernel1d, w, pixel_size, *,
+                              plain: bool = False):
+    """K6 then K7: the TRANSPOSED real (P, N, N) model image to the
+    untransposed (P, N, N) f32 grid planes ``(gr, gi)``, centre at the
+    middle (K5's input).  ``plain`` runs both kernels' plain versions
+    whatever the device."""
+    scal = scalars(w, pixel_size, imageT.device)
+    taper = kernel1d.to(device=imageT.device,
+                        dtype=torch.float32).contiguous()
+    k6 = pre_col_fft_plain if plain else pre_col_fft
+    k7 = cbout_col_fft_plain if plain else cbout_col_fft
+    ar_t, ai_t = k6(imageT, taper, scal)
+    return k7(ar_t, ai_t)

@@ -263,3 +263,36 @@ def grid_chunks_parts(kernel, weights_grid, plan_uv, plan_sub, plan_wp,
     if len(outs) == 1:
         return outs[0]
     return (torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]))
+
+
+def degrid_chunks_parts(grid, kernel, plan_uv, plan_sub, plan_wp, plan_wt,
+                        plan_vis, plan_anchor, plan_valid, n_chunks=None, *,
+                        pixels: int, rv: int, ru: int, plain: bool = False):
+    """Predict and subtract: one slice's visibilities less the weighted
+    model prediction, ``vis - wt * (pred * valid)`` (NC, Mc, P).
+
+    ``grid`` is the (P, N, N) f32 ``(gr, gi)`` pair of grid planes
+    (:func:`..fourier.image_to_grid_parts`).  Counterpart of
+    ``mxu_gridder.degrid_chunks_impl(..., assembly="pallas",
+    tile_aligned=True)`` (tile-aligned plans, :func:`plan_chunks_tiled`):
+    the fused degridder, kernel K5 (:mod:`.fused_degrid`).  Where the
+    JAX package falls back to an XLA assembly (``rv != ru``, or a kernel
+    wider than ``rv + 1``) this raises.  ``n_chunks`` (host int) bounds
+    the chunks predicted; None counts the occupied chunks (a device
+    sync).  Padding chunks pass their visibilities through unchanged.
+    ``plain`` runs K5's plain version whatever the device."""
+    from .fused_degrid import degrid_chunks_fused
+
+    K = kernel.shape[-1]
+    if rv != ru or K + rv - 1 > 2 * rv:
+        raise NotImplementedError(
+            f"the fused degridder takes rv == ru and K <= rv + 1, not "
+            f"rv={rv}, ru={ru}, K={K}; no other degridder is ported")
+    if n_chunks is None:
+        n_chunks = occupied_chunks(plan_valid)
+    gr, gi = grid
+    pred = degrid_chunks_fused(gr, gi, kernel, plan_uv, plan_sub, plan_wp,
+                               plan_anchor, n_chunks, pixels=pixels, ts=rv,
+                               plain=plain)
+    pred = torch.where(plan_valid[..., None], pred, 0)
+    return plan_vis - plan_wt * pred

@@ -1,13 +1,12 @@
-"""The multi-channel dirty-image step.
+"""The multi-channel imaging step.
 
 Counterpart of :mod:`katsdpimager_tpu.parallel.multichannel` for one
 device: imaging density weights, then per W slice the fused gridder (K1,
 K2) and the fused grid -> image transform (K3, K4) accumulating into the
-transposed dirty image.  Channels of a batch share their geometry; the
-per-channel physics (kernel tables, taper, pixel size, mid-w values) are
-tensor inputs.
-
-CLEAN minor cycles (``minor_cycles > 0``) are not ported yet and raise.
+transposed dirty image; with ``minor_cycles > 0``, a PSF from the weights
+and that many CLEAN minor cycles on the PSF-normalised dirty image.
+Channels of a batch share their geometry; the per-channel physics (kernel
+tables, taper, pixel size, mid-w values) are tensor inputs.
 """
 
 from __future__ import annotations
@@ -18,12 +17,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops import clean as clean_ops
 from ..ops import mxu_gridder
 from ..ops.fused_fft import grid_to_image_fused_parts
 from .slices import scan_slices
-
-#: The JAX package's ``clean.CLEAN_I`` (CLEAN on |Stokes I|).
-CLEAN_I = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,14 +37,22 @@ class MultiChannelConfig:
     chunk_size: int         # Mc
     rv: int = 64
     ru: int = 64
-    # CLEAN stage (0 minor cycles disables it; not ported yet)
+    # CLEAN stage (0 minor cycles disables it)
     minor_cycles: int = 0
     patch: int = 33
     border_pixels: int = 0
     loop_gain: float = 0.1
-    clean_mode: int = CLEAN_I
+    clean_mode: int = clean_ops.CLEAN_I
     #: imaging density weights: "natural" (no density grid) or "uniform"
     weight_type: str = "uniform"
+
+    @property
+    def clean_cfg(self) -> clean_ops.CleanConfig:
+        return clean_ops.CleanConfig(
+            pixels=self.pixels, num_pols=self.num_pols,
+            border_pixels=self.border_pixels, patch_y=self.patch,
+            patch_x=self.patch, mode=self.clean_mode,
+            loop_gain=self.loop_gain)
 
 
 class ChannelBatch(NamedTuple):
@@ -72,10 +77,10 @@ class ChannelBatch(NamedTuple):
     n_chunks: torch.Tensor    # (C, S) int64, host: occupied chunks
 
 
-def _density(cfg: MultiChannelConfig, uv, valid, weights):
-    """Uniform density weights ``1 / W`` per occupied cell of the
-    (P, N, N) weight grid; cells outside the grid are dropped."""
-    N, Pp = cfg.pixels, cfg.num_pols
+def weight_grid(num_pols: int, pixels: int, uv, valid, weights):
+    """The (P, N, N) grid of summed imaging weights per uv cell; cells
+    outside the grid are dropped."""
+    N, Pp = pixels, num_pols
     half = N // 2
     flat_uv = uv.reshape(-1, 2).long()
     flat_w = (weights * valid[..., None]).reshape(-1, Pp)
@@ -88,26 +93,67 @@ def _density(cfg: MultiChannelConfig, uv, valid, weights):
     wgrid = torch.zeros((Pp, N, N), dtype=torch.float32, device=uv.device)
     for p in range(Pp):
         wgrid[p].index_put_((rows, cols), vals[:, p], accumulate=True)
+    return wgrid
+
+
+def _density(cfg: MultiChannelConfig, uv, valid, weights):
+    """Uniform density weights ``1 / W`` per occupied cell of the
+    (P, N, N) weight grid."""
+    wgrid = weight_grid(cfg.num_pols, cfg.pixels, uv, valid, weights)
     return torch.where(wgrid > 0,
                        1.0 / torch.where(wgrid > 0, wgrid, 1.0), 0.0)
+
+
+def image_slices(kernel, density, taper1d, pixel_size, mid_w, uv, sub_uv,
+                 w_plane, anchor, valid, vis, nc_slices, *, pixels: int,
+                 ts: int, plain: bool = False):
+    """The W-stacked (P, N, N) image of one channel's chunked ``vis``:
+    per W slice the fused gridder (K1, K2) with the ``density`` weights
+    (None: natural), then K3 and K4 accumulating into the transposed
+    image.  Slices whose host count in ``nc_slices`` is 0 skip the
+    gridder and the transform (a zero grid adds exactly zero).  ``plain``
+    runs every kernel's plain version whatever the device."""
+
+    def slice_body(imageT, xs):
+        uv_s, sub_s, wp_s, anc_s, val_s, vis_s, w_mid, nc_s = xs
+        if nc_s == 0:
+            return imageT
+        gr, gi = mxu_gridder.grid_chunks_parts(
+            kernel, density, uv_s, sub_s, wp_s, vis_s, anc_s, val_s, None,
+            int(nc_s), pixels=pixels, ts=ts, plain=plain)
+        return grid_to_image_fused_parts(gr, gi, imageT, taper1d, w_mid,
+                                         pixel_size, plain=plain)
+
+    imageT = torch.zeros((vis.shape[-1], pixels, pixels),
+                         dtype=torch.float32, device=vis.device)
+    imageT = scan_slices(slice_body, imageT,
+                         (uv, sub_uv, w_plane, anchor, valid, vis, mid_w,
+                          list(nc_slices)))
+    return imageT.transpose(-1, -2).contiguous()
+
+
+def check_float32(vis, taper1d) -> None:
+    """Raise unless ``vis`` is complex64 and ``taper1d`` float32: the
+    port's kernels are float32 only (the JAX package keeps a complex
+    path for --precision double)."""
+    if vis.dtype != torch.complex64 or taper1d.dtype != torch.float32:
+        raise TypeError("the port's step is float32 only: vis complex64 "
+                        f"and taper float32, not {vis.dtype} and "
+                        f"{taper1d.dtype}")
 
 
 def _channel_pipeline(cfg: MultiChannelConfig, kernel, taper1d, pixel_size,
                       mid_w, uv, sub_uv, w_plane, anchor, valid, weights,
                       vis, nc_slices=None, plain: bool = False):
-    """One channel's dirty image, ``(dirty, model)`` with a zero model.
+    """One channel's ``(residual, model)``: the dirty image and a zero
+    model, or with ``minor_cycles > 0`` the CLEANed residual and model.
 
     ``nc_slices`` (S host ints) gives each slice's occupied-chunk count;
     None counts them with one device sync.  Slices with no occupied
     chunk skip the gridder and the transform (a zero grid adds exactly
     zero).  ``plain`` runs every kernel's plain version whatever the
     device: the reference the kernels are held to on the card."""
-    if cfg.minor_cycles > 0:
-        raise NotImplementedError("CLEAN minor cycles are not ported yet")
-    if vis.dtype != torch.complex64 or taper1d.dtype != torch.float32:
-        raise TypeError("the port's step is float32 only: vis complex64 "
-                        f"and taper float32, not {vis.dtype} and "
-                        f"{taper1d.dtype}")
+    check_float32(vis, taper1d)
     N, Pp = cfg.pixels, cfg.num_pols
     if cfg.weight_type == "natural":
         density = None
@@ -118,22 +164,29 @@ def _channel_pipeline(cfg: MultiChannelConfig, kernel, taper1d, pixel_size,
     if nc_slices is None:
         nc_slices = valid.any(dim=-1).sum(dim=-1).tolist()
 
-    def slice_body(dirtyT, xs):
-        uv_s, sub_s, wp_s, anc_s, val_s, vis_s, w_mid, nc_s = xs
-        if nc_s == 0:
-            return dirtyT
-        gr, gi = mxu_gridder.grid_chunks_parts(
-            kernel, density, uv_s, sub_s, wp_s, vis_s, anc_s, val_s, None,
-            int(nc_s), pixels=N, ts=cfg.rv, plain=plain)
-        return grid_to_image_fused_parts(gr, gi, dirtyT, taper1d, w_mid,
-                                         pixel_size, plain=plain)
+    def image_of(vis_like):
+        return image_slices(kernel, density, taper1d, pixel_size, mid_w, uv,
+                            sub_uv, w_plane, anchor, valid, vis_like,
+                            nc_slices, pixels=N, ts=cfg.rv, plain=plain)
 
-    dirtyT = torch.zeros((Pp, N, N), dtype=torch.float32, device=vis.device)
-    dirtyT = scan_slices(slice_body, dirtyT,
-                         (uv, sub_uv, w_plane, anchor, valid, vis, mid_w,
-                          list(nc_slices)))
-    dirty = dirtyT.transpose(-1, -2).contiguous()
-    return dirty, torch.zeros_like(dirty)
+    dirty = image_of(vis)
+    if cfg.minor_cycles == 0:
+        return dirty, torch.zeros_like(dirty)
+
+    # ---- CLEAN minor cycles: the PSF grids the weights as visibilities;
+    # the dirty image is normalised by the PSF peak (Jy/beam).
+    ccfg = cfg.clean_cfg
+    psf = image_of(weights.to(vis.dtype) * valid[..., None])
+    pk = psf[:, N // 2, N // 2]
+    scale = torch.where(pk != 0, 1.0 / torch.where(pk != 0, pk, 1.0), 0.0)
+    dirty = dirty * scale[:, None, None]
+    h = cfg.patch // 2
+    patch = (psf * scale[:, None, None])[:, N // 2 - h:N // 2 - h + cfg.patch,
+                                         N // 2 - h:N // 2 - h + cfg.patch]
+    state = clean_ops.make_state(ccfg, dirty, torch.zeros_like(dirty))
+    state, _k, _first, _last = clean_ops.minor_cycles(
+        ccfg, state, patch, 0.0, cfg.minor_cycles)
+    return clean_ops.residual_image(ccfg, state), state.model
 
 
 def single_channel_step(cfg: MultiChannelConfig, plain: bool = False):

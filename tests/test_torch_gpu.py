@@ -9,8 +9,9 @@ import numpy as np
 import pytest
 import torch
 
-from katsdpimager_tpu_torch.ops import fused_fft, fused_gridder, mxu_gridder
-from katsdpimager_tpu_torch.parallel import multichannel
+from katsdpimager_tpu_torch.ops import (clean, fused_degrid, fused_fft,
+                                        fused_gridder, mxu_gridder)
+from katsdpimager_tpu_torch.parallel import cube, multichannel
 
 pytestmark = pytest.mark.gpu
 
@@ -152,3 +153,100 @@ def test_step_matches_plain(cuda, weight_type):
     peak = ref.abs().max().item()
     assert torch.isfinite(got).all()
     assert (got - ref).abs()[:, inside].max().item() <= 1e-4 * peak
+
+
+@pytest.mark.parametrize("n", [256, 1024, 4096])
+def test_k6_k7_match_plain(cuda, n):
+    """K6 and K7 within 1e-5 of the peak of their plain versions (f32 DFT
+    rounding in another order), on a CLEAN-like model in the central
+    half of the image."""
+    gen = torch.Generator(device="cpu").manual_seed(n)
+    P = 1 if n > 1024 else 2
+    model = torch.zeros((P, n, n))
+    yx = torch.randint(n // 4, n - n // 4, (2, 500), generator=gen)
+    model[:, yx[0], yx[1]] = torch.randn(500, generator=gen)
+    model = model.to(cuda)
+    taper = (0.5 + torch.rand(n, generator=gen)).to(cuda)
+    scal = torch.tensor([700.0, 1.0 / (n * 16)], device=cuda)
+    kr, ki = fused_fft.pre_col_fft(model, taper, scal)
+    pr, pi = fused_fft.pre_col_fft_plain(model, taper, scal)
+    scale = max(pr.abs().max().item(), pi.abs().max().item())
+    assert (kr - pr).abs().max().item() <= 1e-5 * scale
+    assert (ki - pi).abs().max().item() <= 1e-5 * scale
+    gk = fused_fft.cbout_col_fft(pr, pi)
+    gp = fused_fft.cbout_col_fft_plain(pr, pi)
+    scale = max(gp[0].abs().max().item(), gp[1].abs().max().item())
+    for k, p in zip(gk, gp):
+        assert (k - p).abs().max().item() <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("ts,K,P", [(64, 60, 1), (32, 16, 2), (64, 16, 1)])
+def test_k5_matches_plain(cuda, ts, K, P):
+    """K5 within 1e-5 of the largest prediction of its plain version
+    (f32 sums in another order); chunks past n predict zero."""
+    pixels = 1024
+    kernel, _, plan = _plan_case(4, pixels=pixels, K=K, ts=ts, P=P,
+                                 n=20000)
+    t = [torch.from_numpy(np.ascontiguousarray(x)).to(cuda) for x in
+         (kernel, plan.uv, plan.sub_uv, plan.w_plane, plan.anchor)]
+    n = int(plan.valid.any(axis=1).sum())
+    gen = torch.Generator(device="cpu").manual_seed(K)
+    gr = torch.randn((P, pixels, pixels), generator=gen).to(cuda)
+    gi = torch.randn((P, pixels, pixels), generator=gen).to(cuda)
+    k = fused_degrid.degrid_chunks_fused(gr, gi, *t, n, pixels=pixels, ts=ts)
+    p = fused_degrid.degrid_chunks_fused(gr, gi, *t, n, pixels=pixels, ts=ts,
+                                         plain=True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(k).all() and not k[n:].any()
+    assert (k - p).abs().max().item() <= 1e-5 * p.abs().max().item()
+
+
+def test_clean_cycle_never_syncs(cuda):
+    """A minor cycle keeps every index on the card: no host sync (the
+    host reads the stop flag once per batch of cycles)."""
+    cfg = clean.CleanConfig(pixels=512, num_pols=1, border_pixels=0,
+                            patch_y=65, patch_x=65, mode=clean.CLEAN_I,
+                            loop_gain=0.1)
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    state = clean.make_state(cfg, torch.randn((1, 512, 512),
+                                              generator=gen).to(cuda),
+                             torch.zeros((1, 512, 512), device=cuda))
+    psf = torch.rand((1, 65, 65), generator=gen).to(cuda)
+    args = [torch.zeros(1, dtype=torch.int32, device=cuda),
+            torch.zeros(1, device=cuda), torch.zeros(1, device=cuda),
+            torch.zeros(1, dtype=torch.bool, device=cuda)]
+    threshold = torch.tensor(0.0, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            args = clean._cycle(cfg, state, psf, threshold, *args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(args[0]) == 3
+
+
+def test_wave_matches_plain(cuda):
+    """A small cube wave through K1-K7 against the all-plain wave: the
+    same CLEAN components and images within 1e-4 of the dirty peak inside
+    the anti-aliased field."""
+    small = dict(pixels=1024, num_pols=1, kernel_width=16, oversample=8,
+                 w_planes=8, w_slices=2, chunks_per_slice=512,
+                 chunk_size=128, rv=32, ru=32)
+    cfg = cube.CubeConfig(**small, majors=2, minor=500, patch=33,
+                          psf_core=32)
+    batch = multichannel.make_example_batch(
+        multichannel.MultiChannelConfig(**small, weight_type="natural"), 1,
+        seed=3, device=cuda)
+    batch, pos, flux = cube.with_point_sources(cfg, batch, seed=1)
+    got = cube.wave_image(cfg, batch)
+    ref = cube.wave_image(cfg, batch, plain=True)
+    taper = batch.taper1d[0]
+    t2 = torch.outer(taper, taper)
+    inside = t2 >= 0.002 * t2.max()
+    peak = float(flux.max())
+    assert torch.equal((got.model != 0)[..., inside],
+                       (ref.model != 0)[..., inside])
+    for a, b in ((got.model, ref.model), (got.residual, ref.residual)):
+        assert torch.isfinite(a).all()
+        assert (a - b).abs()[..., inside].max().item() <= 1e-4 * peak
