@@ -1,16 +1,18 @@
-"""Drive the PyTorch/CUDA port's dirty-image step and cube wave on one GPU.
+"""Drive the PyTorch/CUDA port on one GPU: its kernels, the dirty-image
+step, the cube wave, the numerics probes and the per-channel CLI.
 
 Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels (K1-K7) from ``katsdpimager_tpu_torch/csrc``
-and the production batch (8 channels, 4096 px, K=60, oversample 8,
-32 W planes, 4 W slices, 2^19 visibilities per slice, natural weights),
-then:
+It builds the port's CUDA kernels (K1-K8 and the probes P1/P2) from
+``katsdpimager_tpu_torch/csrc`` and the production batch (8 channels,
+4096 px, K=60, oversample 8, 32 W planes, 4 W slices, 2^19 visibilities
+per slice, natural weights), then:
 
 - checks every kernel against its plain PyTorch version at the shapes of
-  the main paths (channel 0, slice 0) and times both;
+  the main paths (channel 0, slice 0; K8 at (1, 4096, 4096)) and times
+  both; ``fft2`` (two K8 passes) against ``torch.fft.fft2``;
 - runs the 8-channel dirty-image step through
   ``multichannel.single_channel_step`` (1 warm-up, 3 timed iterations)
   with the launch counters reset just before, and checks channel 0's
@@ -23,7 +25,18 @@ then:
 - checks K5 against its plain version on the grid of the wave's own
   channel-0 model, within the f32 bound of its sums;
 - checks channel 0's wave against the all-plain wave, as configured
-  (border 0) and again with CLEAN's interior kept inside the field.
+  (border 0) and again with CLEAN's interior kept inside the field;
+- runs the probes P1 (A, B, C) and P2 (E, F): the selections and the
+  recombine exact, the FP32 band dot within 1e-6, the TF32 one printed;
+- runs the per-channel CLI path (``frontend.run``) on a simulated
+  64-antenna, 1024-dump, 2-channel L-band observation with noise (in
+  memory: the card's machine has no h5py, so ``--no-tmp-file``) at
+  4096 px, K=60, 2 majors: channel 0 with the DFT-predict major cycle,
+  channel 1 with ``--degrid``; checks the K1-K7 launch counts against the
+  slice, block and major counts, the restored fluxes against the truth,
+  and each channel against the all-plain run;
+- profiles both channels: host seconds by stage, and the device's busy
+  time and idle share under ``torch.profiler``.
 
 Each phase prints one JSON line; the card's name and power limit, the
 kernel table and, last, the ``ok`` line follow.  Any failure raises: the
@@ -184,6 +197,19 @@ def main() -> None:
     gr, gi = out["k"]
     if not (torch.equal(gr, out["p"][0]) and torch.equal(gi, out["p"][1])):
         raise AssertionError("K2 is not bitwise equal to its plain version")
+    # K2's accumulating form (the per-channel path's running grid), onto
+    # the grid just made: bitwise equal to its plain version too.
+    acc_k = fused_gridder.combine_planes(kr, ki, occ, pixels=N, ts=ts,
+                                         out=(gr.clone(), gi.clone()))
+    acc_p = fused_gridder.combine_planes_plain(kr, ki, occ, pixels=N, ts=ts,
+                                               out=(gr.clone(), gi.clone()))
+    same = all(torch.equal(a, b) for a, b in zip(acc_k, acc_p))
+    emit({"phase": "kernel_detail", "name": "K2 accumulate",
+          "bitwise_equal": same})
+    if not same:
+        raise AssertionError("K2's accumulating form is not bitwise equal "
+                             "to its plain version")
+    del acc_k, acc_p
     record("K2 colour combine", "katsdpimager_tpu_torch/csrc/gridder.cu",
            "katsdpimager_tpu/ops/pallas_gridder.py:570",
            max(max_err(gr, out["p"][0]), max_err(gi, out["p"][1])), 0.0,
@@ -279,6 +305,7 @@ def main() -> None:
            max_err(out["k"], out["p"]), 1e-5 * scale, ms, plain_ms)
     del kr, ki, pr, pi, out, img_k, img_p, par, pai, ar, ai, gr, gi
     del pgr, pgi, model, dargs
+    k8_phase(dev, record, rows, fused_fft)
 
     # ---- the step: 8 channels through single_channel_step
     step = mc.single_channel_step(cfg)
@@ -337,6 +364,9 @@ def main() -> None:
     del dirty, got, ref
     wave_phases(cfg, batch, num_channels, rows, card, mc, cube, fourier,
                 fused_gridder, fused_fft, fused_degrid)
+    del batch
+    probe_phase(dev, rows)
+    imager_phase(dev, card, rows)
 
     print(card, flush=True)
     emit({"kernels": rows})
@@ -412,8 +442,9 @@ def wave_phases(mcfg, batch, num_channels, rows, card, mc, cube, fourier,
                              f"expected {want} each")
     if launches[0] != (1 + cfg.majors) * nonempty or min(minors) <= 0:
         raise AssertionError(f"wave launches {launches}, minor {minors}")
-    for row, count in zip(rows, launches):
-        row["launches"] = count
+    by_name = {row["name"].split()[0]: row for row in rows}
+    for name, count in zip(names, launches):
+        by_name[name]["launches"] = count
 
     # ---- restore: beam fits on the host, then the convolution + residual
     t0 = time.perf_counter()
@@ -538,6 +569,490 @@ def k5_on_wave_model(cfg, model, b0, fourier, fused_degrid) -> None:
           "ok": bool((err <= bound).all())})
     if not bool((err <= bound).all()):
         raise AssertionError("K5 on the wave model exceeds the f32 bound")
+
+
+def k8_phase(dev, record, rows, fused_fft) -> None:
+    """K8 at (1, 4096, 4096), sign -1 and +1, against its plain version;
+    then ``fft2`` (two K8 passes) against ``torch.fft.fft2``, with the K8
+    counter reset just before."""
+    gen = torch.Generator().manual_seed(8)
+    shape = (1, 4096, 4096)
+    xr = torch.randn(shape, generator=gen).to(dev)
+    xi = torch.randn(shape, generator=gen).to(dev)
+    out = {}
+    for sign in (-1, 1):
+        ms, plain_ms = timed_pair(
+            lambda: out.__setitem__("p", fused_fft.col_fft_plain(xr, xi,
+                                                                 sign)),
+            lambda: out.__setitem__("k", fused_fft.col_fft(xr, xi, sign)))
+        (kr, ki), (pr, pi) = out["k"], out["p"]
+        scale = max(pr.abs().max().item(), pi.abs().max().item())
+        err = max(max_err(kr, pr), max_err(ki, pi))
+        emit({"phase": "kernel_detail", "name": "K8", "sign": sign,
+              "shape": list(shape), "max_abs_err": err,
+              "err_over_max": err / scale, "ms": ms, "plain_ms": plain_ms})
+        if sign == -1:
+            row = (err, 1e-5 * scale, ms, plain_ms)
+        elif not err <= 1e-5 * scale:
+            raise AssertionError(f"K8 sign +1: error {err} > 1e-5 x {scale}")
+    x = torch.complex(xr, xi)
+    fused_fft.col_fft.launches = 0
+    y = fused_fft.fft2(x, -1)
+    torch.cuda.synchronize()
+    launches = fused_fft.col_fft.launches
+    ms, plain_ms = timed_pair(lambda: torch.fft.fft2(x),
+                              lambda: fused_fft.fft2(x, -1))
+    ref = torch.fft.fft2(x)
+    err = (y - ref).abs().max().item() / ref.abs().max().item()
+    emit({"phase": "fft2", "shape": list(shape), "err_over_max": err,
+          "tolerance": 1e-5, "ms": ms, "torch_fft2_ms": plain_ms,
+          "launches": launches})
+    if not (err <= 1e-5 and launches == 2):
+        raise AssertionError(f"fft2: error {err}, K8 launches {launches}")
+    record("K8 column DFT", "katsdpimager_tpu_torch/csrc/fft.cu",
+           "katsdpimager_tpu/ops/pallas_fft.py:126", *row)
+    rows[-1]["launches"] = launches
+
+
+def probe_phase(dev, rows) -> None:
+    """P1 (A, B, C) and P2 (E, F): the probes' own entry, with their
+    counters reset just before; A, B, E and F exactly 0, C in FP32 within
+    1e-6 relative of a float64 product, C in TF32 printed.  Then every
+    probe kernel against its plain version on the same inputs, and their
+    times."""
+    from katsdpimager_tpu_torch import probes
+
+    for fn in probes.P1 + probes.P2:
+        fn.launches = 0
+    errs = probes.run(dev)
+    torch.cuda.synchronize()
+    launches = {"P1": sum(fn.launches for fn in probes.P1),
+                "P2": sum(fn.launches for fn in probes.P2)}
+    exact = ("A", "B", "E", "F_hi", "F_mid", "F_lo")
+    ok = (all(errs[k] == 0.0 for k in exact)
+          and errs["C_stacked"] <= 1e-6 and errs["C_separate"] <= 1e-6)
+    emit({"phase": "probe", "rel_err": errs, "exact_must_be_0": exact,
+          "c_fp32_tolerance": 1e-6, "launches": launches, "ok": ok})
+    if not ok or min(launches.values()) <= 0:
+        raise AssertionError(f"probes failed: {errs}, launches {launches}")
+
+    # Kernel against plain on the same inputs: the selections and the
+    # recombine exactly; the FP32 dot within 2e-6 of its largest value
+    # (two f32 sums of 256 products in other orders); the TF32 dot within
+    # 1e-4 (tensor cores accumulate in their own order and rounding).
+    d = probes.inputs(dev)
+    tol = {"C_stacked": 2e-6, "C_separate": 2e-6, "C_tf32": 1e-4}
+    for probe, replaces in (("P1", "scripts/mosaic_num_probe.py:64"),
+                            ("P2", "scripts/mosaic_num_probe2.py:90")):
+        worst, worst_tol = 0.0, 0.0
+        group = [c for c in probes.cases(d) if c[1] == probe]
+        for name, _, kernel, plain in group:
+            got, want = kernel(), plain()
+            err = max_err(got, want)
+            t = tol.get(name, 0.0) * want.abs().max().item()
+            emit({"phase": "kernel_detail", "name": f"{probe} {name}",
+                  "max_abs_err": err, "tolerance": t})
+            if not err <= t:
+                raise AssertionError(f"{probe} {name}: {err} > {t}")
+            if err - t >= worst - worst_tol:
+                worst, worst_tol = err, t
+        ms, plain_ms = timed_pair(lambda: [c[3]() for c in group],
+                                  lambda: [c[2]() for c in group], reps=10)
+        emit({"phase": "kernel", "name": probe, "max_abs_err": worst,
+              "tolerance": worst_tol, "ms": ms, "plain_ms": plain_ms,
+              "ok": True})
+        rows.append({"name": f"{probe} f32-exactness probes", "route": "cuda",
+                     "source": "katsdpimager_tpu_torch/csrc/probe.cu",
+                     "replaces": replaces, "launches": launches[probe],
+                     "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms})
+
+
+def sim_dataset(num_antennas: int, num_dumps: int, num_channels: int,
+                noise_jy: float, seed: int = 1):
+    """An in-memory dataset (the card's machine has no h5py): the JAX
+    package's simulator (``simulate.random_array`` within 4 km,
+    ``simulate_vis`` of ``DEFAULT_SOURCES`` over hour angles +-0.5 rad)
+    behind a small ``loader_core.LoaderBase``."""
+    import math
+
+    import numpy as np
+
+    from katsdpimager_tpu import loader_core, polarization, simulate
+
+    ants = simulate.random_array(num_antennas, 4000.0, seed=seed)
+    # 909.5 and 1016.5 MHz for two channels.  Their 11 and 10 W slices keep
+    # the default --w-step within the preprocessor's 1024 W planes per
+    # slice; from 1070 MHz on, 9 slices need 1093.
+    freqs = 856e6 + 107e6 * (np.arange(num_channels) + 0.5)
+    uvw, vis = simulate.simulate_vis(
+        ants, math.radians(-30.7), simulate.DEFAULT_PHASE_CENTRE, freqs,
+        simulate.DEFAULT_SOURCES, np.linspace(-0.5, 0.5, num_dumps),
+        noise_jy=noise_jy, seed=seed + 1)
+    longest = float(np.linalg.norm(uvw, axis=1).max() * 1.01)
+
+    class SimDataset(loader_core.LoaderBase):
+        def __init__(self):
+            super().__init__("simulated", [])
+
+        def antenna_diameter(self):
+            return 13.5
+
+        def longest_baseline(self):
+            return longest
+
+        def num_channels(self):
+            return num_channels
+
+        def frequency(self, channel):
+            return float(freqs[channel])
+
+        def band(self):
+            return "L"
+
+        def phase_centre(self):
+            return simulate.DEFAULT_PHASE_CENTRE
+
+        def polarizations(self):
+            return [polarization.STOKES_XX, polarization.STOKES_XY,
+                    polarization.STOKES_YX, polarization.STOKES_YY]
+
+        def data_iter(self, start_channel, stop_channel, max_chunk_vis=None):
+            total = len(uvw)
+            nc = stop_channel - start_channel
+            step = (total if max_chunk_vis is None
+                    else max(1, max_chunk_vis // max(nc, 1)))
+            for s in range(0, total, step):
+                e = min(total, s + step)
+                v = vis[start_channel:stop_channel, s:e]
+                yield {"uvw": uvw[s:e], "vis": v,
+                       "weights": np.ones(v.shape, np.float32),
+                       "progress": e, "total": total}
+
+    return SimDataset(), len(uvw)
+
+
+def truth_peaks(image_p, beam, image):
+    """test_e2e's flux check: at each default source, the restored image's
+    5 x 5 maximum over the truth's (the sources' I fluxes convolved with
+    the fitted beam, evaluated at their fractional positions)."""
+    import numpy as np
+
+    from katsdpimager_tpu import simulate
+
+    N = image_p.pixels
+    cs = beam.covariance_sqrt()
+    icov = np.linalg.inv(cs @ cs.T)
+    ra0, dec0 = simulate.DEFAULT_PHASE_CENTRE
+    pos = []
+    for src in simulate.DEFAULT_SOURCES:
+        l, m, _ = simulate.lmn(np.array([src.ra]), np.array([src.dec]),
+                               ra0, dec0)
+        pos.append((N // 2 + m[0] / image_p.pixel_size,
+                    N // 2 + l[0] / image_p.pixel_size))
+    out = []
+    for (py, px) in pos:
+        iy, ix = int(round(py)), int(round(px))
+        yy, xx = np.mgrid[iy - 2:iy + 3, ix - 2:ix + 3].astype(np.float64)
+        truth = np.zeros(yy.shape)
+        for src, (sy, sx) in zip(simulate.DEFAULT_SOURCES, pos):
+            dy, dx = yy - sy, xx - sx
+            truth += src.flux_iquv[0] * np.exp(
+                -0.5 * (icov[0, 0] * dy ** 2 + 2 * icov[0, 1] * dy * dx
+                        + icov[1, 1] * dx ** 2))
+        got = float(image[0, iy - 2:iy + 3, ix - 2:ix + 3].max())
+        out.append((got, float(truth.max())))
+    return out
+
+
+def imager_phase(dev, card, rows) -> None:
+    """The per-channel CLI path (``frontend.run``) at full width on a
+    simulated 2-channel L-band observation with noise: channel 0 with the
+    default DFT-predict major cycle, channel 1 with ``--degrid``.  Each
+    run resets the kernel counters just before and checks them against
+    the slice, block and major counts; the restored fluxes against the
+    truth; and the images against the same run on the all-plain path."""
+    import math
+
+    import numpy as np
+
+    from katsdpimager_tpu_torch import frontend, imaging
+    from katsdpimager_tpu_torch.ops import (fused_degrid, fused_fft,
+                                            fused_gridder)
+
+    num_antennas, num_dumps, vis_block = 64, 1024, 1 << 17
+    t0 = time.perf_counter()
+    dataset, num_rows = sim_dataset(num_antennas, num_dumps, 2, noise_jy=1.0)
+    emit({"phase": "imager_data", "seconds": time.perf_counter() - t0,
+          "antennas": num_antennas, "dumps": num_dumps,
+          "rows_per_channel": num_rows,
+          "frequencies_hz": [dataset.frequency(c) for c in range(2)]})
+    counters = (fused_gridder.grid_planes, fused_gridder.combine_planes,
+                fused_fft.cb_col_fft, fused_fft.epi_col_fft,
+                fused_degrid.degrid_planes, fused_fft.pre_col_fft,
+                fused_fft.cbout_col_fft)
+    names = ("K1", "K2", "K3", "K4", "K5", "K6", "K7")
+
+    def run(channel, degrid, plain):
+        args = imager_args(channel, degrid, vis_block)
+        cap = {"clean_s": 0.0}
+
+        class Capture(frontend.Writer):
+            def needs_fits_image(self, name):
+                return name in ("dirty", "model", "residuals", "clean")
+
+            def needs_fits_grid(self, name):
+                return False
+
+            def write_fits_image(self, name, description, ds, image, ip,
+                                 ch, beam=None, bunit=None):
+                cap[name] = np.array(image)
+
+            def write_fits_grid(self, *args, **kwargs):
+                pass
+
+            def statistics(self, ds, ch, **kwargs):
+                cap["stats"] = kwargs
+
+        # Wrap the collector (for the slice lengths the counts follow) and
+        # the CLEAN cycles (host clock, synchronised, for CLEAN's share).
+        pre, cycles = frontend.preprocess_visibilities, \
+            imaging.Imaging.clean_cycles
+
+        def capture_pre(*a, **k):
+            cap["collector"] = pre(*a, **k)
+            return cap["collector"]
+
+        def timed_cycles(self, *a):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            result = cycles(self, *a)
+            cap["clean_s"] += time.perf_counter() - t
+            return result
+
+        frontend.preprocess_visibilities = capture_pre
+        imaging.Imaging.clean_cycles = timed_cycles
+        torch.cuda.synchronize()
+        for fn in counters:
+            fn.launches = 0
+        t = time.perf_counter()
+        try:
+            frontend.run(args, dataset, Capture(), device=dev, plain=plain)
+            torch.cuda.synchronize()
+        finally:
+            frontend.preprocess_visibilities = pre
+            imaging.Imaging.clean_cycles = cycles
+        cap["seconds"] = time.perf_counter() - t
+        cap["launches"] = [fn.launches for fn in counters]
+        reader = cap.pop("collector").reader()
+        lens = [reader.len(0, s) for s in range(reader.num_w_slices(0))]
+        cap["blocks"] = sum(-(-n // vis_block) for n in lens)
+        cap["nonempty"] = sum(n > 0 for n in lens)
+        return cap
+
+    for channel, degrid in ((0, False), (1, True)):
+        got = run(channel, degrid, plain=False)
+        stats = got["stats"]
+        major = stats["major"]
+        passes = 1 + major
+        degrids = major - 1 if degrid else 0
+        want = [passes * got["blocks"]] * 2 + [passes * got["nonempty"]] * 2 \
+            + [degrids * got["blocks"]] + [degrids * got["nonempty"]] * 2
+        peaks = truth_peaks(stats["image_parameters"],
+                            stats["restoring_beam"], got["clean"])
+        flux_ok = all(math.isclose(g, t, rel_tol=0.1) for g, t in peaks)
+        emit({"phase": "imager", "card": card, "channel": channel,
+              "major_cycle": "degrid" if degrid else "DFT predict",
+              "seconds": got["seconds"], "clean_s": got["clean_s"],
+              "compressed_vis": stats["compressed_vis"],
+              "minor": stats["minor"], "major": major,
+              "peak": stats["peak"], "totals": stats["totals"],
+              "noise": stats["noise"],
+              "psf_patch": list(stats["psf_patch_size"]),
+              "w_slices": stats["grid_parameters"].w_slices,
+              "nonempty_slices": got["nonempty"], "blocks": got["blocks"],
+              "launches": dict(zip(names, got["launches"])),
+              "expected_launches": dict(zip(names, want)),
+              "restored_vs_truth": peaks, "flux_within_10pct": flux_ok})
+        if got["launches"] != want or not flux_ok:
+            raise AssertionError(f"imager channel {channel}: launches "
+                                 f"{got['launches']} (expected {want}), "
+                                 f"fluxes {peaks}")
+        by_name = {row["name"].split()[0]: row for row in rows}
+        for name, count in zip(names, got["launches"]):
+            by_name[name].setdefault("imager_launches", []).append(count)
+
+        imager_parity(channel, got, run(channel, degrid, plain=True))
+
+    imager_profile(dev, dataset, vis_block)
+
+
+def imager_args(channel: int, degrid: bool, vis_block: int):
+    """The CLI's arguments for one channel of the simulated observation
+    at full width (the default W spacing)."""
+    from katsdpimager_tpu import arguments
+    from katsdpimager_tpu_torch import imager
+
+    argv = ["simulated", "unused_%c.fits", "--pixels", "4096",
+            "--kernel-width", "60", "--stokes", "I", "--major", "2",
+            "--no-tmp-file", "--vis-block", str(vis_block),
+            "-c", str(channel), "-C", str(channel + 1)]
+    return imager.get_parser().parse_args(
+        argv + (["--degrid"] if degrid else []),
+        namespace=arguments.SmartNamespace())
+
+
+def device_busy_ms(prof) -> tuple:
+    """(busy ms, ms by kernel name) of a ``torch.profiler`` run: the union
+    of the device's kernel, copy and memset intervals in its trace.  The
+    profiler also shows each ``record_function`` range on the device
+    (``gpu_user_annotation``); those are not device work and are left
+    out."""
+    import os
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    spans, by_name = [], {}
+    for ev in events:
+        if ev.get("ph") == "X" and ev.get("cat") in ("kernel", "gpu_memcpy",
+                                                     "gpu_memset"):
+            spans.append((ev["ts"], ev["ts"] + ev["dur"]))
+            name = ev["name"][:60]
+            by_name[name] = by_name.get(name, 0.0) + ev["dur"] / 1e3
+    busy, end = 0.0, float("-inf")
+    for start, stop in sorted(spans):
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    return busy / 1e3, by_name
+
+
+def imager_profile(dev, dataset, vis_block: int) -> None:
+    """Where a per-channel run's time goes, for channel 0 (DFT predict)
+    and channel 1 (``--degrid``), warm, writing only the restored image
+    (as the CLI does by default).  Three runs of each: one plain, on the
+    host clock; one with each stage wrapped in a synchronize on both sides
+    (host seconds by stage, inclusive); one under ``torch.profiler``, for
+    the device's busy time.  The idle share is one less the busy time over
+    the plain run's seconds."""
+    import functools
+
+    from katsdpimager_tpu_torch import frontend, imaging
+    from katsdpimager_tpu_torch.ops import beam
+
+    stages = [(imaging.Imaging, name) for name in (
+        "__init__", "_slice_plan", "grid_slice", "grid_to_image",
+        "degrid_slice", "model_to_grid", "model_to_predict", "model_predict",
+        "psf_patch", "extract_psf_core", "noise_est", "clean_reset",
+        "clean_cycles", "clean_finish", "get_buffer", "finalize_weights",
+        "scale_dirty", "convolve_model_with_beam")]
+    stages += [(frontend, "preprocess_visibilities"), (beam, "fit_beam")]
+    nested = {"_slice_plan"}          # inside grid_slice and degrid_slice
+    seconds, calls = {}, {}
+
+    def timed(name, fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t
+                calls[name] = calls.get(name, 0) + 1
+        return wrapper
+
+    class CleanOnly(frontend.Writer):
+        def needs_fits_image(self, name):
+            return name == "clean"
+
+        def needs_fits_grid(self, name):
+            return False
+
+        def write_fits_image(self, *args, **kwargs):
+            pass
+
+        def write_fits_grid(self, *args, **kwargs):
+            pass
+
+    def run(args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        frontend.run(args, dataset, CleanOnly(), device=dev)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    for channel, degrid in ((0, False), (1, True)):
+        args = imager_args(channel, degrid, vis_block)
+        wall = run(args)
+        seconds.clear()
+        calls.clear()
+        originals = [(owner, name, getattr(owner, name))
+                     for owner, name in stages]
+        for owner, name, fn in originals:
+            setattr(owner, name, timed(name, fn))
+        try:
+            staged = run(args)
+        finally:
+            for owner, name, fn in originals:
+                setattr(owner, name, fn)
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            profiled = run(args)
+        busy_ms, by_name = device_busy_ms(prof)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+        outer = sum(v for k, v in seconds.items() if k not in nested)
+        emit({"phase": "imager_profile", "channel": channel,
+              "major_cycle": "degrid" if degrid else "DFT predict",
+              "seconds": wall, "staged_seconds": staged,
+              "stage_s": dict(sorted(seconds.items(), key=lambda kv: -kv[1])),
+              "stage_calls": calls,
+              "outside_stages_s": staged - outer,
+              "profiled_seconds": profiled, "device_busy_ms": busy_ms,
+              "idle_share": 1 - busy_ms / 1e3 / wall,
+              "top_device_ms": top})
+        if not busy_ms > 0:
+            raise AssertionError("the profiler saw no device work")
+
+
+def imager_parity(channel, got, ref) -> None:
+    """The kernels' run against the all-plain run of the same channel:
+    images within 1e-4 of the dirty peak inside the anti-aliased field
+    (taper^2 >= 0.2% of its peak) and the same CLEAN component positions
+    there; the minor-count difference is printed."""
+    import numpy as np
+
+    from katsdpimager_tpu.ops import wkernel
+
+    ip, gp = got["stats"]["image_parameters"], got["stats"]["grid_parameters"]
+    taper = wkernel.taper(ip.pixels, gp.fixed.antialias_width,
+                          gp.fixed.oversample,
+                          wkernel.default_beta(gp.fixed.antialias_width))
+    t2 = np.outer(taper, taper)
+    inside = t2 >= 0.002 * t2.max()
+    dirty_peak = float(np.abs(ref["dirty"]).max())
+    errs = {name: float(np.abs(got[name] - ref[name])[:, inside].max())
+            / dirty_peak for name in ("dirty", "model", "residuals", "clean")}
+    same = bool(np.array_equal((got["model"] != 0)[:, inside],
+                               (ref["model"] != 0)[:, inside]))
+    minor = [got["stats"]["minor"], ref["stats"]["minor"]]
+    finite = all(np.isfinite(x[name]).all() for x in (got, ref)
+                 for name in ("dirty", "model", "residuals", "clean"))
+    ok = max(errs.values()) <= 1e-4 and same and finite and dirty_peak > 0
+    emit({"phase": "imager_parity", "channel": channel,
+          "max_err_inside_over_dirty_peak": errs, "tolerance": 1e-4,
+          "dirty_peak": dirty_peak,
+          "components_inside": int((got["model"] != 0)[:, inside].sum()),
+          "same_component_positions_inside": same, "finite": finite,
+          "minor": minor, "minor_difference": minor[0] - minor[1],
+          "plain_seconds": ref["seconds"], "ok": ok})
+    if not ok:
+        raise AssertionError(f"imager parity failed on channel {channel}")
 
 
 if __name__ == "__main__":

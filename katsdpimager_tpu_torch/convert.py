@@ -2,7 +2,8 @@
 
 Both packages grid the same chunk layout, so one batch feeds both: the
 tests build it once and hand it to each.  Likewise the cube
-configuration, the wave results and the CLEAN state cross both ways.
+configuration, the wave results, the CLEAN state and the per-channel
+``Imaging`` state cross both ways.
 Arrays cross as numpy; nothing here imports JAX (a JAX array converts
 with ``np.asarray``).
 """
@@ -61,3 +62,48 @@ def tuple_to_numpy(obj) -> dict:
     """A port NamedTuple's fields as numpy arrays, by name (``cls(**d)``
     with the JAX class of the same name rebuilds it there)."""
     return {name: getattr(obj, name).cpu().numpy() for name in obj._fields}
+
+
+#: The per-channel ``Imaging`` images that cross between the packages.
+IMAGING_IMAGES = ("dirty", "model", "psf")
+
+
+def imaging_from_jax(jax_imaging, imaging) -> None:
+    """Give the port's :class:`~.imaging.Imaging` the state of a JAX
+    ``Imaging`` of the same parameters, in place: the density-weight grid,
+    the running grid (complex there, re/im planes here), the dirty, model
+    and PSF images, the PSF patch and, once CLEAN has been reset, its
+    configuration and state."""
+    from .ops import clean as clean_ops
+
+    dev = imaging.device
+
+    def tensor(a):
+        return torch.from_numpy(np.array(a)).to(dev)
+
+    imaging.weights.grid = tensor(jax_imaging.weights.grid)
+    grid = np.asarray(jax_imaging.grid)
+    imaging.grid = (tensor(grid.real.astype(np.float32)),
+                    tensor(grid.imag.astype(np.float32)))
+    for name in IMAGING_IMAGES:
+        setattr(imaging, name, tensor(getattr(jax_imaging, name)))
+    if jax_imaging._psf_patch_arr is not None:
+        imaging._psf_patch_arr = tensor(jax_imaging._psf_patch_arr)
+    if jax_imaging._clean_cfg is not None:
+        imaging._clean_cfg = config_from(clean_ops.CleanConfig,
+                                         jax_imaging._clean_cfg)
+        imaging._clean_state = tuple_from_jax(
+            clean_ops.CleanState, jax_imaging._clean_state, dev)
+        imaging.model = imaging._clean_state.model
+
+
+def imaging_to_numpy(imaging) -> dict:
+    """The port ``Imaging`` state that :func:`imaging_from_jax` carries, as
+    numpy arrays by name (``weights``, ``grid`` complex64, the images, and
+    ``clean_state`` as a dict when CLEAN has been reset)."""
+    out = {name: imaging.get_buffer(name) for name in IMAGING_IMAGES}
+    out["weights"] = imaging.get_buffer("weights_grid")
+    out["grid"] = imaging.get_buffer("grid")
+    if imaging._clean_state is not None:
+        out["clean_state"] = tuple_to_numpy(imaging._clean_state)
+    return out

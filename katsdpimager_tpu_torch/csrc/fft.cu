@@ -3,7 +3,8 @@
 // column DFT + imaging corrections, accumulated into the transposed dirty
 // image) for grid -> image; K6 (image -> layer prologue + forward column
 // DFT, transposed store) and K7 (forward column DFT + output checkerboard)
-// for image -> grid.  Plain C interface, loaded with ctypes by
+// for image -> grid; K8 (plain column DFT, natural orientation) for the
+// 2-D transform building block.  Plain C interface, loaded with ctypes by
 // katsdpimager_tpu_torch/ops/_build.py; the Python wrappers and plain
 // PyTorch versions are in ops/fused_fft.py.
 //
@@ -268,6 +269,52 @@ cbout_col_fft_kernel(const float* __restrict__ xr,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K8 -- replaces katsdpimager_tpu/ops/pallas_fft.py:_make_col_kernel
+// (col_fft, driven twice by fft2_pallas).
+//
+// y[b, k, c] = sum_r x[b, r, c] exp(sgn 2 pi i r k / N): the plain
+// unnormalised DFT of every column of a (B, N, M) plane pair, sgn = -1
+// forward, +1 inverse, stored in natural orientation (K3 and K6 store
+// transposed).  One CTA per (CB columns, batch); a ragged last column
+// block loads zeros and stores nothing past M.  Bound like K3: the
+// shared-memory radix-2 passes and the strided column loads and stores,
+// whose row segments are CB * 4 bytes.
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kThreads)
+col_fft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+               const float2* __restrict__ tw, float* __restrict__ yr,
+               float* __restrict__ yi, int logN, int M, int CB, float sgn) {
+  extern __shared__ float2 buf[];
+  const int N = 1 << logN;
+  const size_t plane = static_cast<size_t>(blockIdx.y) * N * M;
+  const int c0 = blockIdx.x * CB;
+  for (int e = threadIdx.x; e < N * CB; e += blockDim.x) {
+    const int r = e / CB;
+    const int j = e - r * CB;
+    const int c = c0 + j;
+    float2 v = make_float2(0.0f, 0.0f);
+    if (c < M) {
+      const size_t off = plane + static_cast<size_t>(r) * M + c;
+      v = make_float2(xr[off], xi[off]);
+    }
+    buf[j * N + bitrev(r, logN)] = v;
+  }
+  fft_columns(buf, logN, CB, tw, sgn);
+  for (int e = threadIdx.x; e < N * CB; e += blockDim.x) {
+    const int r = e / CB;
+    const int j = e - r * CB;
+    const int c = c0 + j;
+    if (c < M) {
+      const size_t off = plane + static_cast<size_t>(r) * M + c;
+      const float2 v = buf[j * N + r];
+      yr[off] = v.x;
+      yi[off] = v.y;
+    }
+  }
+}
+
 int log2_exact(int N) {
   int l = 0;
   while ((1 << l) < N) ++l;
@@ -329,6 +376,21 @@ extern "C" int ktt_pre_col_fft(const void* imgT, const void* tw,
       static_cast<const float*>(imgT), static_cast<const float2*>(tw),
       static_cast<const float*>(taper), static_cast<const float*>(scal),
       static_cast<float*>(yr), static_cast<float*>(yi), logN, CB);
+  return cudaGetLastError();
+}
+
+extern "C" int ktt_col_fft(const void* xr, const void* xi, const void* tw,
+                           void* yr, void* yi, int B, int N, int M, int sign,
+                           void* stream) {
+  int logN, CB, smem;
+  if (M <= 0 || (sign != 1 && sign != -1)) return cudaErrorInvalidValue;
+  cudaError_t err = prepare(col_fft_kernel, N, B, &logN, &CB, &smem);
+  if (err != cudaSuccess) return err;
+  col_fft_kernel<<<dim3((M + CB - 1) / CB, B), kThreads, smem,
+                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(xr), static_cast<const float*>(xi),
+      static_cast<const float2*>(tw), static_cast<float*>(yr),
+      static_cast<float*>(yi), logN, M, CB, static_cast<float>(sign));
   return cudaGetLastError();
 }
 

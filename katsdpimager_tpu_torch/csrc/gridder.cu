@@ -181,7 +181,10 @@ cudaError_t launch_grid_planes(const int* slot, int n, const int* iu,
 //
 // What it computes: gr[p, r, c] = ((x00 + x01) + x10) + x11 with
 // x_ab = accr[a, b, p, r - a ts, c - b ts] where that lies in the plane
-// and its tile is occupied, else 0 (likewise gi from acci).
+// and its tile is occupied, else 0 (likewise gi from acci).  With
+// `accumulate` the planes add onto the grid already in gr/gi, in the order
+// of the JAX running-grid combine (pallas_gridder.py:grid_chunks_fused):
+// gr = (((gr + x00) + x01) + x10) + x11.
 //
 // What bounds it on this card: device memory bandwidth (8 plane reads and
 // 2 writes of 4 B per output pixel, about 0.7 GB at N = 4096, P = 1); no
@@ -201,7 +204,7 @@ __global__ void combine_planes_kernel(const float* __restrict__ accr,
                                       const unsigned char* __restrict__ occ,
                                       float* __restrict__ gr,
                                       float* __restrict__ gi, int P, int N,
-                                      int ts, int nt2) {
+                                      int ts, int nt2, int accumulate) {
   const size_t total = static_cast<size_t>(P) * N * N;
   const size_t idx =
       static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -227,8 +230,13 @@ __global__ void combine_planes_kernel(const float* __restrict__ accr,
       xi[ab] = acci[off];
     }
   }
-  gr[idx] = ((xr[0] + xr[1]) + xr[2]) + xr[3];
-  gi[idx] = ((xi[0] + xi[1]) + xi[2]) + xi[3];
+  if (accumulate) {
+    gr[idx] = (((gr[idx] + xr[0]) + xr[1]) + xr[2]) + xr[3];
+    gi[idx] = (((gi[idx] + xi[0]) + xi[1]) + xi[2]) + xi[3];
+  } else {
+    gr[idx] = ((xr[0] + xr[1]) + xr[2]) + xr[3];
+    gi[idx] = ((xi[0] + xi[1]) + xi[2]) + xi[3];
+  }
 }
 
 }  // namespace
@@ -265,7 +273,8 @@ extern "C" int ktt_grid_planes(const void* slot, int n, const void* iu,
 
 extern "C" int ktt_combine_planes(const void* accr, const void* acci,
                                   const void* occ, void* gr, void* gi, int P,
-                                  int N, int ts, int nt2, void* stream) {
+                                  int N, int ts, int nt2, int accumulate,
+                                  void* stream) {
   const size_t total = static_cast<size_t>(P) * N * N;
   if (total == 0) return cudaErrorInvalidValue;
   const int threads = 256;
@@ -274,6 +283,6 @@ extern "C" int ktt_combine_planes(const void* accr, const void* acci,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(accr), static_cast<const float*>(acci),
       static_cast<const unsigned char*>(occ), static_cast<float*>(gr),
-      static_cast<float*>(gi), P, N, ts, nt2);
+      static_cast<float*>(gi), P, N, ts, nt2, accumulate);
   return cudaGetLastError();
 }

@@ -3,7 +3,7 @@
 The sources are compiled at first use with ``nvcc`` for ``sm_90a``, one
 ``nvcc`` process per source, all started together, then linked into one
 shared library with a plain C interface, loaded with :mod:`ctypes`.
-(With 8 CPU cores and three sources this takes 2.3-2.5 s against
+(With 8 CPU cores and three sources this took 2.3-2.5 s against
 5.2-5.5 s for one ``nvcc`` over all of them.)
 The library lands in ``katsdpimager_tpu_torch/_build/<hash>/``, keyed by
 a hash of the sources and the compiler flags, so an edited source is
@@ -48,8 +48,8 @@ SIGNATURES = {
     # NC, Mc, P, K, ts, nt2, stream
     "ktt_grid_planes": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _I, _P],
-    # accr, acci, occ, gr, gi, P, N, ts, nt2, stream
-    "ktt_combine_planes": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # accr, acci, occ, gr, gi, P, N, ts, nt2, accumulate, stream
+    "ktt_combine_planes": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # xr, xi, tw, yr, yi, P, N, stream
     "ktt_cb_col_fft": [_P, _P, _P, _P, _P, _I, _I, _P],
     # xr, xi, tw, taper, scal, imgT, P, N, stream
@@ -61,6 +61,17 @@ SIGNATURES = {
     # gr, gi, av, au, iu, iv, su, sv, tab, pred, n, Mc, P, N, K, ts2, stream
     "ktt_degrid_planes": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _P],
+    # xr, xi, tw, yr, yi, B, N, M, sign, stream
+    "ktt_col_fft": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # idx, tab, out, M, W, L, recombine, stream
+    "ktt_probe_select_bf16": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # idx, table, out, M, W, L, stream
+    "ktt_probe_select_f32": [_P, _P, _P, _I, _I, _I, _P],
+    # x, y, out, Mk, I, J, stream
+    "ktt_probe_dot_f32": [_P, _P, _P, _I, _I, _I, _P],
+    "ktt_probe_dot_tf32": [_P, _P, _P, _I, _I, _I, _P],
+    # tab, out, W, L, stream
+    "ktt_probe_recombine": [_P, _P, _I, _I, _P],
 }
 
 _lock = threading.Lock()

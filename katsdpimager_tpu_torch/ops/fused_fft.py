@@ -1,4 +1,4 @@
-r"""Fused grid <-> image transforms: kernels K3, K4, K6 and K7.
+r"""Fused grid <-> image transforms: kernels K3, K4, K6, K7 and K8.
 
 Counterpart of :func:`katsdpimager_tpu.ops.pallas_fft.grid_to_image_fused_parts`
 and :func:`~katsdpimager_tpu.ops.pallas_fft.image_to_grid_fused_parts`.
@@ -19,6 +19,12 @@ Image -> grid (forward DFT, for the degridder):
   registers, then ``colDFT(layer)``, stored transposed;
 - **K7** (:func:`cbout_col_fft`): ``cb * colDFT(x)``, stored in place:
   ``colDFT(swap(colDFT(layerT))) == DFT2(layer)`` the right way round.
+
+The 2-D transform building block:
+
+- **K8** (:func:`col_fft`): the plain unnormalised column DFT, sign +1 or
+  -1, stored in natural orientation; :func:`fft2` drives it twice, as the
+  JAX package's ``fft2_pallas`` does.
 
 The dirty image stays TRANSPOSED across the W-slice loop (every factor is
 symmetric in (row, col)); the caller transposes it once per channel.
@@ -68,8 +74,13 @@ def twiddles(n: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(t).to(device)
 
 
+def kernel_size_ok(n: int) -> bool:
+    """Whether the column-DFT kernels take columns of length ``n``."""
+    return not n & (n - 1) and MIN_N <= n <= MAX_N
+
+
 def _check_kernel_size(n: int) -> None:
-    if n & (n - 1) or not MIN_N <= n <= MAX_N:
+    if not kernel_size_ok(n):
         raise NotImplementedError(
             f"the column-DFT kernels take power-of-two N in [{MIN_N}, "
             f"{MAX_N}], not {n}; 2^a 3^b 5^c 7^d sizes are not ported yet")
@@ -317,3 +328,68 @@ def image_to_grid_fused_parts(imageT, kernel1d, w, pixel_size, *,
     k7 = cbout_col_fft_plain if plain else cbout_col_fft
     ar_t, ai_t = k6(imageT, taper, scal)
     return k7(ar_t, ai_t)
+
+
+# ---------------------------------------------------------------------------
+# K8
+
+
+def col_fft_plain(xr, xi, sign: int):
+    """Plain PyTorch version of K8: the unnormalised DFT along axis -2 of
+    ``xr + i xi`` (``torch.fft.fft`` for ``sign = -1``, the unnormalised
+    inverse for ``sign = +1``), as an f32 re/im pair."""
+    x = torch.complex(xr, xi)
+    if sign == -1:
+        y = torch.fft.fft(x, dim=-2)
+    elif sign == 1:
+        y = torch.fft.ifft(x, dim=-2, norm="forward")
+    else:
+        raise ValueError(f"sign must be +1 or -1, not {sign}")
+    return y.real.contiguous(), y.imag.contiguous()
+
+
+def col_fft(xr, xi, sign: int):
+    """K8: the unnormalised DFT of every column of (..., N, M) f32 re/im
+    planes, sign -1 (forward) or +1 (inverse), stored in natural
+    orientation.  Returns a new (..., N, M) f32 pair.
+
+    CPU tensors run :func:`col_fft_plain`; CUDA tensors launch
+    ``ktt_col_fft`` (``csrc/fft.cu``) or raise.  N must be a power of two
+    in [256, 8192]; M is free (a ragged last column block is masked).
+
+    Replaces ``katsdpimager_tpu/ops/pallas_fft.py:_make_col_kernel``
+    (``col_fft``).  Bound like K3: the shared-memory radix-2 passes and the
+    strided column loads and stores."""
+    if xr.device.type == "cpu":
+        return col_fft_plain(xr, xi, sign)
+    if sign not in (1, -1):
+        raise ValueError(f"sign must be +1 or -1, not {sign}")
+    *batch, n, m = xr.shape
+    _check_kernel_size(n)
+    B = math.prod(batch)
+    _build.expect(xr, "xr", torch.float32, xr.shape, xr.device)
+    _build.expect(xi, "xi", torch.float32, xr.shape, xr.device)
+    tw = twiddles(n, xr.device)
+    yr = torch.empty_like(xr)
+    yi = torch.empty_like(xr)
+    err = _build.load().ktt_col_fft(
+        xr.data_ptr(), xi.data_ptr(), tw.data_ptr(), yr.data_ptr(),
+        yi.data_ptr(), B, n, m, sign, _build.stream_of(xr))
+    _build.check(err, "ktt_col_fft")
+    col_fft.launches += 1
+    return yr, yi
+
+
+col_fft.launches = 0
+
+
+def fft2(x, sign: int = -1):
+    """Unnormalised 2-D DFT over the last two axes of a complex square
+    array, as :func:`katsdpimager_tpu.ops.pallas_fft.fft2_pallas`: a K8
+    column pass, a swap, a second column pass, a swap back."""
+    xr = x.real.to(torch.float32).contiguous()
+    xi = x.imag.to(torch.float32).contiguous()
+    yr, yi = col_fft(xr, xi, sign)
+    zr, zi = col_fft(yr.transpose(-1, -2).contiguous(),
+                     yi.transpose(-1, -2).contiguous(), sign)
+    return torch.complex(zr.transpose(-1, -2), zi.transpose(-1, -2))

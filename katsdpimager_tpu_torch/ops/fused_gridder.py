@@ -159,10 +159,12 @@ grid_planes.launches = 0
 # K2: colour-plane combine into the cropped grid
 
 
-def combine_planes_plain(accr, acci, occ, *, pixels: int, ts: int):
+def combine_planes_plain(accr, acci, occ, *, pixels: int, ts: int,
+                         out=None):
     """Plain PyTorch version of K2 (same arguments as
     :func:`combine_planes`): masked, placed colour planes summed in the
-    order ``((p00 + p01) + p10) + p11``."""
+    order ``((p00 + p01) + p10) + p11``, or onto ``out`` in the order
+    ``(((g + p00) + p01) + p10) + p11``."""
     _, _, P, ext2, _ = accr.shape
     n = pixels
     TS2 = 2 * ts
@@ -174,20 +176,31 @@ def combine_planes_plain(accr, acci, occ, *, pixels: int, ts: int):
         out[:, a * ts:, b * ts:] = sel[:, :n - a * ts, :n - b * ts]
         return out
 
-    def combine(plane):
-        g = placed(plane, 0, 0) + placed(plane, 0, 1)
+    def combine(plane, base):
+        g = placed(plane, 0, 0)
+        g = g + placed(plane, 0, 1) if base is None else (
+            (base + g) + placed(plane, 0, 1))
         return (g + placed(plane, 1, 0)) + placed(plane, 1, 1)
 
-    return combine(accr), combine(acci)
+    if out is None:
+        return combine(accr, None), combine(acci, None)
+    out[0].copy_(combine(accr, out[0]))
+    out[1].copy_(combine(acci, out[1]))
+    return out
 
 
-def combine_planes(accr, acci, occ, *, pixels: int, ts: int):
+def combine_planes(accr, acci, occ, *, pixels: int, ts: int, out=None):
     """K2: ``(accr, acci, occ)`` -> cropped (P, N, N) f32 ``(gr, gi)``.
 
     Adds the four colour planes at offsets ``(a ts, b ts)``, selecting
     zero for tiles that ``occ`` (2, 2, nt2, nt2) bool marks unwritten.
     Bitwise equal to :func:`combine_planes_plain` and to the JAX
     ``combine_planes_fused``: same add order, select not multiply.
+
+    With ``out``, a ``(gr, gi)`` pair of running grid planes, the colour
+    planes are added onto it in place, in the order of the JAX running-grid
+    combine ``grid_chunks_fused``: ``(((g + p00) + p01) + p10) + p11``;
+    ``out`` is returned.
 
     CPU tensors run the plain version; CUDA tensors launch
     ``ktt_combine_planes`` (``csrc/gridder.cu``) or raise.
@@ -198,22 +211,31 @@ def combine_planes(accr, acci, occ, *, pixels: int, ts: int):
     ``nvcc`` build.
     """
     if accr.device.type == "cpu":
-        return combine_planes_plain(accr, acci, occ, pixels=pixels, ts=ts)
+        return combine_planes_plain(accr, acci, occ, pixels=pixels, ts=ts,
+                                    out=out)
     dev = accr.device
     _, _, P, ext2, _ = accr.shape
     nt2 = ext2 // (2 * ts)
-    if pixels % ts or pixels + ts > ext2:
+    # One thread per output pixel: any N whose shifted planes cover it
+    # (the JAX kernel's ts-row strips also needed N % ts == 0).
+    if pixels + ts > ext2:
         raise ValueError(f"K2: pixels {pixels} incompatible with ts {ts} "
                          f"and plane extent {ext2}")
     _build.expect(accr, "accr", torch.float32, (2, 2, P, ext2, ext2), dev)
     _build.expect(acci, "acci", torch.float32, (2, 2, P, ext2, ext2), dev)
     _build.expect(occ, "occ", torch.bool, (2, 2, nt2, nt2), dev)
-    gr = torch.empty((P, pixels, pixels), dtype=torch.float32, device=dev)
-    gi = torch.empty_like(gr)
+    if out is None:
+        gr = torch.empty((P, pixels, pixels), dtype=torch.float32, device=dev)
+        gi = torch.empty_like(gr)
+    else:
+        gr, gi = out
+        _build.expect(gr, "gr", torch.float32, (P, pixels, pixels), dev)
+        _build.expect(gi, "gi", torch.float32, (P, pixels, pixels), dev)
     lib = _build.load()
     err = lib.ktt_combine_planes(
         accr.data_ptr(), acci.data_ptr(), occ.data_ptr(), gr.data_ptr(),
-        gi.data_ptr(), P, pixels, ts, nt2, _build.stream_of(accr))
+        gi.data_ptr(), P, pixels, ts, nt2, int(out is not None),
+        _build.stream_of(accr))
     _build.check(err, "ktt_combine_planes")
     combine_planes.launches += 1
     return gr, gi

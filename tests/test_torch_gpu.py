@@ -250,3 +250,117 @@ def test_wave_matches_plain(cuda):
     for a, b in ((got.model, ref.model), (got.residual, ref.residual)):
         assert torch.isfinite(a).all()
         assert (a - b).abs()[..., inside].max().item() <= 1e-4 * peak
+
+
+@pytest.mark.parametrize("shape", [(2, 256, 384), (1, 4096, 4096),
+                                   (3, 512, 200)])
+def test_k8_matches_plain(cuda, shape):
+    """K8 within 1e-5 of the largest output of its plain version (f32
+    transforms in another order), both signs; fft2 against torch's."""
+    gen = torch.Generator(device="cpu").manual_seed(shape[1])
+    xr = torch.randn(shape, generator=gen).to(cuda)
+    xi = torch.randn(shape, generator=gen).to(cuda)
+    for sign in (-1, 1):
+        kr, ki = fused_fft.col_fft(xr, xi, sign)
+        pr, pi = fused_fft.col_fft_plain(xr, xi, sign)
+        scale = max(pr.abs().max().item(), pi.abs().max().item())
+        assert (kr - pr).abs().max().item() <= 1e-5 * scale
+        assert (ki - pi).abs().max().item() <= 1e-5 * scale
+    if shape[1] == shape[2]:
+        x = torch.complex(xr, xi)
+        ref = torch.fft.fft2(x)
+        got = fused_fft.fft2(x, -1)
+        assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("pixels", [1024, 1000])
+def test_k2_accumulate_matches_plain(cuda, pixels):
+    """K2 onto a running grid: bitwise equal to its plain version, also
+    where the tile size does not divide N."""
+    ts, K = 64, 60
+    kernel, wg, plan = _plan_case(5, pixels=pixels, K=K, ts=ts, P=2,
+                                  n=20000)
+    ar, ai, occ = _planes(cuda, kernel, wg, plan, pixels=pixels, ts=ts,
+                          plain=False)
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    base = [torch.randn((2, pixels, pixels), generator=gen).to(cuda)
+            for _ in range(2)]
+    k = fused_gridder.combine_planes(ar, ai, occ, pixels=pixels, ts=ts,
+                                     out=tuple(b.clone() for b in base))
+    p = fused_gridder.combine_planes_plain(ar, ai, occ, pixels=pixels, ts=ts,
+                                           out=tuple(b.clone() for b in base))
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+
+
+def test_probes_on_the_card(cuda):
+    """P1 and P2: A, B, E and F exact, C in FP32 within 1e-6, C in TF32
+    far less exact; every probe kernel against its plain version."""
+    from katsdpimager_tpu_torch import probes
+
+    errs = probes.run(cuda)
+    for name in ("A", "B", "E", "F_hi", "F_mid", "F_lo"):
+        assert errs[name] == 0.0, name
+    assert errs["C_stacked"] <= 1e-6 and errs["C_separate"] <= 1e-6
+    assert errs["C_tf32"] > 1e-5
+    tol = {"C_stacked": 2e-6, "C_separate": 2e-6, "C_tf32": 1e-4}
+    for name, _, kernel, plain in probes.cases(probes.inputs(cuda)):
+        got, want = kernel(), plain()
+        assert ((got - want).abs().max().item()
+                <= tol.get(name, 0.0) * want.abs().max().item()), name
+
+
+@pytest.mark.parametrize("pixels", [512, 1000])
+def test_per_channel_run_matches_plain(cuda, pixels):
+    """The per-channel CLI path (K = 16, --degrid, 2 majors) on the card
+    against the all-plain run: images within 1e-4 of the dirty peak
+    inside the anti-aliased field, the same components there.  At 512 px
+    through K1-K7; at 1000 px (smooth, no power of two, 1000 % ts != 0)
+    through K1, K2 and K5, the transforms taking torch.fft by rule."""
+    import chip_smoke
+    from katsdpimager_tpu import arguments
+    from katsdpimager_tpu.ops import wkernel
+    from katsdpimager_tpu_torch import frontend, imager
+
+    dataset, _ = chip_smoke.sim_dataset(16, 128, 1, noise_jy=0.5)
+    argv = ["simulated", "unused_%c.fits", "--pixels", str(pixels),
+            "--kernel-width", "16", "--major", "2", "--degrid",
+            "--no-tmp-file", "--vis-block", "1024"]
+
+    def run(plain):
+        args = imager.get_parser().parse_args(
+            argv, namespace=arguments.SmartNamespace())
+        cap = {}
+
+        class Capture(frontend.Writer):
+            def needs_fits_image(self, name):
+                return name in ("dirty", "model", "clean")
+
+            def needs_fits_grid(self, name):
+                return False
+
+            def write_fits_image(self, name, desc, ds, image, ip, ch,
+                                 beam=None, bunit=None):
+                cap[name] = np.array(image)
+
+            def write_fits_grid(self, *a, **k):
+                pass
+
+        frontend.run(args, dataset, Capture(), device=cuda, plain=plain)
+        return cap
+
+    fused_degrid.degrid_planes.launches = 0
+    fused_fft.cb_col_fft.launches = 0
+    got = run(False)
+    assert fused_degrid.degrid_planes.launches > 0
+    assert (fused_fft.cb_col_fft.launches > 0) == (pixels == 512)
+    ref = run(True)
+    taper = wkernel.taper(pixels, 7.0, 8, wkernel.default_beta(7.0))
+    t2 = np.outer(taper, taper)
+    inside = t2 >= 0.002 * t2.max()
+    peak = np.abs(ref["dirty"]).max()
+    for name in ("dirty", "model", "clean"):
+        assert np.isfinite(got[name]).all()
+        assert np.abs(got[name] - ref[name])[:, inside].max() <= 1e-4 * peak
+    np.testing.assert_array_equal((got["model"] != 0)[:, inside],
+                                  (ref["model"] != 0)[:, inside])
