@@ -10,9 +10,13 @@ It builds the port's CUDA kernels (K1-K8 and the probes P1/P2) from
 4096 px, K=60, oversample 8, 32 W planes, 4 W slices, 2^19 visibilities
 per slice, natural weights), then:
 
+- prints what ``ptxas -v`` reported for K1 and K8 (registers, spills,
+  shared memory);
 - checks every kernel against its plain PyTorch version at the shapes of
   the main paths (channel 0, slice 0; K8 at (1, 4096, 4096)) and times
-  both; ``fft2`` (two K8 passes) against ``torch.fft.fft2``;
+  both, and K8 also against ``torch.fft.fft`` along dim -2, in turns;
+  computes each kernel's roofline bound from its inputs (H100 SXM peaks);
+  ``fft2`` (two K8 passes) against ``torch.fft.fft2``;
 - runs the 8-channel dirty-image step through
   ``multichannel.single_channel_step`` (1 warm-up, 3 timed iterations)
   with the launch counters reset just before, and checks channel 0's
@@ -47,6 +51,7 @@ It imports no JAX.
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -54,8 +59,38 @@ import time
 import torch
 
 
+# Published peaks of one H100 SXM (NVIDIA's data sheet, dense, at its
+# 700 W limit): the least time a kernel could take is the larger of its
+# bytes (each input read once, each output written once) over the memory
+# rate and its operations over the rate of the unit that does them: FP32
+# outside the tensor cores, TF32 or bf16 on them.
+H100_SXM_HBM_BYTES_PER_S = 3.35e12
+H100_SXM_FLOP_PER_S = {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12}
+
+#: Times of the designs K1 and K8 replace, as PERF.md records them for
+#: PR 3 (call 3 for K1; calls 3-10 for K8) on "NVIDIA H100 80GB HBM3,
+#: 700.00 W".
+REPLACED_DESIGN_MS = {"K1": 5.204, "K8": (0.854, 0.901)}
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def bound(nbytes: float, **flops: float) -> dict:
+    """``bound_ms`` and ``bound_by`` of a kernel that moves ``nbytes`` and
+    does ``flops[unit]`` operations on each unit of
+    :data:`H100_SXM_FLOP_PER_S` (``fp32=``, ``tf32=``, ``bf16=``), at the
+    H100 SXM peaks."""
+    t_bytes = nbytes / H100_SXM_HBM_BYTES_PER_S
+    t_ops = sum(f / H100_SXM_FLOP_PER_S[unit] for unit, f in flops.items())
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def fft_flops(n: int, columns: int) -> float:
+    """5 n log2 n per complex transform of length n, ``columns`` of them."""
+    return 5.0 * n * math.log2(n) * columns
 
 
 def card_line() -> str:
@@ -79,17 +114,18 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def timed_pair(plain, kernel, reps: int = 3):
+def timed_pair(plain, kernel, reps: int = 3, library=None):
     """(kernel ms, plain ms), warmed up, measured in turns plain, kernel,
-    kernel, plain."""
-    plain()
-    kernel()
+    kernel, plain; with ``library``, (kernel ms, plain ms, library ms) in
+    turns plain, kernel, library, library, kernel, plain."""
+    fns = [plain, kernel] + ([library] if library else [])
+    for fn in fns:
+        fn()
     torch.cuda.synchronize()
-    p1 = cuda_ms(plain, reps)
-    k1 = cuda_ms(kernel, reps)
-    k2 = cuda_ms(kernel, reps)
-    p2 = cuda_ms(plain, reps)
-    return (k1 + k2) / 2, (p1 + p2) / 2
+    ms = [0.0] * len(fns)
+    for i in list(range(len(fns))) + list(reversed(range(len(fns)))):
+        ms[i] += cuda_ms(fns[i], reps) / 2
+    return (ms[1], ms[0], ms[2]) if library else (ms[1], ms[0])
 
 
 def max_err(a, b) -> float:
@@ -119,6 +155,14 @@ def main() -> None:
     _build.load()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": _build.lib_path()})
+    emit({"phase": "ptxas", "kernels": [
+        k for k in _build.ptxas_report()
+        if "grid_planes_kernelI" in k["function"]
+        or "col_fft_k8_kernel" in k["function"]]})
+    emit({"phase": "roofline", "card": card,
+          "hbm_bytes_per_s": H100_SXM_HBM_BYTES_PER_S,
+          "flop_per_s": H100_SXM_FLOP_PER_S,
+          "peaks_of": "H100 SXM, NVIDIA data sheet, 700 W"})
 
     cfg = mc.MultiChannelConfig(
         pixels=4096, num_pols=1, kernel_width=60, oversample=8,
@@ -132,6 +176,11 @@ def main() -> None:
     num_vis = int(batch.valid.sum())
     emit({"phase": "batch", "seconds": time.perf_counter() - t0,
           "num_vis": num_vis, "n_chunks": batch.n_chunks.tolist()})
+    # K1 grids each chunk's first ``count`` slots: the planner's prefix
+    # invariant, held on every chunk of the batch (its plain version
+    # grids every valid slot, so a broken prefix also fails K1's parity).
+    fused_gridder.check_valid_prefix(
+        batch.valid, fused_gridder.valid_counts(batch.valid))
 
     # ---- per-kernel parity and times at channel 0, slice 0
     N, ts, K = cfg.pixels, cfg.rv, cfg.kernel_width
@@ -147,6 +196,7 @@ def main() -> None:
     sre, sim = fused_gridder.samples(vis, val, None, None, anc, su, sv,
                                      kernel_width=K, ts=ts)
     slot = fused_gridder.chunk_slots(anc, n, ts=ts, nt2=nt2)
+    count = fused_gridder.valid_counts(val)
     table = fused_gridder.conj_table(kern)
     occ = fused_gridder.occupancy(slot, n, nt2)
     shape = (2, 2, cfg.num_pols, ext2, ext2)
@@ -154,25 +204,42 @@ def main() -> None:
     pr, pi = (torch.empty(shape, device=dev) for _ in range(2))
 
     def k1_kernel():
-        fused_gridder.grid_planes(slot, n, iu, iv, su, sv, sre, sim, table,
-                                  kr, ki, ts=ts)
+        fused_gridder.grid_planes(slot, n, count, iu, iv, su, sv, sre, sim,
+                                  table, kr, ki, ts=ts)
 
     def k1_plain():
-        fused_gridder.grid_planes_plain(slot, n, iu, iv, su, sv, sre, sim,
-                                        table, pr, pi, ts=ts)
+        fused_gridder.grid_planes_plain(slot, n, count, iu, iv, su, sv, sre,
+                                        sim, table, pr, pi, ts=ts)
 
     rows = []
 
-    def record(name, source, replaces, err, tol, ms, plain_ms):
+    def record(name, source, replaces, err, tol, ms, plain_ms, bnd,
+               library_ms=None):
         ok = err <= tol
         emit({"phase": "kernel", "name": name, "max_abs_err": err,
-              "tolerance": tol, "ms": ms, "plain_ms": plain_ms, "ok": ok})
+              "tolerance": tol, "ms": ms, "plain_ms": plain_ms,
+              "library_ms": library_ms, **bnd, "card": card, "ok": ok})
         if not ok:
             raise AssertionError(f"{name}: error {err} > tolerance {tol}")
         rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "max_abs_err": err, "ms": ms,
-                     "plain_ms": plain_ms})
+                     "replaces": replaces, "launches": 0,
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     **bnd, "library_ms": library_ms})
 
+    P = cfg.num_pols
+    Mc = cfg.chunk_size
+    n_valid = int(count[:n].sum())
+    runs = int(occ.sum())
+    window_bytes = runs * P * (2 * ts) ** 2 * 8       # re + im f32
+    plane_bytes = P * N * N * 4                         # one f32 plane
+    # K1's band product runs on the tensor cores in 3xTF32: three TF32
+    # products for each of the 8 K^2 real operations of a visibility.
+    k1_bound = bound(
+        2 * n * 4 + n_valid * (4 * 4 + 2 * P * 4) + table.numel() * 8
+        + window_bytes, tf32=3 * 8.0 * K * K * P * n_valid)
+    emit({"phase": "kernel_detail", "name": "K1 work", "chunks": n,
+          "slots": n * Mc, "valid_slots": n_valid,
+          "valid_share": n_valid / (n * Mc), "runs": runs})
     ms, plain_ms = timed_pair(k1_plain, k1_kernel)
     written = occ.repeat_interleave(2 * ts, -2).repeat_interleave(
         2 * ts, -1)[:, :, None]                     # (2, 2, 1, ext2, ext2)
@@ -182,7 +249,10 @@ def main() -> None:
               (ki - pi).abs().where(written, 0.0).max().item())
     record("K1 fused gridder", "katsdpimager_tpu_torch/csrc/gridder.cu",
            "katsdpimager_tpu/ops/pallas_gridder.py:118", err, 2e-5 * scale,
-           ms, plain_ms)
+           ms, plain_ms, k1_bound)
+    emit({"phase": "redesign", "name": "K1", "ms": ms,
+          "replaced_design_ms_recorded": REPLACED_DESIGN_MS["K1"],
+          "speedup_over_recorded": REPLACED_DESIGN_MS["K1"] / ms})
 
     out = {}
 
@@ -213,7 +283,8 @@ def main() -> None:
     record("K2 colour combine", "katsdpimager_tpu_torch/csrc/gridder.cu",
            "katsdpimager_tpu/ops/pallas_gridder.py:570",
            max(max_err(gr, out["p"][0]), max_err(gi, out["p"][1])), 0.0,
-           ms, plain_ms)
+           ms, plain_ms,
+           bound(window_bytes + occ.numel() + 2 * plane_bytes))
 
     def k3_kernel():
         out["k"] = fused_fft.cb_col_fft(gr, gi)
@@ -227,7 +298,7 @@ def main() -> None:
     record("K3 checkerboard column DFT", "katsdpimager_tpu_torch/csrc/fft.cu",
            "katsdpimager_tpu/ops/pallas_fft.py:204",
            max(max_err(ar, par), max_err(ai, pai)), 1e-5 * scale,
-           ms, plain_ms)
+           ms, plain_ms, bound(4 * plane_bytes, fp32=fft_flops(N, N * P)))
 
     taper = batch.taper1d[0]
     scal = fused_fft.scalars(batch.mid_w[0, 0], batch.pixel_size[0], dev)
@@ -251,7 +322,8 @@ def main() -> None:
            "katsdpimager_tpu_torch/csrc/fft.cu",
            "katsdpimager_tpu/ops/pallas_fft.py:227",
            ((img_k - img_p).abs() * weight).max().item(),
-           1e-5 * img_p.abs().max().item(), ms, plain_ms)
+           1e-5 * img_p.abs().max().item(), ms, plain_ms,
+           bound(4 * plane_bytes + N * 4, fp32=fft_flops(N, N * P)))
     # K6 and K7 on a model of 2000 components of random flux in the
     # central half of the image, with the production taper and the
     # slice's w; K5 on the grid that gives, for the occupied chunks of
@@ -276,7 +348,8 @@ def main() -> None:
            "katsdpimager_tpu_torch/csrc/fft.cu",
            "katsdpimager_tpu/ops/pallas_fft.py:343",
            max(max_err(ar, par), max_err(ai, pai)), 1e-5 * scale,
-           ms, plain_ms)
+           ms, plain_ms,
+           bound(3 * plane_bytes + N * 4, fp32=fft_flops(N, N * P)))
 
     ms, plain_ms = timed_pair(
         lambda: out.__setitem__("p", fused_fft.cbout_col_fft_plain(par,
@@ -288,7 +361,7 @@ def main() -> None:
            "katsdpimager_tpu_torch/csrc/fft.cu",
            "katsdpimager_tpu/ops/pallas_fft.py:380",
            max(max_err(gr, pgr), max_err(gi, pgi)), 1e-5 * scale,
-           ms, plain_ms)
+           ms, plain_ms, bound(4 * plane_bytes, fp32=fft_flops(N, N * P)))
 
     av, au, diu, div, dsu, dsv = fused_degrid.degrid_taps(
         kern, uv, sub, wp, anc, pixels=N, ts=ts)
@@ -300,9 +373,14 @@ def main() -> None:
         lambda: out.__setitem__("k", fused_degrid.degrid_planes(*dargs,
                                                                 ts=ts)))
     scale = out["p"].abs().max().item()
+    # Reads both grid planes and each valid slot's six taps, writes one
+    # complex prediction per slot and polarization; K^2 complex MACs each.
     record("K5 fused degridder", "katsdpimager_tpu_torch/csrc/degrid.cu",
            "katsdpimager_tpu/ops/pallas_gridder.py:706",
-           max_err(out["k"], out["p"]), 1e-5 * scale, ms, plain_ms)
+           max_err(out["k"], out["p"]), 1e-5 * scale, ms, plain_ms,
+           bound(2 * plane_bytes + n_valid * (6 * 4 + P * 8)
+                 + dtab.numel() * dtab.element_size(),
+                 fp32=8.0 * K * K * P * n_valid))
     del kr, ki, pr, pi, out, img_k, img_p, par, pai, ar, ai, gr, gi
     del pgr, pgi, model, dargs
     k8_phase(dev, record, rows, fused_fft)
@@ -572,37 +650,47 @@ def k5_on_wave_model(cfg, model, b0, fourier, fused_degrid) -> None:
 
 
 def k8_phase(dev, record, rows, fused_fft) -> None:
-    """K8 at (1, 4096, 4096), sign -1 and +1, against its plain version;
-    then ``fft2`` (two K8 passes) against ``torch.fft.fft2``, with the K8
-    counter reset just before."""
+    """K8 at (1, 4096, 4096), sign -1 and +1, against its plain version
+    within 1e-6 of the largest output, timed in turns with it and with
+    ``torch.fft.fft`` along dim -2 of the complex input (built outside
+    the timed calls); then ``fft2`` (two K8 passes) against
+    ``torch.fft.fft2``, with the K8 counter reset just before."""
     gen = torch.Generator().manual_seed(8)
     shape = (1, 4096, 4096)
     xr = torch.randn(shape, generator=gen).to(dev)
     xi = torch.randn(shape, generator=gen).to(dev)
+    xc = torch.complex(xr, xi)
+    B, N, M = shape
+    k8_bound = bound(4 * B * N * M * 4, fp32=fft_flops(N, B * M))
     out = {}
     for sign in (-1, 1):
-        ms, plain_ms = timed_pair(
+        ms, plain_ms, library_ms = timed_pair(
             lambda: out.__setitem__("p", fused_fft.col_fft_plain(xr, xi,
                                                                  sign)),
-            lambda: out.__setitem__("k", fused_fft.col_fft(xr, xi, sign)))
+            lambda: out.__setitem__("k", fused_fft.col_fft(xr, xi, sign)),
+            reps=50,
+            library=(lambda: torch.fft.fft(xc, dim=-2)) if sign == -1
+            else (lambda: torch.fft.ifft(xc, dim=-2, norm="forward")))
         (kr, ki), (pr, pi) = out["k"], out["p"]
         scale = max(pr.abs().max().item(), pi.abs().max().item())
         err = max(max_err(kr, pr), max_err(ki, pi))
         emit({"phase": "kernel_detail", "name": "K8", "sign": sign,
               "shape": list(shape), "max_abs_err": err,
-              "err_over_max": err / scale, "ms": ms, "plain_ms": plain_ms})
+              "err_over_max": err / scale, "ms": ms, "plain_ms": plain_ms,
+              "library_ms": library_ms,
+              "no_slower_than_library": ms <= library_ms})
         if sign == -1:
-            row = (err, 1e-5 * scale, ms, plain_ms)
-        elif not err <= 1e-5 * scale:
-            raise AssertionError(f"K8 sign +1: error {err} > 1e-5 x {scale}")
-    x = torch.complex(xr, xi)
+            row = (err, 1e-6 * scale, ms, plain_ms, k8_bound, library_ms)
+        elif not err <= 1e-6 * scale:
+            raise AssertionError(f"K8 sign +1: error {err} > 1e-6 x {scale}")
+    del out, kr, ki, pr, pi
     fused_fft.col_fft.launches = 0
-    y = fused_fft.fft2(x, -1)
+    y = fused_fft.fft2(xc, -1)
     torch.cuda.synchronize()
     launches = fused_fft.col_fft.launches
-    ms, plain_ms = timed_pair(lambda: torch.fft.fft2(x),
-                              lambda: fused_fft.fft2(x, -1))
-    ref = torch.fft.fft2(x)
+    ms, plain_ms = timed_pair(lambda: torch.fft.fft2(xc),
+                              lambda: fused_fft.fft2(xc, -1))
+    ref = torch.fft.fft2(xc)
     err = (y - ref).abs().max().item() / ref.abs().max().item()
     emit({"phase": "fft2", "shape": list(shape), "err_over_max": err,
           "tolerance": 1e-5, "ms": ms, "torch_fft2_ms": plain_ms,
@@ -612,6 +700,9 @@ def k8_phase(dev, record, rows, fused_fft) -> None:
     record("K8 column DFT", "katsdpimager_tpu_torch/csrc/fft.cu",
            "katsdpimager_tpu/ops/pallas_fft.py:126", *row)
     rows[-1]["launches"] = launches
+    emit({"phase": "redesign", "name": "K8", "ms": row[2],
+          "replaced_design_ms_recorded": REPLACED_DESIGN_MS["K8"],
+          "library_ms": row[5]})
 
 
 def probe_phase(dev, rows) -> None:
@@ -658,26 +749,47 @@ def probe_phase(dev, rows) -> None:
                 worst, worst_tol = err, t
         ms, plain_ms = timed_pair(lambda: [c[3]() for c in group],
                                   lambda: [c[2]() for c in group], reps=10)
+        # Bytes: the group's distinct inputs read once, every output
+        # written once.  Operations: each probe's dot on the unit that
+        # runs it, 2 x its contracted length per output (the selections
+        # are one-hot products over the W table rows, A over all three
+        # bf16 thirds; E has no dot).
+        used = ("idx", "tab", "table", "av", "bu", "a", "b", "c", "d") \
+            if probe == "P1" else ("idx", "tab")
+        outs = {name: plain() for name, _, _, plain in group}
+        mk, w = d["av"].shape[0], d["table"].shape[0]
+        dots = {"A": ("bf16", 3 * w), "F": ("bf16", w), "B": ("fp32", w),
+                "C_stacked": ("fp32", mk), "C_separate": ("fp32", mk),
+                "C_tf32": ("tf32", mk)}
+        ops = {}
+        for name, o in outs.items():
+            if name in dots:
+                unit, length = dots[name]
+                ops[unit] = ops.get(unit, 0.0) + 2.0 * length * o.numel()
+        bnd = bound(sum(d[k].numel() * d[k].element_size() for k in used)
+                    + sum(o.numel() * o.element_size() for o in outs.values()),
+                    **ops)
         emit({"phase": "kernel", "name": probe, "max_abs_err": worst,
               "tolerance": worst_tol, "ms": ms, "plain_ms": plain_ms,
-              "ok": True})
+              **bnd, "ok": True})
         rows.append({"name": f"{probe} f32-exactness probes", "route": "cuda",
                      "source": "katsdpimager_tpu_torch/csrc/probe.cu",
                      "replaces": replaces, "launches": launches[probe],
-                     "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms})
+                     "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+                     **bnd, "library_ms": None})
 
 
 def sim_dataset(num_antennas: int, num_dumps: int, num_channels: int,
                 noise_jy: float, seed: int = 1):
-    """An in-memory dataset (the card's machine has no h5py): the JAX
-    package's simulator (``simulate.random_array`` within 4 km,
+    """An in-memory dataset, which needs no h5py: the port's simulator
+    (``simulate.random_array`` within 4 km,
     ``simulate_vis`` of ``DEFAULT_SOURCES`` over hour angles +-0.5 rad)
     behind a small ``loader_core.LoaderBase``."""
     import math
 
     import numpy as np
 
-    from katsdpimager_tpu import loader_core, polarization, simulate
+    from katsdpimager_tpu_torch import loader_core, polarization, simulate
 
     ants = simulate.random_array(num_antennas, 4000.0, seed=seed)
     # 909.5 and 1016.5 MHz for two channels.  Their 11 and 10 W slices keep
@@ -737,7 +849,7 @@ def truth_peaks(image_p, beam, image):
     the fitted beam, evaluated at their fractional positions)."""
     import numpy as np
 
-    from katsdpimager_tpu import simulate
+    from katsdpimager_tpu_torch import simulate
 
     N = image_p.pixels
     cs = beam.covariance_sqrt()
@@ -889,7 +1001,7 @@ def imager_phase(dev, card, rows) -> None:
 def imager_args(channel: int, degrid: bool, vis_block: int):
     """The CLI's arguments for one channel of the simulated observation
     at full width (the default W spacing)."""
-    from katsdpimager_tpu import arguments
+    from katsdpimager_tpu_torch import arguments
     from katsdpimager_tpu_torch import imager
 
     argv = ["simulated", "unused_%c.fits", "--pixels", "4096",
@@ -1027,7 +1139,7 @@ def imager_parity(channel, got, ref) -> None:
     there; the minor-count difference is printed."""
     import numpy as np
 
-    from katsdpimager_tpu.ops import wkernel
+    from katsdpimager_tpu_torch.ops import wkernel
 
     ip, gp = got["stats"]["image_parameters"], got["stats"]["grid_parameters"]
     taper = wkernel.taper(ip.pixels, gp.fixed.antialias_width,

@@ -11,7 +11,11 @@
 // Built WITHOUT -use_fast_math: the W-phase 2 pi w (n - 1) of K4 and K6
 // reaches far beyond +-pi, where __sinf/__cosf lose all accuracy.
 //
-// Shared transform: an in-place radix-2 decimation-in-time FFT over CB
+// K8 runs on the four-step column-FFT tile core of col_fft_tile.cuh (one
+// launch, clusters of Q CTAs, radix-16/32 butterflies in registers).  K3,
+// K4, K6 and K7 still use the radix-2 core below.
+//
+// Radix-2 core: an in-place radix-2 decimation-in-time FFT over CB
 // columns held in shared memory.  Inputs are loaded in bit-reversed order,
 // so log2(N) butterfly passes leave the output in natural order.
 // Twiddles exp(+2 pi i k / N), k < N/2, come from a table computed in
@@ -29,6 +33,8 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+
+#include "col_fft_tile.cuh"
 
 namespace {
 
@@ -275,44 +281,60 @@ cbout_col_fft_kernel(const float* __restrict__ xr,
 //
 // y[b, k, c] = sum_r x[b, r, c] exp(sgn 2 pi i r k / N): the plain
 // unnormalised DFT of every column of a (B, N, M) plane pair, sgn = -1
-// forward, +1 inverse, stored in natural orientation (K3 and K6 store
-// transposed).  One CTA per (CB columns, batch); a ragged last column
-// block loads zeros and stores nothing past M.  Bound like K3: the
-// shared-memory radix-2 passes and the strided column loads and stores,
-// whose row segments are CB * 4 bytes.
+// forward, +1 inverse, stored in natural orientation.
+//
+// What bounds it on this card: device memory, one read and one write of
+// both planes (268 MB at (1, 4096, 4096): 0.080 ms at 3.35 TB/s); the
+// 5 N log2 N flops per column are about a percent of the FP32 rate.
+//
+// Design (col_fft_tile.cuh): a cluster of Q CTAs per 16-column tile and
+// batch, N = Q R; each CTA reads its R rows q + Q r2 once (64-byte row
+// segments), does the length-R DFT as two register-resident radix passes
+// with one shared-memory exchange, and after a cluster barrier finishes a
+// length-Q DFT over the cluster's shared memory, writing each output once.
+// A ragged last tile loads zeros and stores nothing past M.
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kThreads)
-col_fft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
-               const float2* __restrict__ tw, float* __restrict__ yr,
-               float* __restrict__ yi, int logN, int M, int CB, float sgn) {
-  extern __shared__ float2 buf[];
-  const int N = 1 << logN;
-  const size_t plane = static_cast<size_t>(blockIdx.y) * N * M;
-  const int c0 = blockIdx.x * CB;
-  for (int e = threadIdx.x; e < N * CB; e += blockDim.x) {
-    const int r = e / CB;
-    const int j = e - r * CB;
-    const int c = c0 + j;
-    float2 v = make_float2(0.0f, 0.0f);
-    if (c < M) {
-      const size_t off = plane + static_cast<size_t>(r) * M + c;
-      v = make_float2(xr[off], xi[off]);
-    }
-    buf[j * N + bitrev(r, logN)] = v;
-  }
-  fft_columns(buf, logN, CB, tw, sgn);
-  for (int e = threadIdx.x; e < N * CB; e += blockDim.x) {
-    const int r = e / CB;
-    const int j = e - r * CB;
-    const int c = c0 + j;
-    if (c < M) {
-      const size_t off = plane + static_cast<size_t>(r) * M + c;
-      const float2 v = buf[j * N + r];
-      yr[off] = v.x;
-      yi[off] = v.y;
-    }
-  }
+template <int R, int R1, int R2, int Q>
+__global__ void __launch_bounds__(col_fft_tile::Tile<R, R1, R2, Q>::kThreads,
+                                  col_fft_tile::Tile<R, R1, R2, Q>::kMinBlocks)
+col_fft_k8_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+                  const float2* __restrict__ tw, float* __restrict__ yr,
+                  float* __restrict__ yi, int N, int M, float sgn) {
+  extern __shared__ float2 k8_buf[];
+  const size_t plane = static_cast<size_t>(blockIdx.z) * N * M;
+  col_fft_tile::col_fft_tile<R, R1, R2, Q>(
+      k8_buf, xr + plane, xi + plane, tw, yr + plane, yi + plane, N, M,
+      Q == 1 ? 0 : static_cast<int>(blockIdx.x),
+      static_cast<int>(blockIdx.y) * col_fft_tile::kCols, sgn);
+}
+
+template <int R, int R1, int R2, int Q>
+cudaError_t launch_col_fft_k8(const float* xr, const float* xi,
+                              const float2* tw, float* yr, float* yi, int B,
+                              int N, int M, float sgn, cudaStream_t stream) {
+  using T = col_fft_tile::Tile<R, R1, R2, Q>;
+  auto kernel = col_fft_k8_kernel<R, R1, R2, Q>;
+  const int tiles = (M + col_fft_tile::kCols - 1) / col_fft_tile::kCols;
+  if (tiles > 65535 || B > 65535) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(Q, tiles, B);
+  cfg.blockDim = dim3(T::kThreads);
+  cfg.dynamicSmemBytes = T::kSmemBytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = Q;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = Q > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kernel, xr, xi, tw, yr, yi, N, M, sgn);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 int log2_exact(int N) {
@@ -379,19 +401,42 @@ extern "C" int ktt_pre_col_fft(const void* imgT, const void* tw,
   return cudaGetLastError();
 }
 
+// tw: exp(+2 pi i k / N) for k < N (the full circle; the radix-2 kernels
+// take the half).
 extern "C" int ktt_col_fft(const void* xr, const void* xi, const void* tw,
                            void* yr, void* yi, int B, int N, int M, int sign,
                            void* stream) {
-  int logN, CB, smem;
-  if (M <= 0 || (sign != 1 && sign != -1)) return cudaErrorInvalidValue;
-  cudaError_t err = prepare(col_fft_kernel, N, B, &logN, &CB, &smem);
-  if (err != cudaSuccess) return err;
-  col_fft_kernel<<<dim3((M + CB - 1) / CB, B), kThreads, smem,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(xr), static_cast<const float*>(xi),
-      static_cast<const float2*>(tw), static_cast<float*>(yr),
-      static_cast<float*>(yi), logN, M, CB, static_cast<float>(sign));
-  return cudaGetLastError();
+  if (M <= 0 || B <= 0 || (sign != 1 && sign != -1))
+    return cudaErrorInvalidValue;
+  auto x_r = static_cast<const float*>(xr);
+  auto x_i = static_cast<const float*>(xi);
+  auto t = static_cast<const float2*>(tw);
+  auto y_r = static_cast<float*>(yr);
+  auto y_i = static_cast<float*>(yi);
+  auto st = static_cast<cudaStream_t>(stream);
+  const float sgn = static_cast<float>(sign);
+  switch (N) {
+    case 256:
+      return launch_col_fft_k8<256, 16, 16, 1>(
+          x_r, x_i, t, y_r, y_i, B, N, M, sgn, st);
+    case 512:
+      return launch_col_fft_k8<512, 32, 16, 1>(
+          x_r, x_i, t, y_r, y_i, B, N, M, sgn, st);
+    case 1024:
+      return launch_col_fft_k8<512, 32, 16, 2>(
+          x_r, x_i, t, y_r, y_i, B, N, M, sgn, st);
+    case 2048:
+      return launch_col_fft_k8<512, 32, 16, 4>(
+          x_r, x_i, t, y_r, y_i, B, N, M, sgn, st);
+    case 4096:
+      return launch_col_fft_k8<512, 32, 16, 8>(
+          x_r, x_i, t, y_r, y_i, B, N, M, sgn, st);
+    case 8192:
+      return launch_col_fft_k8<1024, 32, 32, 8>(
+          x_r, x_i, t, y_r, y_i, B, N, M, sgn, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 extern "C" int ktt_cbout_col_fft(const void* xr, const void* xi,

@@ -22,11 +22,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from katsdpimager_tpu import (
-    loader, parameters, polarization, progress, sky_model, units,
+from . import device as device_mod
+from . import (
+    imaging, loader, parameters, polarization, preprocess, progress,
+    sky_model, units,
 )
-
-from . import imaging, preprocess
 from .ops import beam as beam_ops
 from .ops import clean as clean_ops
 from .ops import weights as weight_ops
@@ -37,17 +37,6 @@ logger = logging.getLogger(__name__)
 
 # ---------------------------------------------------------------------------
 # Preprocessing
-
-def select_device(host: bool) -> torch.device:
-    """``--host``: the CPU (the kernels' plain versions); otherwise the
-    CUDA device, which must exist."""
-    if host:
-        return torch.device("cpu")
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: the port runs its kernels on a "
-                           "CUDA card (use --host for the CPU)")
-    return torch.device("cuda")
-
 
 @profile_function
 def preprocess_visibilities(dataset, args, start_channel, stop_channel,
@@ -370,8 +359,11 @@ class Writer:
 @profile_function
 def process_channel(dataset, args, start_channel, reader, writer,
                     channel_p, array_p, weight_p, clean_p,
-                    subtract_model, *, device="cpu",
+                    subtract_model, *, device=None,
                     plain: bool = False) -> Optional[dict]:
+    """Image one channel on ``device`` (None: the CUDA device, which must
+    exist); ``plain`` runs every kernel's plain version."""
+    device = device_mod.resolve(device)
     channel = channel_p.channel
     rel_channel = channel - start_channel
     image_p = channel_p.image_p
@@ -537,14 +529,14 @@ def process_channel(dataset, args, start_channel, reader, writer,
 
 def run(args, dataset, writer, *, device=None, plain: bool = False):
     """Run the whole pipeline on ``device`` (default: by ``--host``, see
-    :func:`select_device`); ``plain`` runs every kernel's plain version
+    :func:`.device.select`); ``plain`` runs every kernel's plain version
     whatever the device."""
     if args.precision == "double":
         raise NotImplementedError(
             "--precision double is not ported: the port's kernels are "
             "float32 only (ROADMAP, Queue 1)")
     if device is None:
-        device = select_device(getattr(args, "host", False))
+        device = device_mod.select(getattr(args, "host", False))
     input_polarizations = dataset.polarizations()
     if dataset.has_feed_angles():
         polarization_matrices = polarization.polarization_matrices(
@@ -576,7 +568,7 @@ def run(args, dataset, writer, *, device=None, plain: bool = False):
         max_w = units.parse_quantity(args.max_w).value
     beams = None
     if args.primary_beam in ("meerkat", "meerkat:1"):
-        from katsdpimager_tpu import primary_beam
+        from . import primary_beam
 
         band = dataset.band()
         if band is None:

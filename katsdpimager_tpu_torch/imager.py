@@ -22,8 +22,9 @@ import sys
 
 import numpy as np
 
-from katsdpimager_tpu import arguments, io, loader
+from . import arguments, io, loader
 
+from . import device as device_mod
 from . import frontend
 
 logger = logging.getLogger(__name__)
@@ -126,9 +127,9 @@ def main(argv=None) -> int:
         raise NotImplementedError(
             "--precision double is not ported: the port's kernels are "
             "float32 only (ROADMAP, Queue 1)")
-    device = frontend.select_device(args.host)
+    device = device_mod.select(args.host)
     if args.subtract and args.subtract != "auto":
-        from katsdpimager_tpu import sky_model
+        from . import sky_model
 
         try:
             sky_model.open_sky_model(args.subtract)

@@ -25,7 +25,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from katsdpimager_tpu.ops import wkernel
+from . import device as device_mod
+from .ops import wkernel
 
 from .ops import beam as beam_ops
 from .ops import clean as clean_ops
@@ -34,9 +35,10 @@ from .ops import weights as weight_ops
 
 
 class Imaging:
-    """Imaging state and operations for one channel on ``device``."""
+    """Imaging state and operations for one channel on ``device`` (None:
+    the CUDA device, which must exist; see :mod:`.device`)."""
 
-    def __init__(self, image_p, grid_p, weight_p, clean_p, *, device="cpu",
+    def __init__(self, image_p, grid_p, weight_p, clean_p, *, device=None,
                  plain: bool = False):
         if image_p.fixed.real_dtype != np.float32:
             raise NotImplementedError(
@@ -46,7 +48,7 @@ class Imaging:
         self.grid_p = grid_p
         self.weight_p = weight_p
         self.clean_p = clean_p
-        self.device = dev = torch.device(device)
+        self.device = dev = device_mod.resolve(device)
         self.plain = plain
 
         N = image_p.pixels

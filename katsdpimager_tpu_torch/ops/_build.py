@@ -7,7 +7,10 @@ shared library with a plain C interface, loaded with :mod:`ctypes`.
 5.2-5.5 s for one ``nvcc`` over all of them.)
 The library lands in ``katsdpimager_tpu_torch/_build/<hash>/``, keyed by
 a hash of the sources and the compiler flags, so an edited source is
-rebuilt and an unchanged one is reused within a checkout.
+rebuilt and an unchanged one is reused within a checkout.  Each source
+compiles with ``-Xptxas -v``; what ``ptxas`` says (registers, spills,
+static shared memory per kernel) is kept beside the library and read back
+by :func:`ptxas_report`.
 
 Every C entry point launches on the stream it is given (the wrapper
 passes ``torch.cuda.current_stream().cuda_stream``) and returns
@@ -24,6 +27,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -37,6 +41,9 @@ _LIBNAME = "libktpu_torch.so"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
+#: Compile-only flags: ptxas's resource report.
+COMPILE_FLAGS = ["-Xptxas", "-v"]
+_REPORT = "ptxas.txt"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -44,9 +51,9 @@ _I = ctypes.c_int
 #: C entry points and their argument types (pointers and the stream are
 #: ``c_void_p``, so 64-bit addresses are never cut to 32 bits).
 SIGNATURES = {
-    # slot, n, iu, iv, su, sv, sre, sim, tab, accr, acci,
+    # slot, n, count, iu, iv, su, sv, sre, sim, tab, tabs, accr, acci,
     # NC, Mc, P, K, ts, nt2, stream
-    "ktt_grid_planes": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    "ktt_grid_planes": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _I, _P],
     # accr, acci, occ, gr, gi, P, N, ts, nt2, accumulate, stream
     "ktt_combine_planes": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -84,7 +91,7 @@ def sources() -> list[str]:
 
 
 def _key() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + COMPILE_FLAGS).encode())
     for path in sources():
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
@@ -121,15 +128,18 @@ def build() -> str:
         jobs = []
         for src in (p for p in sources() if p.endswith(".cu")):
             obj = os.path.join(tmp, os.path.basename(src) + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-I", _CSRC, "-c", "-o", obj, src]
+            cmd = [nvcc, *NVCC_FLAGS, *COMPILE_FLAGS, "-I", _CSRC, "-c",
+                   "-o", obj, src]
             jobs.append((cmd, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                 text=True)))
-        failed = []
+        failed, report = [], []
         for cmd, _, proc in jobs:
             _, err = proc.communicate()
             if proc.returncode != 0:
                 failed.append("%s\n%s" % (" ".join(cmd), err[-8000:]))
+            report.append("// source %s\n%s" % (os.path.basename(cmd[-1]),
+                                                  err))
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         lib = os.path.join(tmp, _LIBNAME)
@@ -139,7 +149,39 @@ def build() -> str:
         if res.returncode != 0:
             raise RuntimeError("nvcc link failed (exit %d):\n%s\n%s" % (
                 res.returncode, " ".join(cmd), res.stderr[-8000:]))
+        with open(os.path.join(os.path.dirname(out), _REPORT), "w") as f:
+            f.write("".join(report))
         os.replace(lib, out)
+    return out
+
+
+def ptxas_report() -> list[dict]:
+    """Per kernel of the built library, what ``ptxas -v`` reported:
+    ``source``, ``function`` (mangled), ``registers``, ``spill_stores``,
+    ``spill_loads``, ``stack_bytes`` and ``static_smem_bytes`` (dynamic
+    shared memory is set at launch and not included)."""
+    with open(os.path.join(os.path.dirname(lib_path()), _REPORT)) as f:
+        text = f.read()
+    out, source, cur = [], None, None
+    for line in text.splitlines():
+        m = re.match(r"// source (\S+)", line)
+        if m:
+            source = m.group(1)
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = {"source": source, "function": m.group(1)}
+            out.append(cur)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and cur is not None:
+            cur.update(stack_bytes=int(m.group(1)),
+                       spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem_bytes"] = int(sm.group(1)) if sm else 0
     return out
 
 

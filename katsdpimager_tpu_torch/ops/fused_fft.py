@@ -24,7 +24,9 @@ The 2-D transform building block:
 
 - **K8** (:func:`col_fft`): the plain unnormalised column DFT, sign +1 or
   -1, stored in natural orientation; :func:`fft2` drives it twice, as the
-  JAX package's ``fft2_pallas`` does.
+  JAX package's ``fft2_pallas`` does.  K8 runs on the four-step
+  column-FFT tile core (``csrc/col_fft_tile.cuh``); K3, K4, K6 and K7 on
+  the radix-2 core of ``csrc/fft.cu``.
 
 The dirty image stays TRANSPOSED across the W-slice loop (every factor is
 symmetric in (row, col)); the caller transposes it once per channel.
@@ -70,6 +72,15 @@ def twiddles(n: int, device: torch.device) -> torch.Tensor:
     """exp(+2 pi i k / n) for k < n/2: computed in float64, stored as
     complex64 on ``device`` (the kernels' twiddle table)."""
     k = np.arange(n // 2)
+    t = np.exp(2j * np.pi * k / n).astype(np.complex64)
+    return torch.from_numpy(t).to(device)
+
+
+@functools.lru_cache(maxsize=16)
+def twiddles_full(n: int, device: torch.device) -> torch.Tensor:
+    """exp(+2 pi i k / n) for k < n: computed in float64, stored as
+    complex64 on ``device`` (K8's twiddle table)."""
+    k = np.arange(n)
     t = np.exp(2j * np.pi * k / n).astype(np.complex64)
     return torch.from_numpy(t).to(device)
 
@@ -355,11 +366,14 @@ def col_fft(xr, xi, sign: int):
 
     CPU tensors run :func:`col_fft_plain`; CUDA tensors launch
     ``ktt_col_fft`` (``csrc/fft.cu``) or raise.  N must be a power of two
-    in [256, 8192]; M is free (a ragged last column block is masked).
+    in [256, 8192]; M is free (a ragged last column tile is masked).
 
     Replaces ``katsdpimager_tpu/ops/pallas_fft.py:_make_col_kernel``
-    (``col_fft``).  Bound like K3: the shared-memory radix-2 passes and the
-    strided column loads and stores."""
+    (``col_fft``).  Bound by device memory (one read and one write of both
+    planes).  One launch: a cluster of Q CTAs per 16-column tile splits
+    N = Q R four-step, each CTA doing a length-R DFT in two
+    register-resident radix passes and the cluster a length-Q DFT over
+    its shared memory (``csrc/col_fft_tile.cuh``)."""
     if xr.device.type == "cpu":
         return col_fft_plain(xr, xi, sign)
     if sign not in (1, -1):
@@ -369,7 +383,7 @@ def col_fft(xr, xi, sign: int):
     B = math.prod(batch)
     _build.expect(xr, "xr", torch.float32, xr.shape, xr.device)
     _build.expect(xi, "xi", torch.float32, xr.shape, xr.device)
-    tw = twiddles(n, xr.device)
+    tw = twiddles_full(n, xr.device)
     yr = torch.empty_like(xr)
     yi = torch.empty_like(xr)
     err = _build.load().ktt_col_fft(

@@ -4,7 +4,9 @@ Counterpart of :mod:`katsdpimager_tpu.ops.pallas_gridder`'s gridding half
 (``_grid_chunks_planes``, ``combine_planes_fused``,
 ``grid_chunks_fused_parts``).  The wrapper prep is plain PyTorch: tap
 row indices ``iu/iv`` and in-window shifts ``su/sv``, the sample
-``vis * valid * density``, the colour-plane ``slot`` of each chunk and the
+``vis * valid * density``, each chunk's valid ``count`` (its valid slots
+are a prefix, the planner's invariant, so K1 grids slots below the count
+and nothing else), the colour-plane ``slot`` of each chunk and the
 per-tile occupancy mask.  The two kernels are hand-written CUDA
 (``csrc/gridder.cu``); each has a plain PyTorch version here, which CPU
 tensors run.
@@ -41,6 +43,9 @@ from .mxu_gridder import colour_tiles, occupied_chunks
 #: Chunks per group in the plain K1 (bounds its (G, P, Mc, 2ts) factors).
 _PLAIN_GROUP = 256
 
+#: Slots per chunk K1 takes (it holds a chunk's slot data in shared memory).
+MAX_CHUNK = 256
+
 
 # ---------------------------------------------------------------------------
 # K1: per-anchor band accumulation into the colour planes
@@ -57,13 +62,16 @@ def _shifted_rows(tab, idx, sh, ts2: int):
                        torch.zeros((), dtype=rows.dtype, device=rows.device))
 
 
-def grid_planes_plain(slot, n: int, iu, iv, su, sv, sre, sim, table,
+def grid_planes_plain(slot, n: int, count, iu, iv, su, sv, sre, sim, table,
                       accr, acci, *, ts: int) -> None:
     """Plain PyTorch version of K1 (same arguments as :func:`grid_planes`).
 
-    Per chunk, the band as a complex matmul; consecutive chunks of one
-    slot summed with ``index_add_``; each run's sum written into its
-    colour-plane block.  Unwritten blocks are left as they were."""
+    Per chunk, the band over all its slots as a complex matmul (invalid
+    slots carry a zero sample); consecutive chunks of one slot summed
+    with ``index_add_``; each run's sum written into its colour-plane
+    block.  Unwritten blocks are left as they were.  ``count`` is not
+    read: the reference does not share K1's assumption that the valid
+    slots are a prefix, so a plan that breaks it shows as a difference."""
     if n == 0:
         return
     P = sre.shape[1]
@@ -97,11 +105,13 @@ def grid_planes_plain(slot, n: int, iu, iv, su, sv, sre, sim, table,
         p7[ca, cb, :, tv2, :, tu2, :] = runs[..., part]
 
 
-def grid_planes(slot, n: int, iu, iv, su, sv, sre, sim, table, accr, acci,
-                *, ts: int) -> None:
-    """K1: grid the first ``n`` chunks into the colour planes, in place.
+def grid_planes(slot, n: int, count, iu, iv, su, sv, sre, sim, table, accr,
+                acci, *, ts: int) -> None:
+    """K1: grid the first ``count[c]`` slots of each of the first ``n``
+    chunks into the colour planes, in place.
 
-    slot (NC,) i32; iu/iv/su/sv (NC, Mc) i32; sre/sim (NC, P, Mc) f32;
+    slot (NC,) i32; count (NC,) i32 in [0, Mc]; iu/iv/su/sv (NC, Mc) i32;
+    sre/sim (NC, P, Mc) f32;
     table (W*O, K) complex64, the conjugated kernel rows; accr/acci
     (2, 2, P, ext2, ext2) f32 with ``ext2 = nt2 * 2 ts``.  Writes each
     occupied slot's block once; leaves every other block untouched.
@@ -112,13 +122,17 @@ def grid_planes(slot, n: int, iu, iv, su, sv, sre, sim, table, accr, acci,
     ``ktt_grid_planes`` (``csrc/gridder.cu``) or raise.
 
     Replaces ``katsdpimager_tpu/ops/pallas_gridder.py:_make_kernel``.
-    Bound by FP32 FMA throughput (a dense 2ts x 2ts window per
-    visibility); one CTA per anchor run keeps the window in registers
-    and writes it once, with no atomics (details in the CUDA source).
+    Bound by the band products (a dense 2ts x 2ts window per valid
+    visibility).  One CTA per anchor run loops over the valid slots only,
+    8 at a time, and forms the band on the tensor cores in 3xTF32
+    (``wgmma`` m64n(2ts)k8, each operand split into TF32 hi and lo), FP32
+    accurate; the window stays in accumulator registers and is written
+    once, with no atomics (details in the CUDA source).  Chunks hold at
+    most :data:`MAX_CHUNK` slots.
     """
     if accr.device.type == "cpu":
-        grid_planes_plain(slot, n, iu, iv, su, sv, sre, sim, table, accr,
-                          acci, ts=ts)
+        grid_planes_plain(slot, n, count, iu, iv, su, sv, sre, sim, table,
+                          accr, acci, ts=ts)
         return
     dev = accr.device
     NC, Mc = iu.shape
@@ -128,9 +142,13 @@ def grid_planes(slot, n: int, iu, iv, su, sv, sre, sim, table, accr, acci,
         raise NotImplementedError(f"K1 is built for ts in (32, 64), not {ts}")
     if K + ts - 1 > 2 * ts:
         raise NotImplementedError(f"K1: kernel width {K} > ts + 1")
+    if Mc > MAX_CHUNK:
+        raise NotImplementedError(f"K1 takes chunks of at most {MAX_CHUNK} "
+                                  f"slots, not {Mc}")
     ext2 = accr.shape[-1]
     nt2 = ext2 // (2 * ts)
     _build.expect(slot, "slot", torch.int32, (NC,), dev)
+    _build.expect(count, "count", torch.int32, (NC,), dev)
     for name, t in (("iu", iu), ("iv", iv), ("su", su), ("sv", sv)):
         _build.expect(t, name, torch.int32, (NC, Mc), dev)
     _build.expect(sre, "sre", torch.float32, (NC, P, Mc), dev)
@@ -142,12 +160,13 @@ def grid_planes(slot, n: int, iu, iv, su, sv, sre, sim, table, accr, acci,
         raise ValueError(f"n = {n} outside [0, {NC}]")
     if n == 0:
         return
+    tabs = split_table(table)
     lib = _build.load()
     err = lib.ktt_grid_planes(
-        slot.data_ptr(), n, iu.data_ptr(), iv.data_ptr(), su.data_ptr(),
-        sv.data_ptr(), sre.data_ptr(), sim.data_ptr(), table.data_ptr(),
-        accr.data_ptr(), acci.data_ptr(), NC, Mc, P, K, ts, nt2,
-        _build.stream_of(accr))
+        slot.data_ptr(), n, count.data_ptr(), iu.data_ptr(), iv.data_ptr(),
+        su.data_ptr(), sv.data_ptr(), sre.data_ptr(), sim.data_ptr(),
+        table.data_ptr(), tabs.data_ptr(), accr.data_ptr(), acci.data_ptr(),
+        NC, Mc, P, K, ts, nt2, _build.stream_of(accr))
     _build.check(err, "ktt_grid_planes")
     grid_planes.launches += 1
 
@@ -303,11 +322,46 @@ def chunk_slots(plan_anchor, n: int, *, ts: int, nt2: int):
     return torch.where(live, slot, 0).to(torch.int32).contiguous()
 
 
+def valid_counts(plan_valid):
+    """Each chunk's valid slot count (NC,) int32: K1 grids the slots below
+    it.  The planner puts every chunk's valid slots first
+    (:func:`check_valid_prefix`)."""
+    return plan_valid.sum(-1, dtype=torch.int32).contiguous()
+
+
+def check_valid_prefix(plan_valid, count) -> None:
+    """Raise unless every chunk's valid slots are the first ``count``
+    (the planner's invariant, which K1 relies on; a device sync).
+    ``plan_valid`` (..., Mc) bool, ``count`` (...) its valid counts."""
+    slots = torch.arange(plan_valid.shape[-1], device=plan_valid.device)
+    if not torch.equal(plan_valid, slots < count[..., None].long()):
+        raise ValueError("valid slots are not a prefix of every chunk")
+
+
 def occupancy(slot, n: int, nt2: int):
     """(2, 2, nt2, nt2) bool: which colour-plane tiles K1 writes."""
     occ = torch.zeros(4 * nt2 * nt2, dtype=torch.bool, device=slot.device)
     occ[slot[:n].long()] = True
     return occ.view(2, 2, nt2, nt2)
+
+
+def tf32_rna(x):
+    """``x`` rounded to TF32 (10 mantissa bits, nearest, ties away from
+    zero: PTX ``cvt.rna.tf32.f32``), held in f32."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_table(table):
+    """K1's B operand rows, split for 3xTF32 once per call: the (W*O, K)
+    complex64 table as (W*O, K, 4) f32 ``[re hi, re lo, im hi, im lo]``,
+    ``hi = tf32_rna(x)``, ``lo = tf32_rna(x - hi)``."""
+    parts = []
+    for x in (table.real, table.imag):
+        x = x.to(torch.float32)
+        hi = tf32_rna(x)
+        parts += [hi, tf32_rna(x - hi)]
+    return torch.stack(parts, dim=-1).contiguous()
 
 
 def conj_table(kernel):
@@ -322,7 +376,8 @@ def grid_chunks_planes(kernel, weights_grid, plan_uv, plan_sub, plan_wp,
                        n_chunks: int, *, pixels: int, ts: int,
                        plain: bool = False):
     """Prep plus K1: returns ``(accr, acci, occ)`` — the colour planes
-    (unwritten blocks uninitialised) and their occupancy mask.
+    (unwritten blocks uninitialised) and their occupancy mask.  On the
+    CPU the valid slots are checked to be a prefix of every chunk.
     ``plain`` runs K1's plain version whatever the device (the reference
     that the kernels are checked against on the card)."""
     Pp = plan_vis.shape[-1]
@@ -334,13 +389,16 @@ def grid_chunks_planes(kernel, weights_grid, plan_uv, plan_sub, plan_wp,
     sre, sim = samples(plan_vis, plan_valid, weights_grid, dw_chunks,
                        plan_anchor, su, sv, kernel_width=K, ts=ts)
     slot = chunk_slots(plan_anchor, n_chunks, ts=ts, nt2=nt2)
+    count = valid_counts(plan_valid)
     dev = plan_vis.device
+    if dev.type == "cpu":
+        check_valid_prefix(plan_valid, count)
     accr = torch.empty((2, 2, Pp, ext2, ext2), dtype=torch.float32,
                        device=dev)
     acci = torch.empty_like(accr)
     k1 = grid_planes_plain if plain else grid_planes
-    k1(slot, n_chunks, iu, iv, su, sv, sre, sim, conj_table(kernel), accr,
-       acci, ts=ts)
+    k1(slot, n_chunks, count, iu, iv, su, sv, sre, sim, conj_table(kernel),
+       accr, acci, ts=ts)
     return accr, acci, occupancy(slot, n_chunks, nt2)
 
 

@@ -22,7 +22,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from katsdpimager_tpu import native
+from .. import device as device_mod
+from .. import native
 
 
 class ChunkPlan(NamedTuple):
@@ -353,15 +354,16 @@ class MxuGridder:
     for a (channel, w_slice) visibility set whose coordinates are fixed
     across major cycles.  Plans are the tile-aligned layout of
     :func:`plan_chunks_tiled` at the tile size of :func:`tile_size`;
-    :meth:`upload_plan` moves one to ``device`` once.  ``plain`` runs every kernel's plain version whatever the
-    device."""
+    :meth:`upload_plan` moves one to ``device`` once (None: the CUDA
+    device, which must exist).  ``plain`` runs every kernel's plain
+    version whatever the device."""
 
-    def __init__(self, *, pixels: int, kernel_width: int, device="cpu",
+    def __init__(self, *, pixels: int, kernel_width: int, device=None,
                  plain: bool = False):
         self.pixels = pixels
         self.K = kernel_width
         self.ts = tile_size(pixels, kernel_width)
-        self.device = torch.device(device)
+        self.device = device_mod.resolve(device)
         self.plain = plain
 
     def plan(self, uv, sub_uv, w_plane, vis, weights) -> ChunkPlan:

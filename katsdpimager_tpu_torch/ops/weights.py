@@ -24,6 +24,8 @@ import enum
 
 import torch
 
+from .. import device as device_mod
+
 
 class WeightType(enum.Enum):
     NATURAL = 0
@@ -71,15 +73,17 @@ def density_weights(weights_grid, a, b):
 
 class Weights:
     """Per-channel weight computation, holding the density grid as a
-    (P, N, N) f32 tensor on ``device``."""
+    (P, N, N) f32 tensor on ``device`` (None: the CUDA device, which must
+    exist)."""
 
     def __init__(self, weight_type: WeightType, num_polarizations: int,
-                 pixels: int, robustness: float = 0.0, device="cpu"):
+                 pixels: int, robustness: float = 0.0, device=None):
         self.weight_type = weight_type
         self.robustness = robustness
         self.pixels = pixels
         self.grid = torch.zeros((num_polarizations, pixels, pixels),
-                                dtype=torch.float32, device=device)
+                                dtype=torch.float32,
+                                device=device_mod.resolve(device))
 
     def clear(self):
         if self.weight_type != WeightType.NATURAL:

@@ -17,6 +17,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import device as device_mod
 from ..ops import clean as clean_ops
 from ..ops import mxu_gridder
 from ..ops.fused_fft import grid_to_image_fused_parts
@@ -244,14 +245,16 @@ def chunk_channel(cfg: MultiChannelConfig, uv, sub_uv, w_plane, vis,
 def make_example_batch(cfg: MultiChannelConfig, num_channels: int,
                        seed: int = 0, base_frequency: float = 1.0e9,
                        vis_per_slice: int | None = None,
-                       device="cpu") -> ChannelBatch:
+                       device=None) -> ChannelBatch:
     """Synthesize a ChannelBatch, bit-identical to the JAX package's
     ``make_example_batch`` for the same arguments (same random draws,
-    same planner), with its tensors on ``device``."""
-    from katsdpimager_tpu import parameters, polarization
-    from katsdpimager_tpu.ops import wkernel
-    from katsdpimager_tpu.units import C_M_PER_S
+    same planner), with its tensors on ``device`` (None: the CUDA device,
+    which must exist)."""
+    from .. import parameters, polarization
+    from ..ops import wkernel
+    from ..units import C_M_PER_S
 
+    device = device_mod.resolve(device)
     rng = np.random.default_rng(seed)
     C, S = num_channels, cfg.w_slices
     N, K, O, Pp = cfg.pixels, cfg.kernel_width, cfg.oversample, cfg.num_pols

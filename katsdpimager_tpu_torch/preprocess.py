@@ -18,8 +18,8 @@ behaviour:
 
 Two engines compute a batch: ``"torch"`` (:func:`preprocess_channel`,
 vectorised on a device: transform, quantise, sort by one packed 62-bit
-key, merge with a segment sum) and ``"native"`` (the JAX package's
-C++/OpenMP core, :mod:`katsdpimager_tpu.native`, on the host).  The
+key, merge with a segment sum) and ``"native"`` (the C++/OpenMP core,
+:mod:`.native`, on the host).  The
 collectors and readers keep the records on the host, in memory or spilled
 to an HDF5 file (``h5py``, imported only there).
 """
@@ -31,6 +31,8 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from . import device as device_mod
 
 # -----------------------------------------------------------------------------
 # Static per-channel geometry for quantization
@@ -205,11 +207,13 @@ class VisibilityCollector:
     stores compressed records bucketed by (channel, w_slice): ``add(...)``
     per chunk, ``close()``, then ``reader()``.
 
-    ``engine`` is ``"torch"`` (on ``device``) or ``"native"`` (host)."""
+    ``engine`` is ``"torch"`` (on ``device``) or ``"native"`` (host).
+    ``device`` None is the CUDA device, which must exist (:mod:`.device`);
+    pass ``"cpu"`` for the CPU."""
 
     def __init__(self, image_parameters: Sequence, grid_parameters: Sequence,
                  buffer_size: int = 1 << 20, engine: str = "torch",
-                 device="cpu"):
+                 device=None):
         if engine not in ("torch", "native"):
             raise ValueError(f"Unknown preprocess engine {engine!r}")
         if len(image_parameters) != len(grid_parameters):
@@ -229,7 +233,7 @@ class VisibilityCollector:
             [[] for _ in range(gp.w_slices)] for gp in self.grid_parameters
         ]
         self.engine = engine
-        self.device = torch.device(device)
+        self.device = device_mod.resolve(device)
 
     @property
     def num_channels(self):
@@ -258,7 +262,7 @@ class VisibilityCollector:
             mueller_t = torch.from_numpy(mueller).to(dev)
         for channel in range(self.num_channels):
             if self.engine == "native":
-                from katsdpimager_tpu import native
+                from . import native
 
                 out = native.preprocess_channel(
                     uvw, np.asarray(weights[channel]),
@@ -389,7 +393,7 @@ class VisibilityCollectorHDF5(VisibilityCollector):
 
     def __init__(self, filename, image_parameters, grid_parameters,
                  buffer_size: int = 1 << 20, max_cache_size=None,
-                 engine: str = "torch", device="cpu"):
+                 engine: str = "torch", device=None):
         h5py = _import_h5py()
         super().__init__(image_parameters, grid_parameters, buffer_size,
                          engine=engine, device=device)

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from .ops import _build
+from .ops.fused_gridder import tf32_rna
 
 M, W, L = 256, 256, 128
 
@@ -73,13 +74,6 @@ def _recombined(sel, width: int):
     return (sel[:, :width] + sel[:, width:2 * width]) + sel[:, 2 * width:]
 
 
-def _tf32(x):
-    """``x`` rounded to TF32 (10 mantissa bits, nearest, ties away from
-    zero: PTX ``cvt.rna.tf32.f32``), held in f32."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
 # ---------------------------------------------------------------------------
 # Plain versions
 
@@ -105,7 +99,7 @@ def dot_f32_plain(x, y):
 def dot_tf32_plain(x, y):
     """Plain version of probe C through TF32: the inputs rounded to TF32,
     then an f32 matmul (the products of two TF32 values are exact in f32)."""
-    return _tf32(x).transpose(0, 1) @ _tf32(y)
+    return tf32_rna(x).transpose(0, 1) @ tf32_rna(y)
 
 
 def recombine_plain(tab):

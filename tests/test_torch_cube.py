@@ -50,7 +50,7 @@ def batches():
     as a port batch and a JAX batch."""
     tb = multichannel.make_example_batch(
         multichannel.MultiChannelConfig(**SMALL, weight_type="natural"), 1,
-        seed=5)
+        seed=5, device="cpu")
     tb, pos, flux = cube.with_point_sources(CFG, tb, seed=1)
     jb = jax_mc.ChannelBatch(**convert.batch_to_numpy(tb))
     return tb, jb, pos, flux

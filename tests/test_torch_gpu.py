@@ -98,7 +98,8 @@ def test_k2_masks_nan(cuda):
     ext2 = nt2 * 2 * ts
     accr = torch.full((2, 2, 1, ext2, ext2), float("nan"), device=cuda)
     acci = torch.full_like(accr, float("nan"))
-    fused_gridder.grid_planes(slot, n, iu, iv, su, sv, sre, sim,
+    fused_gridder.grid_planes(slot, n, fused_gridder.valid_counts(val),
+                              iu, iv, su, sv, sre, sim,
                               fused_gridder.conj_table(kern), accr, acci,
                               ts=ts)
     occ = fused_gridder.occupancy(slot, n, nt2)
@@ -364,3 +365,77 @@ def test_per_channel_run_matches_plain(cuda, pixels):
         assert np.abs(got[name] - ref[name])[:, inside].max() <= 1e-4 * peak
     np.testing.assert_array_equal((got["model"] != 0)[:, inside],
                                   (ref["model"] != 0)[:, inside])
+
+
+def _k1_inputs(dev, seed, *, ts, P, K, runs, counts, Mc=256, WO=64):
+    """Direct K1 inputs: runs of 1-4 chunks sharing a slot, each chunk's
+    valid slots a prefix of ``counts[c]``, taps anywhere in range."""
+    rng = np.random.default_rng(seed)
+    nt2 = 3
+    NC = sum(runs)
+    slots = rng.choice(4 * nt2 * nt2, size=len(runs), replace=False)
+    slot = np.repeat(slots, runs).astype(np.int32)
+    count = np.asarray(counts, np.int32)
+    assert len(count) == NC
+    iu, iv = (rng.integers(0, WO, size=(NC, Mc)).astype(np.int32)
+              for _ in range(2))
+    su, sv = (rng.integers(0, ts, size=(NC, Mc)).astype(np.int32)
+              for _ in range(2))
+    live = np.arange(Mc)[None, None, :] < count[:, None, None]
+    sre, sim = (np.where(live, rng.normal(size=(NC, P, Mc)), 0.0).astype(
+        np.float32) for _ in range(2))
+    table = (rng.normal(size=(WO, K))
+             + 1j * rng.normal(size=(WO, K))).astype(np.complex64)
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in
+         (slot, count, iu, iv, su, sv, sre, sim, table)]
+    return t, nt2
+
+
+@pytest.mark.parametrize("ts,K", [(64, 60), (32, 30)])
+@pytest.mark.parametrize("P", [1, 4])
+def test_k1_valid_counts_match_plain(cuda, ts, K, P):
+    """K1 loops to each chunk's valid count: runs of 1-4 chunks with 0, 1,
+    31 and 256 valid slots (and a run whose only chunk is empty), against
+    its plain version within 2e-5 of the largest written value."""
+    runs = [1, 2, 3, 4, 1]
+    counts = [256, 0, 1, 31, 256, 7, 0, 255, 128, 31, 0]
+    (slot, count, iu, iv, su, sv, sre, sim, table), nt2 = _k1_inputs(
+        cuda, 5 * ts + P, ts=ts, P=P, K=K, runs=runs, counts=counts)
+    n = len(counts)
+    ext2 = nt2 * 2 * ts
+    shape = (2, 2, P, ext2, ext2)
+    kr, ki = (torch.full(shape, float("nan"), device=cuda) for _ in range(2))
+    pr, pi = (torch.full(shape, float("nan"), device=cuda) for _ in range(2))
+    args = (slot, n, count, iu, iv, su, sv, sre, sim, table)
+    launches = fused_gridder.grid_planes.launches
+    fused_gridder.grid_planes(*args, kr, ki, ts=ts)
+    fused_gridder.grid_planes_plain(*args, pr, pi, ts=ts)
+    torch.cuda.synchronize()
+    assert fused_gridder.grid_planes.launches == launches + 1
+    written = ~torch.isnan(pr)
+    assert torch.equal(written, ~torch.isnan(kr))
+    scale = max(pr[written].abs().max().item(), pi[written].abs().max().item())
+    assert scale > 0
+    for k, p in ((kr, pr), (ki, pi)):
+        assert (k[written] - p[written]).abs().max().item() <= 2e-5 * scale
+    # the run of one empty chunk is written, as zeros
+    occ = fused_gridder.occupancy(slot, n, nt2)
+    assert int(occ.sum()) == len(runs)
+
+
+@pytest.mark.parametrize("n", [256, 1024, 4096, 8192])
+@pytest.mark.parametrize("square", [True, False])
+@pytest.mark.parametrize("sign", [-1, 1])
+def test_k8_clusters_match_plain(cuda, n, square, sign):
+    """K8's four-step cluster design against ``col_fft_plain`` within
+    1e-6 of the largest output, square and with a ragged M = 200."""
+    m = n if square else 200
+    gen = torch.Generator(device="cpu").manual_seed(n + m)
+    xr = torch.randn((1, n, m), generator=gen).to(cuda)
+    xi = torch.randn((1, n, m), generator=gen).to(cuda)
+    kr, ki = fused_fft.col_fft(xr, xi, sign)
+    pr, pi = fused_fft.col_fft_plain(xr, xi, sign)
+    torch.cuda.synchronize()
+    scale = max(pr.abs().max().item(), pi.abs().max().item())
+    assert (kr - pr).abs().max().item() <= 1e-6 * scale
+    assert (ki - pi).abs().max().item() <= 1e-6 * scale

@@ -141,7 +141,8 @@ def test_nan_poisoned_planes_do_not_leak():
     ext2 = nt2 * 2 * TS
     accr = torch.full((2, 2, 1, ext2, ext2), float("nan"))
     acci = torch.full_like(accr, float("nan"))
-    fused_gridder.grid_planes(slot, n, iu, iv, su, sv, sre, sim,
+    fused_gridder.grid_planes(slot, n, fused_gridder.valid_counts(val),
+                              iu, iv, su, sv, sre, sim,
                               fused_gridder.conj_table(kern), accr, acci,
                               ts=TS)
     occ = fused_gridder.occupancy(slot, n, nt2)

@@ -48,7 +48,8 @@ def _params(weight_type="UNIFORM"):
 @pytest.fixture(scope="module")
 def setup():
     ip, gp, clean_p, uvw, vis = _params()
-    col = preprocess.VisibilityCollectorMem([ip], [gp], engine="torch")
+    col = preprocess.VisibilityCollectorMem([ip], [gp], engine="torch",
+                                            device="cpu")
     mueller = polarization.polarization_matrix(
         [polarization.STOKES_I], [polarization.STOKES_XX,
                                   polarization.STOKES_XY,
@@ -61,7 +62,7 @@ def setup():
               for s in range(gp.w_slices)}
     assert all(len(b) == 2 for b in blocks.values() if b)
     taper = imaging.Imaging(ip, gp, parameters.WeightParameters(
-        weights.WeightType.NATURAL), clean_p).taper1d.numpy()
+        weights.WeightType.NATURAL), clean_p, device="cpu").taper1d.numpy()
     t2 = np.outer(taper, taper)
     return ip, gp, clean_p, blocks, t2 >= 0.002 * t2.max()
 
@@ -71,7 +72,7 @@ def _pair(setup, kind="UNIFORM"):
     j = jax_imaging.Imaging(ip, gp, parameters.WeightParameters(
         jax_weights.WeightType[kind]), clean_p)
     t = imaging.Imaging(ip, gp, parameters.WeightParameters(
-        weights.WeightType[kind]), clean_p)
+        weights.WeightType[kind]), clean_p, device="cpu")
     return j, t
 
 

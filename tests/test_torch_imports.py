@@ -1,5 +1,6 @@
 """The PyTorch port must run where JAX is not installed: none of its
-modules, nor ``chip_smoke.py``, may import JAX."""
+modules, nor ``chip_smoke.py``, may import JAX or anything of the JAX
+package ``katsdpimager_tpu`` (the port has its own host modules)."""
 
 import os
 import pathlib
@@ -22,6 +23,9 @@ for name in names:
 import chip_smoke
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
                if sys.modules[m] is not None), "jax was imported"
+jax_pkg = [m for m in sys.modules
+           if m == "katsdpimager_tpu" or m.startswith("katsdpimager_tpu.")]
+assert not jax_pkg, f"the JAX package was imported: {jax_pkg}"
 print(len(names))
 """
 
@@ -36,6 +40,15 @@ def test_port_imports_without_jax():
 
 def test_sources_name_no_jax():
     pattern = re.compile(r"\s*(import|from)\s+jax(\.|\s|$)")
+    for path in list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+        for line in path.read_text().splitlines():
+            assert not pattern.match(line), (path, line)
+
+
+def test_sources_name_no_jax_package():
+    """No import line of the port or of ``chip_smoke.py`` names the JAX
+    package (``katsdpimager_tpu`` without ``_torch``)."""
+    pattern = re.compile(r"\s*(import|from)\s+katsdpimager_tpu(?!_torch)\b")
     for path in list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
         for line in path.read_text().splitlines():
             assert not pattern.match(line), (path, line)

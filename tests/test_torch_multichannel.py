@@ -99,7 +99,7 @@ def test_empty_slice_is_skipped(jax_dirty, monkeypatch):
 def test_counts_from_device_equal_host_counts():
     """``nc_slices=None`` counts occupied chunks itself, same result."""
     cfg = multichannel.MultiChannelConfig(**SMALL, weight_type="uniform")
-    tb = multichannel.make_example_batch(cfg, 1, seed=9)
+    tb = multichannel.make_example_batch(cfg, 1, seed=9, device="cpu")
     step = multichannel.single_channel_step(cfg)
     args = multichannel.channel_args(tb, 0)
     a, _ = step(*args)
@@ -113,7 +113,7 @@ def test_minor_cycles_raise():
     is the PSF-normalised dirty image wherever no patch subtracted."""
     cfg = multichannel.MultiChannelConfig(**SMALL, minor_cycles=10)
     tb = multichannel.make_example_batch(
-        dataclasses.replace(cfg, minor_cycles=0), 1, seed=9)
+        dataclasses.replace(cfg, minor_cycles=0), 1, seed=9, device="cpu")
     residual, model = multichannel.single_channel_step(cfg)(
         *multichannel.channel_args(tb, 0))
     assert residual.shape == model.shape == (1, 256, 256)
@@ -155,7 +155,7 @@ def test_clean_branch_matches_jax(jax_clean_step):
 
 def test_double_precision_raises():
     cfg = multichannel.MultiChannelConfig(**SMALL)
-    tb = multichannel.make_example_batch(cfg, 1, seed=9)
+    tb = multichannel.make_example_batch(cfg, 1, seed=9, device="cpu")
     args = list(multichannel.channel_args(tb, 0))
     args[10] = args[10].to(torch.complex128)
     with pytest.raises(TypeError):

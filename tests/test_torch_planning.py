@@ -109,7 +109,7 @@ def test_make_example_batch_bit_identical(weight_type):
     ref = jax_mc.make_example_batch(jax_mc.MultiChannelConfig(**kw), 2,
                                     seed=7)
     ours = multichannel.make_example_batch(
-        multichannel.MultiChannelConfig(**kw), 2, seed=7)
+        multichannel.MultiChannelConfig(**kw), 2, seed=7, device="cpu")
     for name in convert.JAX_FIELDS:
         a, b = getattr(ours, name).numpy(), np.asarray(getattr(ref, name))
         assert a.dtype == b.dtype, name
@@ -127,7 +127,7 @@ def test_make_example_batch_thinning_matches_jax():
                                     seed=2, vis_per_slice=4000)
     ours = multichannel.make_example_batch(
         multichannel.MultiChannelConfig(**kw), 1, seed=2,
-        vis_per_slice=4000)
+        vis_per_slice=4000, device="cpu")
     for name in convert.JAX_FIELDS:
         np.testing.assert_array_equal(getattr(ours, name).numpy(),
                                       np.asarray(getattr(ref, name)),

@@ -99,7 +99,7 @@ def _slices(col):
 @pytest.mark.parametrize("engine", ["torch", "native"])
 def test_collector_matches_jax(engine):
     want = _collect(jax_pre, "jax")
-    got = _collect(preprocess, engine)
+    got = _collect(preprocess, engine, device="cpu")
     assert (got.num_input, got.num_output) == (want.num_input,
                                                 want.num_output)
     for gch, wch in zip(_slices(got), _slices(want)):
@@ -114,10 +114,11 @@ def test_collector_matches_jax(engine):
 
 
 def test_hdf5_collector_streams_blocks(tmp_path):
-    mem = _collect(preprocess, "torch")
+    mem = _collect(preprocess, "torch", device="cpu")
     ips, gps = _params(2)
     col = preprocess.VisibilityCollectorHDF5(str(tmp_path / "spill.h5"),
-                                             ips, gps, 1 << 12)
+                                             ips, gps, 1 << 12,
+                                             device="cpu")
     mueller = polarization.polarization_matrix(STOKES[:2], LINEAR)
     for seed in (2, 3):
         uvw, w, vis, _ = _batch(seed, 3000)

@@ -92,7 +92,7 @@ def test_tf32_route_loses_precision(port_errors):
     assert 1e-5 < port_errors["C_tf32"] < 1e-2
     assert port_errors["C_tf32"] > 100 * port_errors["C_stacked"]
     x = torch.tensor([1.0 + 2.0 ** -11, 1.0 + 2.0 ** -12, -3.0])
-    np.testing.assert_array_equal(probes._tf32(x).numpy(),
+    np.testing.assert_array_equal(probes.tf32_rna(x).numpy(),
                                   [1.0 + 2.0 ** -10, 1.0, -3.0])
 
 

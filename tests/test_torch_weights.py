@@ -34,7 +34,8 @@ def _blocks(seed):
     ("NATURAL", 0.0), ("UNIFORM", 0.0), ("ROBUST", 0.0), ("ROBUST", 1.5)])
 def test_weights_match_jax(kind, robustness):
     jw = jax_weights.Weights(jax_weights.WeightType[kind], P, N, robustness)
-    tw = weights.Weights(weights.WeightType[kind], P, N, robustness)
+    tw = weights.Weights(weights.WeightType[kind], P, N, robustness,
+                         device="cpu")
     for uv, wt in _blocks(3):
         jw.accumulate(jnp.asarray(uv), jnp.asarray(wt))
         tw.accumulate(uv, wt)
