@@ -10,17 +10,20 @@ It builds the port's CUDA kernels (K1-K8 and the probes P1/P2) from
 4096 px, K=60, oversample 8, 32 W planes, 4 W slices, 2^19 visibilities
 per slice, natural weights), then:
 
-- prints what ``ptxas -v`` reported for K1 and K8 (registers, spills,
-  shared memory);
+- prints what ``ptxas -v`` reported for K1, K3, K4 and K8 (registers,
+  spills, stack frame, shared memory);
 - checks every kernel against its plain PyTorch version at the shapes of
   the main paths (channel 0, slice 0; K8 at (1, 4096, 4096)) and times
-  both, and K8 also against ``torch.fft.fft`` along dim -2, in turns;
+  both, and the column DFTs (K3, K4, K6, K7, K8) also against
+  ``torch.fft.ifft`` or ``torch.fft.fft`` along dim -2, in turns;
   computes each kernel's roofline bound from its inputs (H100 SXM peaks);
   ``fft2`` (two K8 passes) against ``torch.fft.fft2``;
 - runs the 8-channel dirty-image step through
   ``multichannel.single_channel_step`` (1 warm-up, 3 timed iterations)
   with the launch counters reset just before, and checks channel 0's
-  dirty image against the all-plain step;
+  dirty image against the all-plain step; then profiles one more step
+  (the device's busy time and idle share, the top kernels by device
+  time, and the host's seconds to enqueue it);
 - adds 5 bright point sources to the batch (predicted through the degrid
   path) and runs the 8-channel cube wave once at full width
   (``cube.wave_image``: weights, PSF, 2 major cycles of grid, FFT, CLEAN
@@ -67,10 +70,11 @@ import torch
 H100_SXM_HBM_BYTES_PER_S = 3.35e12
 H100_SXM_FLOP_PER_S = {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12}
 
-#: Times of the designs K1 and K8 replace, as PERF.md records them for
-#: PR 3 (call 3 for K1; calls 3-10 for K8) on "NVIDIA H100 80GB HBM3,
-#: 700.00 W".
-REPLACED_DESIGN_MS = {"K1": 5.204, "K8": (0.854, 0.901)}
+#: Times of the designs that K1, K8, K3 and K4 replace, on "NVIDIA H100
+#: 80GB HBM3, 700.00 W", as PERF.md records them (the kernel table's
+#: earlier designs).
+REPLACED_DESIGN_MS = {"K1": 5.204, "K8": (0.854, 0.901), "K3": 0.608,
+                      "K4": 0.938}
 
 
 def emit(obj) -> None:
@@ -157,8 +161,9 @@ def main() -> None:
           "library": _build.lib_path()})
     emit({"phase": "ptxas", "kernels": [
         k for k in _build.ptxas_report()
-        if "grid_planes_kernelI" in k["function"]
-        or "col_fft_k8_kernel" in k["function"]]})
+        if any(name in k["function"] for name in (
+            "grid_planes_kernelI", "col_fft_k8_kernel", "cb_col_fft_kernel",
+            "epi_col_fft_kernel"))]})
     emit({"phase": "roofline", "card": card,
           "hbm_bytes_per_s": H100_SXM_HBM_BYTES_PER_S,
           "flop_per_s": H100_SXM_FLOP_PER_S,
@@ -214,11 +219,12 @@ def main() -> None:
     rows = []
 
     def record(name, source, replaces, err, tol, ms, plain_ms, bnd,
-               library_ms=None):
+               library_ms=None, library=None):
         ok = err <= tol
         emit({"phase": "kernel", "name": name, "max_abs_err": err,
               "tolerance": tol, "ms": ms, "plain_ms": plain_ms,
-              "library_ms": library_ms, **bnd, "card": card, "ok": ok})
+              "library_ms": library_ms, "library": library, **bnd,
+              "card": card, "ok": ok})
         if not ok:
             raise AssertionError(f"{name}: error {err} > tolerance {tol}")
         rows.append({"name": name, "route": "cuda", "source": source,
@@ -286,27 +292,44 @@ def main() -> None:
            ms, plain_ms,
            bound(window_bytes + occ.numel() + 2 * plane_bytes))
 
+    # The column DFTs' library call: torch.fft along dim -2 of a complex
+    # (P, N, N) plane built outside the timed call, the DFT alone
+    # (without the checkerboard, transpose, prologue or epilogue).
+    inverse_dft = "torch.fft.ifft(x, dim=-2, norm='forward'), the DFT alone"
+    forward_dft = "torch.fft.fft(x, dim=-2), the DFT alone"
+
     def k3_kernel():
         out["k"] = fused_fft.cb_col_fft(gr, gi)
 
     def k3_plain():
         out["p"] = fused_fft.cb_col_fft_plain(gr, gi)
 
-    ms, plain_ms = timed_pair(k3_plain, k3_kernel)
+    xc = torch.complex(gr, gi)
+    ms, plain_ms, library_ms = timed_pair(
+        k3_plain, k3_kernel, reps=20,
+        library=lambda: torch.fft.ifft(xc, dim=-2, norm="forward"))
     (ar, ai), (par, pai) = out["k"], out["p"]
     scale = max(par.abs().max().item(), pai.abs().max().item())
-    record("K3 checkerboard column DFT", "katsdpimager_tpu_torch/csrc/fft.cu",
+    record("K3 checkerboard column DFT",
+           "katsdpimager_tpu_torch/csrc/fft.cu",
            "katsdpimager_tpu/ops/pallas_fft.py:204",
            max(max_err(ar, par), max_err(ai, pai)), 1e-5 * scale,
-           ms, plain_ms, bound(4 * plane_bytes, fp32=fft_flops(N, N * P)))
+           ms, plain_ms, bound(4 * plane_bytes, fp32=fft_flops(N, N * P)),
+           library_ms, inverse_dft)
+    emit({"phase": "redesign", "name": "K3", "ms": ms,
+          "replaced_design_ms_recorded": REPLACED_DESIGN_MS["K3"],
+          "speedup_over_recorded": REPLACED_DESIGN_MS["K3"] / ms,
+          "library_ms": library_ms})
 
     taper = batch.taper1d[0]
     scal = fused_fft.scalars(batch.mid_w[0, 0], batch.pixel_size[0], dev)
     img_k = torch.zeros((cfg.num_pols, N, N), device=dev)
     img_p = torch.zeros_like(img_k)
-    ms, plain_ms = timed_pair(
+    xc = torch.complex(par, pai)
+    ms, plain_ms, library_ms = timed_pair(
         lambda: fused_fft.epi_col_fft_plain(par, pai, img_p, taper, scal),
-        lambda: fused_fft.epi_col_fft(par, pai, img_k, taper, scal))
+        lambda: fused_fft.epi_col_fft(par, pai, img_k, taper, scal),
+        reps=20, library=lambda: torch.fft.ifft(xc, dim=-2, norm="forward"))
     # Both accumulated the same layer the same number of times.  The
     # epilogue divides by taper^2, which amplifies either version's f32
     # DFT rounding by up to 1/min(taper^2) in the image corners
@@ -323,7 +346,12 @@ def main() -> None:
            "katsdpimager_tpu/ops/pallas_fft.py:227",
            ((img_k - img_p).abs() * weight).max().item(),
            1e-5 * img_p.abs().max().item(), ms, plain_ms,
-           bound(4 * plane_bytes + N * 4, fp32=fft_flops(N, N * P)))
+           bound(4 * plane_bytes + N * 4, fp32=fft_flops(N, N * P)),
+           library_ms, inverse_dft)
+    emit({"phase": "redesign", "name": "K4", "ms": ms,
+          "replaced_design_ms_recorded": REPLACED_DESIGN_MS["K4"],
+          "speedup_over_recorded": REPLACED_DESIGN_MS["K4"] / ms,
+          "library_ms": library_ms})
     # K6 and K7 on a model of 2000 components of random flux in the
     # central half of the image, with the production taper and the
     # slice's w; K5 on the grid that gives, for the occupied chunks of
@@ -337,11 +365,13 @@ def main() -> None:
     yx = torch.randint(N // 4, N - N // 4, (2, 2000), generator=gen)
     model[:, yx[0], yx[1]] = torch.randn(2000, generator=gen)
     model = model.to(dev)
-    ms, plain_ms = timed_pair(
+    xc = torch.complex(model, torch.zeros_like(model))
+    ms, plain_ms, library_ms = timed_pair(
         lambda: out.__setitem__("p", fused_fft.pre_col_fft_plain(
             model, taper, scal)),
         lambda: out.__setitem__("k", fused_fft.pre_col_fft(model, taper,
-                                                           scal)))
+                                                           scal)),
+        library=lambda: torch.fft.fft(xc, dim=-2))
     (ar, ai), (par, pai) = out["k"], out["p"]
     scale = max(par.abs().max().item(), pai.abs().max().item())
     record("K6 image prologue + column DFT",
@@ -349,19 +379,23 @@ def main() -> None:
            "katsdpimager_tpu/ops/pallas_fft.py:343",
            max(max_err(ar, par), max_err(ai, pai)), 1e-5 * scale,
            ms, plain_ms,
-           bound(3 * plane_bytes + N * 4, fp32=fft_flops(N, N * P)))
+           bound(3 * plane_bytes + N * 4, fp32=fft_flops(N, N * P)),
+           library_ms, forward_dft)
 
-    ms, plain_ms = timed_pair(
+    xc = torch.complex(par, pai)
+    ms, plain_ms, library_ms = timed_pair(
         lambda: out.__setitem__("p", fused_fft.cbout_col_fft_plain(par,
                                                                    pai)),
-        lambda: out.__setitem__("k", fused_fft.cbout_col_fft(par, pai)))
+        lambda: out.__setitem__("k", fused_fft.cbout_col_fft(par, pai)),
+        library=lambda: torch.fft.fft(xc, dim=-2))
     (gr, gi), (pgr, pgi) = out["k"], out["p"]
     scale = max(pgr.abs().max().item(), pgi.abs().max().item())
     record("K7 column DFT + output checkerboard",
            "katsdpimager_tpu_torch/csrc/fft.cu",
            "katsdpimager_tpu/ops/pallas_fft.py:380",
            max(max_err(gr, pgr), max_err(gi, pgi)), 1e-5 * scale,
-           ms, plain_ms, bound(4 * plane_bytes, fp32=fft_flops(N, N * P)))
+           ms, plain_ms, bound(4 * plane_bytes, fp32=fft_flops(N, N * P)),
+           library_ms, forward_dft)
 
     av, au, diu, div, dsu, dsv = fused_degrid.degrid_taps(
         kern, uv, sub, wp, anc, pixels=N, ts=ts)
@@ -382,7 +416,7 @@ def main() -> None:
                  + dtab.numel() * dtab.element_size(),
                  fp32=8.0 * K * K * P * n_valid))
     del kr, ki, pr, pi, out, img_k, img_p, par, pai, ar, ai, gr, gi
-    del pgr, pgi, model, dargs
+    del pgr, pgi, model, dargs, xc
     k8_phase(dev, record, rows, fused_fft)
 
     # ---- the step: 8 channels through single_channel_step
@@ -438,6 +472,25 @@ def main() -> None:
           "shapes_ok": shapes})
     if not (err <= 1e-4 and finite and shapes and peak > 0):
         raise AssertionError("step parity failed")
+
+    # ---- where the step's time goes: one step under torch.profiler (the
+    # device's busy time and idle share against the timed steps above),
+    # and the host's seconds until the step's last launch returned.
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_step()
+        enqueued = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    busy_ms, by_name = device_busy_ms(prof)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    emit({"phase": "step_profile", "card": card, "step_s": elapsed,
+          "device_busy_ms": busy_ms,
+          "idle_share": 1 - busy_ms / 1e3 / elapsed,
+          "host_enqueue_s_profiled": enqueued, "top_device_ms": top})
+    if not busy_ms > 0:
+        raise AssertionError("the profiler saw no device work in the step")
 
     del dirty, got, ref
     wave_phases(cfg, batch, num_channels, rows, card, mc, cube, fourier,
@@ -698,7 +751,8 @@ def k8_phase(dev, record, rows, fused_fft) -> None:
     if not (err <= 1e-5 and launches == 2):
         raise AssertionError(f"fft2: error {err}, K8 launches {launches}")
     record("K8 column DFT", "katsdpimager_tpu_torch/csrc/fft.cu",
-           "katsdpimager_tpu/ops/pallas_fft.py:126", *row)
+           "katsdpimager_tpu/ops/pallas_fft.py:126", *row,
+           "torch.fft.fft(x, dim=-2)")
     rows[-1]["launches"] = launches
     emit({"phase": "redesign", "name": "K8", "ms": row[2],
           "replaced_design_ms_recorded": REPLACED_DESIGN_MS["K8"],

@@ -1,6 +1,6 @@
-// Column-FFT tile core for Hopper (sm_90a): the building blocks of K8
-// (csrc/fft.cu, col_fft_k8_kernel), written so that the other column-DFT
-// kernels (K3, K4, K6, K7) can take them up.
+// Column-FFT tile core for Hopper (sm_90a): the transform of K8, K3 and K4
+// (csrc/fft.cu), which differ only in how a tile's values load and how its
+// finished values store (the `load` and `store` hooks below).
 //
 // The length-N transform of every column of a (N, M) plane pair is split
 // four-step as N = Q * R, with row r = q + Q r2 (q < Q, r2 < R) and output
@@ -23,14 +23,17 @@
 // 32-byte sectors, and a warp covers two rows of a tile, so global loads
 // and stores are coalesced and every shared-memory access is free of bank
 // conflicts (rows of 16 float2; 8-byte accesses run as two half-warps).
+// A transposed store (K3) spreads the cluster's finish along k instead
+// (Finish::kAlongK), or, with no cluster (Q = 1), stages the outputs in
+// shared memory by column (column_slot); either way it writes runs of
+// consecutive k.
 //
 // Twiddles are exp(+2 pi i k / N) computed in float64 and rounded to
 // float32, conjugated for sgn = -1: those of the radix butterflies (k a
 // multiple of N / 32) from a constant-memory copy, the others from the
 // table in device memory (read through the read-only cache; within a warp
-// the addresses are nearly all equal).  Plane data is loaded and stored
-// with streaming cache hints: it is touched once.  No fast-math; all
-// arithmetic is FP32.
+// the addresses are nearly all equal).  No fast-math; all arithmetic is
+// FP32.
 
 #pragma once
 
@@ -137,30 +140,43 @@ struct Tile {
   static constexpr int kMinBlocks = kThreads >= 512 ? 1 : 768 / kThreads;
 };
 
-// Pass 1 (radix R1, Stockham Ns = 1) straight from device memory: the
-// thread's butterflies b = tid + u T take local rows j + i R / R1 of
-// column c = b % kCols (j = b / kCols), that is plane rows q + Q (j + i R
-// / R1); columns at or past M load zeros.  The results go to `buf` at
-// local rows j R1 + i.  Ends synchronised.
-template <int R, int R1, int R2, int Q>
-__device__ __forceinline__ void pass1_from_global(
-    float2* buf, const float* __restrict__ xr, const float* __restrict__ xi,
-    const float2* __restrict__ tw, int N, int M, int q, int c0, float sgn) {
+// A tile of R rows laid out by column in `buf`: value (k, c) at
+// c R + (k ^ c).  The XOR swizzle keeps 16 columns at one k (a half-warp
+// of pass 2) on 16 distinct float2 bank pairs, and 16 consecutive k of
+// one column (a half-warp along k) in one contiguous 128-byte block.
+template <int R>
+__device__ __forceinline__ int column_slot(int k, int c) {
+  return c * R + (k ^ c);
+}
+
+// How the cluster's finish (Q > 1) spreads a CTA's outputs over its
+// threads.  kAlongC: a warp holds 16 columns of 2 consecutive k2, so row
+// stores are 64-byte segments (K8, K4); the partial sums are rows of
+// `buf` (k2 kCols + c).  kAlongK: a warp holds 32 consecutive k2 of one
+// column, so stores along k, as a transposed store makes them, are
+// 128-byte runs (K3); the partial sums are laid out by column
+// (column_slot), so that a half-warp's reads of them, local or from
+// another CTA, are one 128-byte block.
+enum class Finish { kAlongC, kAlongK };
+
+// Pass 1 (radix R1, Stockham Ns = 1) from device memory: the thread's
+// butterflies b = tid + u T take local rows j + i R / R1 of tile column
+// c = b % kCols (j = b / kCols), that is plane rows q + Q (j + i R / R1),
+// each from `load(row, c)`.  The results go to `buf` at local rows
+// j R1 + i.  Ends synchronised.
+template <int R, int R1, int R2, int Q, typename Load>
+__device__ __forceinline__ void pass1_from_global(float2* buf, int q,
+                                                  float sgn, Load load) {
   using T = Tile<R, R1, R2, Q>;
   constexpr int NB = kPerThread / R1;
   float2 v[NB][R1];
 #pragma unroll
   for (int u = 0; u < NB; ++u) {
     const int b = threadIdx.x + u * T::kThreads;
-    const int c = c0 + b % kCols;
+    const int c = b % kCols;
     const int j = b / kCols;
 #pragma unroll
-    for (int i = 0; i < R1; ++i) {
-      const size_t off =
-          static_cast<size_t>(q + Q * (j + i * (R / R1))) * M + c;
-      v[u][i] = c < M ? make_float2(__ldcs(xr + off), __ldcs(xi + off))
-                      : make_float2(0.f, 0.f);
-    }
+    for (int i = 0; i < R1; ++i) v[u][i] = load(q + Q * (j + i * (R / R1)), c);
   }
 #pragma unroll
   for (int u = 0; u < NB; ++u) {
@@ -210,54 +226,75 @@ __device__ __forceinline__ void pass2(float2* buf,
   }
 }
 
-// The whole column DFT of one tile: rows q + Q r2 of columns [c0, c0 +
-// kCols) of the plane pair (xr, xi), with (yr, yi) written at rows k2 + R
-// k1.  `q` is the CTA's rank in its cluster of Q (0 when Q = 1).
-template <int R, int R1, int R2, int Q>
-__device__ __forceinline__ void col_fft_tile(
-    float2* buf, const float* __restrict__ xr, const float* __restrict__ xi,
-    const float2* __restrict__ tw, float* __restrict__ yr,
-    float* __restrict__ yi, int N, int M, int q, int c0, float sgn) {
+// The whole column DFT of one tile of kCols columns: `load(r, c)` gives
+// the input at plane row r (r < N) of tile column c (c < kCols);
+// `store(k2, c, y)` takes the outputs y[k1] at rows k2 + R k1 (k1 < Q) of
+// tile column c, together, once for each k2 of this CTA: all k2 < R when
+// Q = 1, else k2 in [q R / Q, (q + 1) R / Q).  `q` is the CTA's rank in
+// its cluster of Q (0 when Q = 1).  When Q = 1 the hook may write `buf`
+// (the caller synchronises the CTA before reading it).
+template <int R, int R1, int R2, int Q, Finish kFinish = Finish::kAlongC,
+          typename Load, typename Store>
+__device__ __forceinline__ void col_fft_tile(float2* buf,
+                                             const float2* __restrict__ tw,
+                                             int N, int q, float sgn,
+                                             Load load, Store store) {
   using T = Tile<R, R1, R2, Q>;
-  pass1_from_global<R, R1, R2, Q>(buf, xr, xi, tw, N, M, q, c0, sgn);
+  pass1_from_global<R, R1, R2, Q>(buf, q, sgn, load);
   if constexpr (Q == 1) {
     pass2<R, R1, R2, Q>(buf, tw, N, sgn, [&](int k2, int c, float2 y) {
-      if (c0 + c < M) {
-        const size_t off = static_cast<size_t>(k2) * M + c0 + c;
-        __stcs(yr + off, y.x);
-        __stcs(yi + off, y.y);
-      }
+      const float2 out[1] = {y};
+      store(k2, c, out);
     });
   } else {
-    // Partial sums Z_q[k2] scaled by w_N^(q k2), back into buf at row k2.
+    constexpr int L = R / Q;
+    constexpr bool kAlongK = kFinish == Finish::kAlongK;
+    static_assert(!kAlongK || L % 32 == 0, "warps along k2");
+    auto slot = [](int k2, int c) {
+      return kAlongK ? column_slot<R>(k2, c) : k2 * kCols + c;
+    };
+    // Partial sums Z_q[k2] scaled by w_N^(q k2), back into buf.
     pass2<R, R1, R2, Q>(buf, tw, N, sgn, [&](int k2, int c, float2 z) {
-      buf[k2 * kCols + c] = q == 0 ? z : cmul(twiddle(tw, q * k2, sgn), z);
+      buf[slot(k2, c)] = q == 0 ? z : cmul(twiddle(tw, q * k2, sgn), z);
     });
     cg::cluster_group cluster = cg::this_cluster();
     cluster.sync();
     const float2* part[Q];
 #pragma unroll
     for (int s = 0; s < Q; ++s) part[s] = cluster.map_shared_rank(buf, s);
-    constexpr int NB = kPerThread / Q;
 #pragma unroll
-    for (int u = 0; u < NB; ++u) {
+    for (int u = 0; u < kPerThread / Q; ++u) {
       const int e = threadIdx.x + u * T::kThreads;
-      const int c = e % kCols;
-      const int k2 = q * (R / Q) + e / kCols;
+      const int c = kAlongK ? e / L : e % kCols;
+      const int k2 = q * L + (kAlongK ? e % L : e / kCols);
       float2 z[Q];
 #pragma unroll
-      for (int s = 0; s < Q; ++s) z[s] = part[s][k2 * kCols + c];
+      for (int s = 0; s < Q; ++s) z[s] = part[s][slot(k2, c)];
       dft_reg<Q>(z, sgn);
-      if (c0 + c < M) {
-#pragma unroll
-        for (int k1 = 0; k1 < Q; ++k1) {
-          const size_t off = static_cast<size_t>(k2 + R * k1) * M + c0 + c;
-          __stcs(yr + off, z[k1].x);
-          __stcs(yi + off, z[k1].y);
-        }
-      }
+      store(k2, c, z);
     }
     cluster.sync();  // no CTA leaves while another reads its buf
+  }
+}
+
+// Writes a tile staged in `buf` by column (column_slot; Q = 1, so from
+// pass 2, whose warps hold 16 columns of 2 rows) transposed: column c to
+// row c0 + c of the (M, N) output pair (yr, yi).  Each warp writes 32
+// consecutive floats of each plane.  Call after the CTA has synchronised
+// behind the staging writes.
+template <int R, int R1, int R2>
+__device__ __forceinline__ void store_staged_transposed(
+    const float2* buf, float* __restrict__ yr, float* __restrict__ yi,
+    int N, int c0) {
+  using T = Tile<R, R1, R2, 1>;
+#pragma unroll 4
+  for (int e = threadIdx.x; e < R * kCols; e += T::kThreads) {
+    const int c = e / R;
+    const int k = e % R;
+    const float2 v = buf[column_slot<R>(k, c)];
+    const size_t off = static_cast<size_t>(c0 + c) * N + k;
+    __stcs(yr + off, v.x);
+    __stcs(yi + off, v.y);
   }
 }
 

@@ -11,9 +11,10 @@
 // Built WITHOUT -use_fast_math: the W-phase 2 pi w (n - 1) of K4 and K6
 // reaches far beyond +-pi, where __sinf/__cosf lose all accuracy.
 //
-// K8 runs on the four-step column-FFT tile core of col_fft_tile.cuh (one
-// launch, clusters of Q CTAs, radix-16/32 butterflies in registers).  K3,
-// K4, K6 and K7 still use the radix-2 core below.
+// K8, K3 and K4 run on the four-step column-FFT tile core of
+// col_fft_tile.cuh (one launch, clusters of Q CTAs, radix-16/32
+// butterflies in registers), each with its own load and store hooks.  K6
+// and K7 still use the radix-2 core below.
 //
 // Radix-2 core: an in-place radix-2 decimation-in-time FFT over CB
 // columns held in shared memory.  Inputs are loaded in bit-reversed order,
@@ -21,14 +22,13 @@
 // Twiddles exp(+2 pi i k / N), k < N/2, come from a table computed in
 // float64 on the host and stored as float32; the forward transforms (K6,
 // K7) conjugate them (an exact sign flip).  All arithmetic is FP32 FMA.
+// What bounds it on this card: shared-memory traffic of the log2(N)
+// passes (each reads and writes CB * N complex values) and the strided
+// column loads, whose row segments are CB * 4 bytes.
 //
-// What bounds both kernels on this card: shared-memory traffic of the
-// log2(N) passes (each reads and writes CB * N complex values) and the
-// strided column loads, whose row segments are CB * 4 bytes; the DFT
-// itself is 5 N log2 N flops per column, far below the FP32 rate.  The
-// TPU kernels' Bailey four-step with 64 x 64 DFT matrices suited the MXU
-// but costs about 10x the flops of a radix-2 FFT in FP32 at N = 4096, so
-// it is not carried over.
+// The TPU kernels' Bailey four-step with 64 x 64 DFT matrices suited the
+// MXU but costs about 10x the flops of an FFT in FP32 at N = 4096, so it
+// is not carried over.
 
 #include <cuda_runtime.h>
 
@@ -79,22 +79,16 @@ __device__ __forceinline__ int bitrev(int r, int logN) {
 }
 
 // Load CB columns [c0, c0 + CB) of one (N, N) plane pair into `buf` in
-// bit-reversed order, times the checkerboard (-1)^(r+c) when `cb`.
+// bit-reversed order.
 __device__ void load_columns(float2* buf, const float* __restrict__ xr,
                              const float* __restrict__ xi, int logN, int CB,
-                             int c0, bool cb) {
+                             int c0) {
   const int N = 1 << logN;
   for (int e = threadIdx.x; e < N * CB; e += blockDim.x) {
     const int r = e / CB;
     const int j = e - r * CB;
-    const int c = c0 + j;
-    const size_t off = static_cast<size_t>(r) * N + c;
-    float vr = xr[off], vi = xi[off];
-    if (cb && ((r + c) & 1)) {
-      vr = -vr;
-      vi = -vi;
-    }
-    buf[j * N + bitrev(r, logN)] = make_float2(vr, vi);
+    const size_t off = static_cast<size_t>(r) * N + c0 + j;
+    buf[j * N + bitrev(r, logN)] = make_float2(xr[off], xi[off]);
   }
 }
 
@@ -115,82 +109,6 @@ __device__ void store_transposed(const float2* buf, float* __restrict__ yr,
 }
 
 // ---------------------------------------------------------------------------
-// K3 -- replaces katsdpimager_tpu/ops/pallas_fft.py:_make_cb_col_kernel
-// (pass A of grid_to_image_fused_parts) and the XLA transpose after it.
-//
-// y[p, c, k] = sum_r (-1)^(r+c) x[p, r, c] exp(+2 pi i r k / N): the
-// unnormalised inverse DFT of every column of cb * x, stored TRANSPOSED,
-// so pass B again transforms columns.  One CTA per (CB columns, plane).
-// The transposed store is contiguous along k: fully coalesced.
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(kThreads)
-cb_col_fft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
-                  const float2* __restrict__ tw, float* __restrict__ yr,
-                  float* __restrict__ yi, int logN, int CB) {
-  extern __shared__ float2 buf[];
-  const int N = 1 << logN;
-  const size_t plane = static_cast<size_t>(blockIdx.y) * N * N;
-  const int c0 = blockIdx.x * CB;
-  load_columns(buf, xr + plane, xi + plane, logN, CB, c0, true);
-  fft_columns(buf, logN, CB, tw, 1.0f);
-  store_transposed(buf, yr, yi, plane, logN, CB, c0);
-}
-
-// ---------------------------------------------------------------------------
-// K4 -- replaces katsdpimager_tpu/ops/pallas_fft.py:_make_epi_col_kernel
-// (pass B of grid_to_image_fused_parts).
-//
-// Y = inverse column DFT of the transposed pass-A output, then in place
-//     imgT[p, r, c] += Y.re * (cos(ph) * common) - Y.im * (sin(ph) * common)
-// with the f32 formulas of pallas_fft.py: lm = (index - N/2) * pixel_size,
-// n = sqrt(1 - lm_r^2 - lm_c^2), ph = 2 pi w (n - 1),
-// common = cb * n / (taper[r] * taper[c]), cb = (-1)^(r+c).
-// The factors are symmetric in (r, c), so the transposed image takes the
-// same formulas.  The epilogue uses round-to-nearest intrinsics so that
-// no multiply-add is contracted: it then rounds as the plain version does.
-// w and the pixel size are read from a device array, so the W-slice loop
-// needs no host sync.
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(kThreads)
-epi_col_fft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
-                   const float2* __restrict__ tw,
-                   const float* __restrict__ taper,
-                   const float* __restrict__ scal, float* __restrict__ img,
-                   int logN, int CB) {
-  extern __shared__ float2 buf[];
-  const int N = 1 << logN;
-  const size_t plane = static_cast<size_t>(blockIdx.y) * N * N;
-  const int c0 = blockIdx.x * CB;
-  load_columns(buf, xr + plane, xi + plane, logN, CB, c0, false);
-  fft_columns(buf, logN, CB, tw, 1.0f);
-  const float w = scal[0];
-  const float ps = scal[1];
-  const float half = 0.5f * static_cast<float>(N);
-  const float two_pi_w = __fmul_rn(6.28318530717958647692f, w);
-  for (int e = threadIdx.x; e < N * CB; e += blockDim.x) {
-    const int r = e / CB;
-    const int j = e - r * CB;
-    const int c = c0 + j;
-    const float lm_r = __fmul_rn(__fsub_rn(static_cast<float>(r), half), ps);
-    const float lm_c = __fmul_rn(__fsub_rn(static_cast<float>(c), half), ps);
-    const float n_lm = sqrtf(__fsub_rn(__fsub_rn(1.0f, __fmul_rn(lm_r, lm_r)),
-                                       __fmul_rn(lm_c, lm_c)));
-    const float phase = __fmul_rn(two_pi_w, __fsub_rn(n_lm, 1.0f));
-    const float cb = ((r + c) & 1) ? -1.0f : 1.0f;
-    const float taper2 = __fmul_rn(taper[r], taper[c]);
-    const float common = __fdiv_rn(__fmul_rn(cb, n_lm), taper2);
-    float sn, cs;
-    sincosf(phase, &sn, &cs);
-    const float2 y = buf[j * N + r];
-    const size_t off = plane + static_cast<size_t>(r) * N + c;
-    img[off] = __fsub_rn(__fadd_rn(img[off], __fmul_rn(y.x, __fmul_rn(cs, common))),
-                         __fmul_rn(y.y, __fmul_rn(sn, common)));
-  }
-}
-
-// ---------------------------------------------------------------------------
 // K6 -- replaces katsdpimager_tpu/ops/pallas_fft.py:_make_pre_col_kernel
 // (pass A of image_to_grid_fused_parts) and the XLA transpose after it.
 //
@@ -202,7 +120,7 @@ epi_col_fft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
 // transposed, so K7 again transforms columns.  The factors are symmetric
 // in (r, c), so the transposed image takes the same formulas.  The
 // prologue uses round-to-nearest intrinsics (no contracted multiply-add),
-// so it rounds as the plain version does.  Bound like K3: the transform's
+// so it rounds as the plain version does.  Bound by the radix-2 core's
 // shared-memory passes; the prologue adds no memory pass.
 // ---------------------------------------------------------------------------
 
@@ -249,7 +167,7 @@ pre_col_fft_kernel(const float* __restrict__ img,
 // g[p, k', k] = (-1)^(k'+k) sum_c x[p, c, k] exp(-2 pi i c k' / N): the
 // forward DFT of every column of K6's transposed output, times the output
 // checkerboard, stored in place of its column, so the (P, N, N) grid
-// planes come out the right way round (K5's input).  Bound like K3.
+// planes come out the right way round (K5's input).  Bound like K6.
 // ---------------------------------------------------------------------------
 
 __global__ void __launch_bounds__(kThreads)
@@ -261,7 +179,7 @@ cbout_col_fft_kernel(const float* __restrict__ xr,
   const int N = 1 << logN;
   const size_t plane = static_cast<size_t>(blockIdx.y) * N * N;
   const int c0 = blockIdx.x * CB;
-  load_columns(buf, xr + plane, xi + plane, logN, CB, c0, false);
+  load_columns(buf, xr + plane, xi + plane, logN, CB, c0);
   fft_columns(buf, logN, CB, tw, -1.0f);
   for (int e = threadIdx.x; e < N * CB; e += blockDim.x) {
     const int r = e / CB;
@@ -276,23 +194,82 @@ cbout_col_fft_kernel(const float* __restrict__ xr,
 }
 
 // ---------------------------------------------------------------------------
+// The tile kernels: K8, K3 and K4 on the core of col_fft_tile.cuh, one
+// launch each, a cluster of Q CTAs per 16-column tile and plane (grid
+// (Q, tiles, planes)), N = Q R four-step: each CTA reads its R rows
+// q + Q r2 once (64-byte row segments), does the length-R DFT as two
+// register-resident radix passes with one shared-memory exchange, and
+// after a cluster barrier finishes a length-Q DFT over the cluster's
+// shared memory.  What bounds them on this card: device memory, one read
+// and one write of two planes (268 MB at (1, 4096, 4096): 0.080 ms at
+// 3.35 TB/s); the 5 N log2 N flops per column are about a percent of the
+// FP32 rate.
+// ---------------------------------------------------------------------------
+
+template <int R, int R1, int R2, int Q>
+struct Plan {
+  static constexpr int kR = R, kR1 = R1, kR2 = R2, kQ = Q;
+  using Tile = col_fft_tile::Tile<R, R1, R2, Q>;
+};
+
+// f(Plan<R, R1, R2, Q>{}) at the plan of N, the same for every tile
+// kernel; other N are refused.
+template <typename F>
+cudaError_t with_plan(int N, F f) {
+  switch (N) {
+    case 256:
+      return f(Plan<256, 16, 16, 1>{});
+    case 512:
+      return f(Plan<512, 32, 16, 1>{});
+    case 1024:
+      return f(Plan<512, 32, 16, 2>{});
+    case 2048:
+      return f(Plan<512, 32, 16, 4>{});
+    case 4096:
+      return f(Plan<512, 32, 16, 8>{});
+    case 8192:
+      return f(Plan<1024, 32, 32, 8>{});
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// Launches a tile kernel of plan Pn over `tiles` column tiles of `planes`
+// planes, in clusters of Q CTAs along x.
+template <typename Pn, typename... KArgs, typename... Args>
+cudaError_t launch_tiles(void (*kernel)(KArgs...), int tiles, int planes,
+                         void* stream, Args... args) {
+  using T = typename Pn::Tile;
+  if (tiles > 65535 || planes <= 0 || planes > 65535)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(Pn::kQ, tiles, planes);
+  cfg.blockDim = dim3(T::kThreads);
+  cfg.dynamicSmemBytes = T::kSmemBytes;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = Pn::kQ;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = Pn::kQ > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // K8 -- replaces katsdpimager_tpu/ops/pallas_fft.py:_make_col_kernel
 // (col_fft, driven twice by fft2_pallas).
 //
 // y[b, k, c] = sum_r x[b, r, c] exp(sgn 2 pi i r k / N): the plain
 // unnormalised DFT of every column of a (B, N, M) plane pair, sgn = -1
-// forward, +1 inverse, stored in natural orientation.
-//
-// What bounds it on this card: device memory, one read and one write of
-// both planes (268 MB at (1, 4096, 4096): 0.080 ms at 3.35 TB/s); the
-// 5 N log2 N flops per column are about a percent of the FP32 rate.
-//
-// Design (col_fft_tile.cuh): a cluster of Q CTAs per 16-column tile and
-// batch, N = Q R; each CTA reads its R rows q + Q r2 once (64-byte row
-// segments), does the length-R DFT as two register-resident radix passes
-// with one shared-memory exchange, and after a cluster barrier finishes a
-// length-Q DFT over the cluster's shared memory, writing each output once.
-// A ragged last tile loads zeros and stores nothing past M.
+// forward, +1 inverse, stored in natural orientation.  A ragged last tile
+// loads zeros and stores nothing past M.
 // ---------------------------------------------------------------------------
 
 template <int R, int R1, int R2, int Q>
@@ -301,40 +278,183 @@ __global__ void __launch_bounds__(col_fft_tile::Tile<R, R1, R2, Q>::kThreads,
 col_fft_k8_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                   const float2* __restrict__ tw, float* __restrict__ yr,
                   float* __restrict__ yi, int N, int M, float sgn) {
-  extern __shared__ float2 k8_buf[];
+  extern __shared__ float2 tile_buf[];
   const size_t plane = static_cast<size_t>(blockIdx.z) * N * M;
+  const int c0 = static_cast<int>(blockIdx.y) * col_fft_tile::kCols;
+  xr += plane;
+  xi += plane;
+  yr += plane;
+  yi += plane;
   col_fft_tile::col_fft_tile<R, R1, R2, Q>(
-      k8_buf, xr + plane, xi + plane, tw, yr + plane, yi + plane, N, M,
-      Q == 1 ? 0 : static_cast<int>(blockIdx.x),
-      static_cast<int>(blockIdx.y) * col_fft_tile::kCols, sgn);
+      tile_buf, tw, N, Q == 1 ? 0 : static_cast<int>(blockIdx.x), sgn,
+      [&](int r, int c) {
+        const size_t off = static_cast<size_t>(r) * M + c0 + c;
+        return c0 + c < M ? make_float2(__ldcs(xr + off), __ldcs(xi + off))
+                          : make_float2(0.f, 0.f);
+      },
+      [&](int k2, int c, const float2(&y)[Q]) {
+        if (c0 + c < M) {
+#pragma unroll
+          for (int k1 = 0; k1 < Q; ++k1) {
+            const size_t off = static_cast<size_t>(k2 + R * k1) * M + c0 + c;
+            __stcs(yr + off, y[k1].x);
+            __stcs(yi + off, y[k1].y);
+          }
+        }
+      });
+}
+
+// ---------------------------------------------------------------------------
+// K3 -- replaces katsdpimager_tpu/ops/pallas_fft.py:_make_cb_col_kernel
+// (pass A of grid_to_image_fused_parts) and the XLA transpose after it.
+//
+// y[p, c, k] = sum_r (-1)^(r+c) x[p, r, c] exp(+2 pi i r k / N): the
+// unnormalised inverse DFT of every column of cb * x, stored TRANSPOSED,
+// so pass B again transforms columns.  The checkerboard is an exact sign
+// flip as the values load.  The transposed store: with clusters (N >=
+// 1024), the finish runs along k (Finish::kAlongK), so each warp stores
+// 128 contiguous bytes of an output row; with none (N = 256, 512), the
+// outputs are staged in shared memory, then written row by row.
+// ---------------------------------------------------------------------------
+
+template <int R, int R1, int R2, int Q>
+__global__ void __launch_bounds__(col_fft_tile::Tile<R, R1, R2, Q>::kThreads,
+                                  col_fft_tile::Tile<R, R1, R2, Q>::kMinBlocks)
+cb_col_fft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+                  const float2* __restrict__ tw, float* __restrict__ yr,
+                  float* __restrict__ yi) {
+  constexpr int N = Q * R;
+  extern __shared__ float2 tile_buf[];
+  const size_t plane = static_cast<size_t>(blockIdx.z) * N * N;
+  const int c0 = static_cast<int>(blockIdx.y) * col_fft_tile::kCols;
+  xr += plane;
+  xi += plane;
+  yr += plane;
+  yi += plane;
+  auto load = [&](int r, int c) {
+    const size_t off = static_cast<size_t>(r) * N + c0 + c;
+    const float2 x = make_float2(__ldcs(xr + off), __ldcs(xi + off));
+    return ((r + c0 + c) & 1) ? make_float2(-x.x, -x.y) : x;
+  };
+  if constexpr (Q == 1) {
+    col_fft_tile::col_fft_tile<R, R1, R2, Q>(
+        tile_buf, tw, N, 0, 1.0f, load,
+        [&](int k, int c, const float2(&y)[1]) {
+          tile_buf[col_fft_tile::column_slot<R>(k, c)] = y[0];
+        });
+    __syncthreads();
+    col_fft_tile::store_staged_transposed<R, R1, R2>(tile_buf, yr, yi, N, c0);
+  } else {
+    col_fft_tile::col_fft_tile<R, R1, R2, Q, col_fft_tile::Finish::kAlongK>(
+        tile_buf, tw, N, static_cast<int>(blockIdx.x), 1.0f, load,
+        [&](int k2, int c, const float2(&y)[Q]) {
+#pragma unroll
+          for (int k1 = 0; k1 < Q; ++k1) {
+            const size_t off = static_cast<size_t>(c0 + c) * N + k2 + R * k1;
+            __stcs(yr + off, y[k1].x);
+            __stcs(yi + off, y[k1].y);
+          }
+        });
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K4 -- replaces katsdpimager_tpu/ops/pallas_fft.py:_make_epi_col_kernel
+// (pass B of grid_to_image_fused_parts).
+//
+// Y = inverse column DFT of the transposed pass-A output, then in place
+//     imgT[p, r, c] += Y.re * (cos(ph) * common) - Y.im * (sin(ph) * common)
+// with the f32 formulas of pallas_fft.py: lm = (index - N/2) * pixel_size,
+// n = sqrt(1 - lm_r^2 - lm_c^2), ph = 2 pi w (n - 1),
+// common = cb * n / (taper[r] * taper[c]), cb = (-1)^(r+c).
+// The factors are symmetric in (r, c), so the transposed image takes the
+// same formulas.  Each finished value (row k, column c) updates imgT at
+// (k, c) straight from the cluster's finish: 64-byte row segments, like
+// K8's stores.  w and the pixel size are read from a device array, so the
+// W-slice loop needs no host sync.
+//
+// Bound, like K8, by device memory: two planes read, the image read and
+// written (268 MB at (1, 4096, 4096)).  What it adds to K8: the image's
+// read in the finish, which the loads prefetch into L2 and the hook
+// issues Q at a time, and the epilogue's ~70 instructions per value (IEEE
+// sqrtf, __fdiv_rn, the full-range sincosf).
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void prefetch_l2(const float* p) {
+  asm volatile("prefetch.global.L2 [%0];" : : "l"(p));
+}
+
+// K4's epilogue at image row r, column c: round-to-nearest intrinsics, so
+// that no multiply-add is contracted and it rounds as the plain version
+// does; IEEE sqrtf and the full-range sincosf.
+__device__ __forceinline__ float epilogue(float img, float2 y, int r, int c,
+                                          float taper_r, float taper_c,
+                                          float two_pi_w, float ps,
+                                          float half) {
+  const float lm_r = __fmul_rn(__fsub_rn(static_cast<float>(r), half), ps);
+  const float lm_c = __fmul_rn(__fsub_rn(static_cast<float>(c), half), ps);
+  const float n_lm = sqrtf(__fsub_rn(__fsub_rn(1.0f, __fmul_rn(lm_r, lm_r)),
+                                     __fmul_rn(lm_c, lm_c)));
+  const float phase = __fmul_rn(two_pi_w, __fsub_rn(n_lm, 1.0f));
+  const float cb = ((r + c) & 1) ? -1.0f : 1.0f;
+  const float taper2 = __fmul_rn(taper_r, taper_c);
+  const float common = __fdiv_rn(__fmul_rn(cb, n_lm), taper2);
+  float sn, cs;
+  sincosf(phase, &sn, &cs);
+  return __fsub_rn(__fadd_rn(img, __fmul_rn(y.x, __fmul_rn(cs, common))),
+                   __fmul_rn(y.y, __fmul_rn(sn, common)));
 }
 
 template <int R, int R1, int R2, int Q>
-cudaError_t launch_col_fft_k8(const float* xr, const float* xi,
-                              const float2* tw, float* yr, float* yi, int B,
-                              int N, int M, float sgn, cudaStream_t stream) {
-  using T = col_fft_tile::Tile<R, R1, R2, Q>;
-  auto kernel = col_fft_k8_kernel<R, R1, R2, Q>;
-  const int tiles = (M + col_fft_tile::kCols - 1) / col_fft_tile::kCols;
-  if (tiles > 65535 || B > 65535) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(Q, tiles, B);
-  cfg.blockDim = dim3(T::kThreads);
-  cfg.dynamicSmemBytes = T::kSmemBytes;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = Q;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = Q > 1 ? 1 : 0;
-  err = cudaLaunchKernelEx(&cfg, kernel, xr, xi, tw, yr, yi, N, M, sgn);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+__global__ void __launch_bounds__(col_fft_tile::Tile<R, R1, R2, Q>::kThreads,
+                                  col_fft_tile::Tile<R, R1, R2, Q>::kMinBlocks)
+epi_col_fft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+                   const float2* __restrict__ tw,
+                   const float* __restrict__ taper,
+                   const float* __restrict__ scal, float* __restrict__ img) {
+  constexpr int N = Q * R;
+  extern __shared__ float2 tile_buf[];
+  const size_t plane = static_cast<size_t>(blockIdx.z) * N * N;
+  const int c0 = static_cast<int>(blockIdx.y) * col_fft_tile::kCols;
+  xr += plane;
+  xi += plane;
+  img += plane;
+  const float ps = scal[1];
+  const float half = 0.5f * static_cast<float>(N);
+  const float two_pi_w = __fmul_rn(6.28318530717958647692f, scal[0]);
+  const int q = Q == 1 ? 0 : static_cast<int>(blockIdx.x);
+  constexpr int L = R / Q;
+  col_fft_tile::col_fft_tile<R, R1, R2, Q>(
+      tile_buf, tw, N, q, 1.0f,
+      [&](int r, int c) {
+        // The CTA updates as many image rows as it reads input rows: with
+        // r = q + Q r2, row q L + r2 % L + R (r2 / L).  That row's value
+        // at this column is prefetched into L2 here, so the epilogue's
+        // read of it waits on L2, not on device memory.
+        const int r2 = r / Q;
+        const size_t row = q * L + r2 % L + R * (r2 / L);
+        prefetch_l2(img + row * N + c0 + c);
+        const size_t off = static_cast<size_t>(r) * N + c0 + c;
+        return make_float2(__ldcs(xr + off), __ldcs(xi + off));
+      },
+      [&](int k2, int c, const float2(&y)[Q]) {
+        // All Q image values first, so their reads are in flight together.
+        float old[Q];
+#pragma unroll
+        for (int k1 = 0; k1 < Q; ++k1) {
+          const size_t off = static_cast<size_t>(k2 + R * k1) * N + c0 + c;
+          old[k1] = __ldcs(img + off);
+        }
+        const float taper_c = __ldg(taper + c0 + c);
+#pragma unroll
+        for (int k1 = 0; k1 < Q; ++k1) {
+          const int k = k2 + R * k1;
+          const size_t off = static_cast<size_t>(k) * N + c0 + c;
+          __stcs(img + off, epilogue(old[k1], y[k1], k, c0 + c,
+                                     __ldg(taper + k), taper_c, two_pi_w,
+                                     ps, half));
+        }
+      });
 }
 
 int log2_exact(int N) {
@@ -362,29 +482,28 @@ cudaError_t prepare(Kernel kernel, int N, int P, int* logN, int* CB,
 extern "C" int ktt_cb_col_fft(const void* xr, const void* xi, const void* tw,
                               void* yr, void* yi, int P, int N,
                               void* stream) {
-  int logN, CB, smem;
-  cudaError_t err = prepare(cb_col_fft_kernel, N, P, &logN, &CB, &smem);
-  if (err != cudaSuccess) return err;
-  cb_col_fft_kernel<<<dim3(N / CB, P), kThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(xr), static_cast<const float*>(xi),
-      static_cast<const float2*>(tw), static_cast<float*>(yr),
-      static_cast<float*>(yi), logN, CB);
-  return cudaGetLastError();
+  return with_plan(N, [&](auto plan) {
+    using Pn = decltype(plan);
+    return launch_tiles<Pn>(
+        cb_col_fft_kernel<Pn::kR, Pn::kR1, Pn::kR2, Pn::kQ>,
+        N / col_fft_tile::kCols, P, stream, static_cast<const float*>(xr),
+        static_cast<const float*>(xi), static_cast<const float2*>(tw),
+        static_cast<float*>(yr), static_cast<float*>(yi));
+  });
 }
 
 extern "C" int ktt_epi_col_fft(const void* xr, const void* xi, const void* tw,
                                const void* taper, const void* scal,
                                void* imgT, int P, int N, void* stream) {
-  int logN, CB, smem;
-  cudaError_t err = prepare(epi_col_fft_kernel, N, P, &logN, &CB, &smem);
-  if (err != cudaSuccess) return err;
-  epi_col_fft_kernel<<<dim3(N / CB, P), kThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(xr), static_cast<const float*>(xi),
-      static_cast<const float2*>(tw), static_cast<const float*>(taper),
-      static_cast<const float*>(scal), static_cast<float*>(imgT), logN, CB);
-  return cudaGetLastError();
+  return with_plan(N, [&](auto plan) {
+    using Pn = decltype(plan);
+    return launch_tiles<Pn>(
+        epi_col_fft_kernel<Pn::kR, Pn::kR1, Pn::kR2, Pn::kQ>,
+        N / col_fft_tile::kCols, P, stream, static_cast<const float*>(xr),
+        static_cast<const float*>(xi), static_cast<const float2*>(tw),
+        static_cast<const float*>(taper), static_cast<const float*>(scal),
+        static_cast<float*>(imgT));
+  });
 }
 
 extern "C" int ktt_pre_col_fft(const void* imgT, const void* tw,
@@ -401,42 +520,21 @@ extern "C" int ktt_pre_col_fft(const void* imgT, const void* tw,
   return cudaGetLastError();
 }
 
-// tw: exp(+2 pi i k / N) for k < N (the full circle; the radix-2 kernels
-// take the half).
+// tw for K8, K3 and K4: exp(+2 pi i k / N) for k < N (the full circle;
+// the radix-2 kernels take the half).
 extern "C" int ktt_col_fft(const void* xr, const void* xi, const void* tw,
                            void* yr, void* yi, int B, int N, int M, int sign,
                            void* stream) {
-  if (M <= 0 || B <= 0 || (sign != 1 && sign != -1))
-    return cudaErrorInvalidValue;
-  auto x_r = static_cast<const float*>(xr);
-  auto x_i = static_cast<const float*>(xi);
-  auto t = static_cast<const float2*>(tw);
-  auto y_r = static_cast<float*>(yr);
-  auto y_i = static_cast<float*>(yi);
-  auto st = static_cast<cudaStream_t>(stream);
-  const float sgn = static_cast<float>(sign);
-  switch (N) {
-    case 256:
-      return launch_col_fft_k8<256, 16, 16, 1>(
-          x_r, x_i, t, y_r, y_i, B, N, M, sgn, st);
-    case 512:
-      return launch_col_fft_k8<512, 32, 16, 1>(
-          x_r, x_i, t, y_r, y_i, B, N, M, sgn, st);
-    case 1024:
-      return launch_col_fft_k8<512, 32, 16, 2>(
-          x_r, x_i, t, y_r, y_i, B, N, M, sgn, st);
-    case 2048:
-      return launch_col_fft_k8<512, 32, 16, 4>(
-          x_r, x_i, t, y_r, y_i, B, N, M, sgn, st);
-    case 4096:
-      return launch_col_fft_k8<512, 32, 16, 8>(
-          x_r, x_i, t, y_r, y_i, B, N, M, sgn, st);
-    case 8192:
-      return launch_col_fft_k8<1024, 32, 32, 8>(
-          x_r, x_i, t, y_r, y_i, B, N, M, sgn, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (M <= 0 || (sign != 1 && sign != -1)) return cudaErrorInvalidValue;
+  const int tiles = (M + col_fft_tile::kCols - 1) / col_fft_tile::kCols;
+  return with_plan(N, [&](auto plan) {
+    using Pn = decltype(plan);
+    return launch_tiles<Pn>(
+        col_fft_k8_kernel<Pn::kR, Pn::kR1, Pn::kR2, Pn::kQ>, tiles, B,
+        stream, static_cast<const float*>(xr), static_cast<const float*>(xi),
+        static_cast<const float2*>(tw), static_cast<float*>(yr),
+        static_cast<float*>(yi), N, M, static_cast<float>(sign));
+  });
 }
 
 extern "C" int ktt_cbout_col_fft(const void* xr, const void* xi,

@@ -24,9 +24,11 @@ The 2-D transform building block:
 
 - **K8** (:func:`col_fft`): the plain unnormalised column DFT, sign +1 or
   -1, stored in natural orientation; :func:`fft2` drives it twice, as the
-  JAX package's ``fft2_pallas`` does.  K8 runs on the four-step
-  column-FFT tile core (``csrc/col_fft_tile.cuh``); K3, K4, K6 and K7 on
-  the radix-2 core of ``csrc/fft.cu``.
+  JAX package's ``fft2_pallas`` does.
+
+K8, K3 and K4 run on the four-step column-FFT tile core
+(``csrc/col_fft_tile.cuh``), each with its own load and store hooks; K6
+and K7 on the radix-2 core of ``csrc/fft.cu``.
 
 The dirty image stays TRANSPOSED across the W-slice loop (every factor is
 symmetric in (row, col)); the caller transposes it once per channel.
@@ -70,7 +72,7 @@ def checkerboard(n: int, device) -> torch.Tensor:
 @functools.lru_cache(maxsize=16)
 def twiddles(n: int, device: torch.device) -> torch.Tensor:
     """exp(+2 pi i k / n) for k < n/2: computed in float64, stored as
-    complex64 on ``device`` (the kernels' twiddle table)."""
+    complex64 on ``device`` (K6's and K7's twiddle table)."""
     k = np.arange(n // 2)
     t = np.exp(2j * np.pi * k / n).astype(np.complex64)
     return torch.from_numpy(t).to(device)
@@ -79,7 +81,7 @@ def twiddles(n: int, device: torch.device) -> torch.Tensor:
 @functools.lru_cache(maxsize=16)
 def twiddles_full(n: int, device: torch.device) -> torch.Tensor:
     """exp(+2 pi i k / n) for k < n: computed in float64, stored as
-    complex64 on ``device`` (K8's twiddle table)."""
+    complex64 on ``device`` (the tile core's twiddle table: K8, K3, K4)."""
     k = np.arange(n)
     t = np.exp(2j * np.pi * k / n).astype(np.complex64)
     return torch.from_numpy(t).to(device)
@@ -119,16 +121,19 @@ def cb_col_fft(gr, gi):
     ``ktt_cb_col_fft`` (``csrc/fft.cu``) or raise.
 
     Replaces ``katsdpimager_tpu/ops/pallas_fft.py:_make_cb_col_kernel``
-    and the transpose after it.  Bound by shared-memory traffic of the
-    radix-2 passes and the strided column loads; the transposed store is
-    coalesced."""
+    and the transpose after it.  Bound by device memory (one read and one
+    write of both planes).  The tile core of :func:`col_fft` with the
+    checkerboard applied as the values load; the cluster's finish runs
+    along k, so each warp writes 128 contiguous bytes of a transposed row
+    (N = 256 and 512, without clusters, stage the rows in shared
+    memory)."""
     if gr.device.type == "cpu":
         return cb_col_fft_plain(gr, gi)
     P, n, _ = gr.shape
     _check_kernel_size(n)
     _build.expect(gr, "gr", torch.float32, (P, n, n), gr.device)
     _build.expect(gi, "gi", torch.float32, (P, n, n), gr.device)
-    tw = twiddles(n, gr.device)
+    tw = twiddles_full(n, gr.device)
     yr = torch.empty_like(gr)
     yi = torch.empty_like(gr)
     err = _build.load().ktt_cb_col_fft(
@@ -179,9 +184,10 @@ def epi_col_fft(ar_t, ai_t, imageT, taper, scal):
     ``ktt_epi_col_fft`` (``csrc/fft.cu``) or raise.
 
     Replaces ``katsdpimager_tpu/ops/pallas_fft.py:_make_epi_col_kernel``.
-    Bound like K3; the epilogue is computed in registers from the
-    indices, so it adds one read-modify-write of the image and no other
-    pass."""
+    Bound by device memory: both planes read, the image read and written.
+    The tile core of :func:`col_fft`; each finished value takes the
+    epilogue, computed in registers from its indices, and updates the
+    image straight from the cluster's finish."""
     if ar_t.device.type == "cpu":
         return epi_col_fft_plain(ar_t, ai_t, imageT, taper, scal)
     dev = ar_t.device
@@ -191,7 +197,7 @@ def epi_col_fft(ar_t, ai_t, imageT, taper, scal):
         _build.expect(t, name, torch.float32, (P, n, n), dev)
     _build.expect(taper, "taper", torch.float32, (n,), dev)
     _build.expect(scal, "scal", torch.float32, (2,), dev)
-    tw = twiddles(n, dev)
+    tw = twiddles_full(n, dev)
     err = _build.load().ktt_epi_col_fft(
         ar_t.data_ptr(), ai_t.data_ptr(), tw.data_ptr(), taper.data_ptr(),
         scal.data_ptr(), imageT.data_ptr(), P, n, _build.stream_of(ar_t))
@@ -259,9 +265,10 @@ def pre_col_fft(imageT, taper, scal):
     ``ktt_pre_col_fft`` (``csrc/fft.cu``) or raise.
 
     Replaces ``katsdpimager_tpu/ops/pallas_fft.py:_make_pre_col_kernel``
-    and the transpose after it.  Bound like K3 (shared-memory radix-2
-    passes, strided column loads); the prologue is computed from the
-    indices as the columns load, so it adds no memory pass."""
+    and the transpose after it.  Bound by the radix-2 core's
+    shared-memory passes and strided column loads; the prologue is
+    computed from the indices as the columns load, so it adds no memory
+    pass."""
     if imageT.device.type == "cpu":
         return pre_col_fft_plain(imageT, taper, scal)
     dev = imageT.device
@@ -305,7 +312,7 @@ def cbout_col_fft(xr, xi):
     ``ktt_cbout_col_fft`` (``csrc/fft.cu``) or raise.
 
     Replaces ``katsdpimager_tpu/ops/pallas_fft.py:_make_cbout_col_kernel``.
-    Bound like K3."""
+    Bound like K6."""
     if xr.device.type == "cpu":
         return cbout_col_fft_plain(xr, xi)
     P, n, _ = xr.shape

@@ -1,7 +1,8 @@
 """Kernel K8 (the plain column DFT) and ``fft2`` of the port against the
 JAX package's ``pallas_fft.col_fft`` and ``fft2_pallas`` (Pallas in
 interpret mode).  Tolerance as ``tests/test_pallas_fft.py``: 2e-6 of the
-largest output (f32 transforms in another order)."""
+largest output (f32 transforms in another order).  Then the index plans
+of the tile core that K8, K3 and K4 share, as a numpy model."""
 
 import numpy as np
 import pytest
@@ -52,13 +53,23 @@ def test_col_fft_sign_and_size_checks():
 
 
 # ---------------------------------------------------------------------------
-# K8's index plan, without the card: a numpy model of the loops of
-# ``csrc/col_fft_tile.cuh`` (every thread, butterfly, shared-memory slot
-# and cluster rank), in float64, against ``np.fft``.  It checks the
-# four-step split N = Q R, the two Stockham passes and the cluster's
-# length-Q finish, not the kernel's rounding.
+# The tile core's index plans, without the card: a numpy model of the loops
+# of ``csrc/col_fft_tile.cuh`` and of the hooks of K8, K3 and K4 in
+# ``csrc/fft.cu`` (every thread, butterfly, shared-memory slot, cluster
+# rank, stage slot and output address), in float64, against ``np.fft``
+# and the plain versions.  It checks the four-step split N = Q R, the two
+# Stockham passes, the cluster's length-Q finish (along columns, or along
+# k for K3), K3's checkerboard load and transposed store, and where K4's
+# epilogue and prefetches land; not the kernels' rounding.  Arrays run
+# over (thread, butterfly of the thread, value of the butterfly): one warp
+# instruction is 32 consecutive threads at one (butterfly, value).
 
 _COLS, _PER_THREAD = 16, 32
+
+#: (R, R1, R2, Q) of every N the tile kernels take (``with_plan``).
+_PLANS = {256: (256, 16, 16, 1), 512: (512, 32, 16, 1),
+          1024: (512, 32, 16, 2), 2048: (512, 32, 16, 4),
+          4096: (512, 32, 16, 8), 8192: (1024, 32, 32, 8)}
 
 
 def _bit_reverse(i, rad):
@@ -69,68 +80,183 @@ def _bit_reverse(i, rad):
 
 
 def _dft_reg(v, tw, n_over_rad, sgn):
-    rad = len(v)
-    v = list(v)
-    for i in range(rad):
-        r = _bit_reverse(i, rad)
-        if r > i:
-            v[i], v[r] = v[r], v[i]
+    """``dft_reg`` along the last axis of ``v``."""
+    rad = v.shape[-1]
+    v = v[..., [_bit_reverse(i, rad) for i in range(rad)]]
     h = 1
     while h < rad:
         for j in range(h):
             w = tw[j * (rad // (2 * h)) * n_over_rad]
             w = w.real + 1j * sgn * w.imag
             for k in range(j, rad, 2 * h):
-                t = v[k + h] if j == 0 else w * v[k + h]
-                v[k + h], v[k] = v[k] - t, v[k] + t
+                t = v[..., k + h] if j == 0 else w * v[..., k + h]
+                v[..., k + h], v[..., k] = v[..., k] - t, v[..., k] + t
         h <<= 1
     return v
 
 
-def _col_fft_tile_model(x, R, R1, R2, Q, sgn):
-    N, M = x.shape
+def _written_once(idx, size):
+    """Every slot of ``range(size)`` in ``idx`` exactly once."""
+    np.testing.assert_array_equal(np.sort(idx, axis=None), np.arange(size))
+
+
+def _conflict_free(idx):
+    """Each half-warp of each instruction reads or writes 16 float2 slots
+    on distinct bank pairs (``idx`` in float2 units, thread axis first)."""
+    half = np.moveaxis(idx.reshape(idx.shape[0] // 16, 16, -1) % 16, 1, -1)
+    assert (np.diff(np.sort(half, axis=-1), axis=-1) != 0).all()
+
+
+def _tile_model(load, N, plan, sgn, along_k=False):
+    """One tile of ``col_fft_tile``: ``load(rows, c)`` gives the inputs at
+    plane rows ``rows`` of tile column ``c``, called once for each CTA q
+    of the cluster in turn.  Returns, for each CTA, what it hands its
+    store hook as ``(k, c, y)``: the values y[k1] of a k2 at rows
+    k = k2 + R k1 of tile column c (k1 on the last axis when Q > 1).
+    ``along_k`` is the finish ``Finish::kAlongK``."""
+    R, R1, R2, Q = plan
+    T, L = R * _COLS // _PER_THREAD, R // Q
     tw = np.exp(2j * np.pi * np.arange(N) / N)
 
     def twiddle(k):
         return tw[k].real + 1j * sgn * tw[k].imag
 
-    T = R * _COLS // _PER_THREAD
-    y = np.zeros_like(x)
+    def butterflies(nb):          # b = tid + u T: (thread, butterfly, 1)
+        return (np.arange(T)[:, None] + np.arange(nb)[None, :] * T)[..., None]
+
+    def slot(k2, c):              # a partial sum's place in buf
+        return c * R + (k2 ^ c) if along_k else k2 * _COLS + c
+
+    bufs, out = [], []
+    for q in range(Q):
+        b = butterflies(_PER_THREAD // R1)                     # pass 1
+        c, j, i = b % _COLS, b // _COLS, np.arange(R1)
+        v = _dft_reg(load(q + Q * (j + i * (R // R1)), c), tw, N // R1, sgn)
+        slots = (j * R1 + i) * _COLS + c
+        _written_once(slots, R * _COLS)
+        buf = np.full(R * _COLS, np.nan, complex)
+        buf[slots] = v
+        b = butterflies(_PER_THREAD // R2)                     # pass 2
+        c, j, i = b % _COLS, b // _COLS, np.arange(R2)
+        v = buf[(j + i * R1) * _COLS + c] * twiddle(j * i * (N // R))
+        v = _dft_reg(v, tw, N // R2, sgn)
+        k2 = j + i * R1
+        if Q == 1:
+            out.append((k2, c, v))
+        else:
+            slots = slot(k2, c)
+            _written_once(slots, R * _COLS)
+            _conflict_free(slots)
+            buf[slots] = twiddle(q * k2) * v
+        bufs.append(buf)
+    for q in range(Q if Q > 1 else 0):                         # the cluster
+        e = butterflies(_PER_THREAD // Q)
+        c = e // L if along_k else e % _COLS
+        k2 = q * L + (e % L if along_k else e // _COLS)
+        _conflict_free(slot(k2, c))
+        blocks = slot(k2, c).reshape(T // 16, 16, -1) // 16    # 128 bytes
+        assert (blocks == blocks[:, :1]).all()
+        z = np.concatenate([bufs[s][slot(k2, c)] for s in range(Q)], -1)
+        out.append((k2 + R * np.arange(Q), c, _dft_reg(z, tw, N // Q, sgn)))
+    return out
+
+
+def _k8_model(x, plan, sgn):
+    N, M = x.shape
+    y = np.full_like(x, np.nan)
     for c0 in range(0, M, _COLS):
-        bufs = []
-        for q in range(Q):
-            buf = np.zeros(R * _COLS, complex)
-            for b in range(T * (_PER_THREAD // R1)):           # pass 1
-                c, j = b % _COLS, b // _COLS
-                v = [x[q + Q * (j + i * (R // R1)), c0 + c]
-                     if c0 + c < M else 0 for i in range(R1)]
-                v = _dft_reg(v, tw, N // R1, sgn)
-                for i in range(R1):
-                    buf[(j * R1 + i) * _COLS + c] = v[i]
-            out = np.empty_like(buf)
-            for b in range(T * (_PER_THREAD // R2)):           # pass 2
-                c, j = b % _COLS, b // _COLS
-                v = [buf[(j + i * R1) * _COLS + c] for i in range(R2)]
-                v = [v[0]] + [twiddle(j * i * (N // R)) * v[i]
-                              for i in range(1, R2)]
-                v = _dft_reg(v, tw, N // R2, sgn)
-                for i in range(R2):
-                    k2 = j + i * R1
-                    if Q == 1:
-                        if c0 + c < M:
-                            y[k2, c0 + c] = v[i]
-                    else:
-                        out[k2 * _COLS + c] = twiddle(q * k2) * v[i]
-            bufs.append(out)
-        for q in range(Q if Q > 1 else 0):                     # the cluster
-            for e in range(T * (_PER_THREAD // Q)):
-                c, k2 = e % _COLS, q * (R // Q) + e // _COLS
-                z = _dft_reg([bufs[s][k2 * _COLS + c] for s in range(Q)],
-                             tw, N // Q, sgn)
-                if c0 + c < M:
-                    for k1 in range(Q):
-                        y[k2 + R * k1, c0 + c] = z[k1]
+        def load(rows, c):
+            return np.where(c0 + c < M, x[rows, np.minimum(c0 + c, M - 1)], 0)
+
+        for k, c, v in _tile_model(load, N, plan, sgn):
+            k, c, v = np.broadcast_arrays(k, c0 + c, v)
+            live = c < M
+            y[k[live], c[live]] = v[live]
     return y
+
+
+def _k3_model(x, cols, plan):
+    """K3 on the tiles of the column subset ``cols`` (whole tiles) of
+    (P, N, N) planes, given as ``x[p][:, i]`` at column ``cols[i]``:
+    checkerboard load, then the transposed store, each output address
+    once, each warp on 32 consecutive floats: with clusters straight from
+    a finish along k, without through a stage in shared memory (every
+    slot once, free of bank conflicts).  Returns rows ``cols`` of the
+    (P, N, N) output."""
+    R, R1, R2, Q = plan
+    P, N, _ = x.shape
+    T = R * _COLS // _PER_THREAD
+    yT = np.full((P, len(cols), N), np.nan, complex)
+    for p in range(P):
+        for t0 in range(0, len(cols), _COLS):
+            c0 = cols[t0]
+
+            def load(rows, c):
+                sign = np.where((rows + c0 + c) % 2, -1, 1)
+                return sign * x[p][rows, t0 + c]
+
+            for k, c, y in _tile_model(load, N, plan, 1, along_k=Q > 1):
+                k, c, y = np.broadcast_arrays(k, c, y)
+                if Q == 1:
+                    stage = np.full(R * _COLS, np.nan, complex)
+                    idx = c * R + (k ^ c)                      # column_slot
+                    _written_once(idx, R * _COLS)
+                    _conflict_free(idx)
+                    stage[idx] = y
+                    e = np.arange(T)[:, None] + np.arange(R * _COLS // T) * T
+                    c, k = e // R, e % R
+                    src = c * R + (k ^ c)
+                    _conflict_free(src)
+                    y = stage[src]
+                addr = (c0 + c) * N + k
+                warps = addr.reshape(T // 32, 32, -1)
+                assert (np.diff(warps, axis=1) == 1).all()
+                assert np.unique(addr).size == addr.size
+                assert np.isnan(yT[p, t0 + c, k]).all()
+                yT[p, t0 + c, k] = y
+    assert not np.isnan(yT).any()
+    return yT
+
+
+def _epilogue(img, y, r, c, taper, w, ps, N):
+    """K4's epilogue in float64."""
+    lm_r, lm_c = (r - N / 2) * ps, (c - N / 2) * ps
+    n = np.sqrt(1 - lm_r * lm_r - lm_c * lm_c)
+    ph = 2 * np.pi * w * (n - 1)
+    common = np.where((r + c) % 2, -1, 1) * n / (taper[r] * taper[c])
+    return img + y.real * np.cos(ph) * common - y.imag * np.sin(ph) * common
+
+
+def _k4_model(x, img, cols, plan, taper, w, ps):
+    """K4 on the tiles of ``cols``: plain load, the epilogue at each
+    finished value's (row k, column c0 + c), each once, and the image
+    values each CTA prefetches as it loads, which are the ones it
+    updates.  ``x`` and ``img`` hold the columns ``cols`` of (P, N, N)
+    planes; ``img`` is updated in place."""
+    R, _, _, Q = plan
+    P, N, _ = x.shape
+    L = R // Q
+    seen = np.zeros(img.shape, int)
+    for p in range(P):
+        for t0 in range(0, len(cols), _COLS):
+            fetched = []
+
+            def load(rows, c):
+                q, r2 = rows % Q, rows // Q          # rows = q + Q r2
+                row = q * L + r2 % L + R * (r2 // L)
+                fetched.append(np.broadcast_arrays(row, c))
+                return x[p][rows, t0 + c]
+
+            out = _tile_model(load, N, plan, 1)
+            for (k, c, y), f in zip(out, fetched):
+                k, c, y = np.broadcast_arrays(k, c, y)
+                np.testing.assert_array_equal(
+                    np.sort((f[0] * _COLS + f[1]).ravel()),
+                    np.sort((k * _COLS + c).ravel()))
+                img[p, k, t0 + c] = _epilogue(img[p, k, t0 + c], y, k,
+                                              cols[t0] + c, taper, w, ps, N)
+                seen[p, k, t0 + c] += 1
+    assert (seen == 1).all()
 
 
 # (R, R1, R2, Q) as ``ktt_col_fft`` dispatches N = 256, 512, 1024 and
@@ -146,5 +272,64 @@ def test_k8_tile_plan_model(plan, M):
     x = rng.normal(size=(Q * R, M)) + 1j * rng.normal(size=(Q * R, M))
     for sgn, ref in ((-1, np.fft.fft(x, axis=0)),
                      (1, np.fft.ifft(x, axis=0) * Q * R)):
-        got = _col_fft_tile_model(x, R, R1, R2, Q, sgn)
+        got = _k8_model(x, plan, sgn)
         np.testing.assert_allclose(got, ref, atol=1e-10 * np.abs(ref).max())
+
+
+def _columns(N):
+    """The first and the last tile of columns."""
+    return np.r_[0:_COLS, N - _COLS:N]
+
+
+def _square_or_columns(rng, P, N):
+    """Complex (P, N, N) planes where the plain versions can hold them at
+    test size (N <= 1024), else only their columns ``_columns(N)``."""
+    shape = (P, N, N if N <= 1024 else 2 * _COLS)
+    x = rng.normal(size=shape) + 1j * rng.normal(size=shape)
+    return (x, x[..., _columns(N)]) if N <= 1024 else (None, x)
+
+
+@pytest.mark.parametrize("N", sorted(_PLANS))
+def test_k3_tile_plan_model(N):
+    """K3's plan at every dispatched (R, R1, R2, Q), two planes: against
+    ``cb_col_fft_plain`` (float64) at N <= 1024 and ``np.fft`` above."""
+    cols = _columns(N)
+    square, x = _square_or_columns(np.random.default_rng(N), 2, N)
+    got = _k3_model(x, cols, _PLANS[N])
+    if square is not None:
+        tr, ti = fused_fft.cb_col_fft_plain(torch.from_numpy(square.real),
+                                            torch.from_numpy(square.imag))
+        ref = (tr.numpy() + 1j * ti.numpy())[:, cols]
+    else:
+        cb = np.where((np.arange(N)[:, None] + cols) % 2, -1, 1)
+        ref = np.swapaxes(np.fft.ifft(cb * x, axis=1) * N, 1, 2)
+    np.testing.assert_allclose(got, ref, atol=1e-10 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("N", sorted(_PLANS))
+def test_k4_tile_plan_model(N):
+    """K4's plan at every dispatched (R, R1, R2, Q), two planes: against
+    ``epi_col_fft_plain`` at N <= 1024 (f32 epilogue factors: 1e-5 of
+    the peak at w = 7) and the float64 epilogue on ``np.fft`` above."""
+    cols = _columns(N)
+    rng = np.random.default_rng(N + 1)
+    square, x = _square_or_columns(rng, 2, N)
+    img = rng.normal(size=x.shape)
+    taper = 0.5 + rng.random(N)
+    w, ps = 7.0, 1.0 / (16 * N)
+    got = img.copy()
+    _k4_model(x, got, cols, _PLANS[N], taper, w, ps)
+    if square is not None:
+        full = rng.normal(size=square.shape)
+        full[..., cols] = img
+        ref = fused_fft.epi_col_fft_plain(
+            torch.from_numpy(square.real), torch.from_numpy(square.imag),
+            torch.from_numpy(full), torch.from_numpy(taper),
+            torch.tensor([w, ps], dtype=torch.float64)).numpy()[..., cols]
+        tol = 1e-5
+    else:
+        y = np.fft.ifft(x, axis=1) * N
+        ref = _epilogue(img, y, np.arange(N)[:, None], cols[None, :], taper,
+                        w, ps, N)
+        tol = 1e-10
+    np.testing.assert_allclose(got, ref, atol=tol * np.abs(ref).max())
