@@ -1,6 +1,8 @@
-// Column-FFT tile core for Hopper (sm_90a): the transform of K8, K3 and K4
-// (csrc/fft.cu), which differ only in how a tile's values load and how its
-// finished values store (the `load` and `store` hooks below).
+// Column-FFT tile core for Hopper (sm_90a): the transform of every column
+// DFT of the port, K8, K3, K4, K6 and K7 (csrc/fft.cu), which differ only
+// in how a tile's values load (the `load` hook, and the optional per-value
+// `prep` hook that runs after all of a thread's loads) and how its finished
+// values store (the `store` hook below).
 //
 // The length-N transform of every column of a (N, M) plane pair is split
 // four-step as N = Q * R, with row r = q + Q r2 (q < Q, r2 < R) and output
@@ -23,7 +25,7 @@
 // 32-byte sectors, and a warp covers two rows of a tile, so global loads
 // and stores are coalesced and every shared-memory access is free of bank
 // conflicts (rows of 16 float2; 8-byte accesses run as two half-warps).
-// A transposed store (K3) spreads the cluster's finish along k instead
+// A transposed store (K3, K6) spreads the cluster's finish along k instead
 // (Finish::kAlongK), or, with no cluster (Q = 1), stages the outputs in
 // shared memory by column (column_slot); either way it writes runs of
 // consecutive k.
@@ -151,22 +153,33 @@ __device__ __forceinline__ int column_slot(int k, int c) {
 
 // How the cluster's finish (Q > 1) spreads a CTA's outputs over its
 // threads.  kAlongC: a warp holds 16 columns of 2 consecutive k2, so row
-// stores are 64-byte segments (K8, K4); the partial sums are rows of
+// stores are 64-byte segments (K8, K4, K7); the partial sums are rows of
 // `buf` (k2 kCols + c).  kAlongK: a warp holds 32 consecutive k2 of one
 // column, so stores along k, as a transposed store makes them, are
-// 128-byte runs (K3); the partial sums are laid out by column
+// 128-byte runs (K3, K6); the partial sums are laid out by column
 // (column_slot), so that a half-warp's reads of them, local or from
 // another CTA, are one 128-byte block.
 enum class Finish { kAlongC, kAlongK };
 
+// The default per-value hook of col_fft_tile: the loaded value as it is.
+struct NoPrep {
+  __device__ __forceinline__ float2 operator()(int, int, float2 v) const {
+    return v;
+  }
+};
+
 // Pass 1 (radix R1, Stockham Ns = 1) from device memory: the thread's
 // butterflies b = tid + u T take local rows j + i R / R1 of tile column
 // c = b % kCols (j = b / kCols), that is plane rows q + Q (j + i R / R1),
-// each from `load(row, c)`.  The results go to `buf` at local rows
-// j R1 + i.  Ends synchronised.
-template <int R, int R1, int R2, int Q, typename Load>
+// each from `load(row, c)`.  Only once all the thread's loads are in flight
+// does `prep(row, c, value)` turn each loaded value into the DFT's input,
+// so that work on a value (branches, calls) never stands between two
+// loads.  The results go to `buf` at local rows j R1 + i.  Ends
+// synchronised.
+template <int R, int R1, int R2, int Q, typename Load, typename Prep>
 __device__ __forceinline__ void pass1_from_global(float2* buf, int q,
-                                                  float sgn, Load load) {
+                                                  float sgn, Load load,
+                                                  Prep prep) {
   using T = Tile<R, R1, R2, Q>;
   constexpr int NB = kPerThread / R1;
   float2 v[NB][R1];
@@ -183,6 +196,9 @@ __device__ __forceinline__ void pass1_from_global(float2* buf, int q,
     const int b = threadIdx.x + u * T::kThreads;
     const int c = b % kCols;
     const int j = b / kCols;
+#pragma unroll
+    for (int i = 0; i < R1; ++i)
+      v[u][i] = prep(q + Q * (j + i * (R / R1)), c, v[u][i]);
     dft_reg<R1>(v[u], sgn);
 #pragma unroll
     for (int i = 0; i < R1; ++i) buf[(j * R1 + i) * kCols + c] = v[u][i];
@@ -226,21 +242,23 @@ __device__ __forceinline__ void pass2(float2* buf,
   }
 }
 
-// The whole column DFT of one tile of kCols columns: `load(r, c)` gives
-// the input at plane row r (r < N) of tile column c (c < kCols);
+// The whole column DFT of one tile of kCols columns: `load(r, c)` fetches
+// the value at plane row r (r < N) of tile column c (c < kCols), and
+// `prep(r, c, value)` (the identity by default) makes it the input;
 // `store(k2, c, y)` takes the outputs y[k1] at rows k2 + R k1 (k1 < Q) of
 // tile column c, together, once for each k2 of this CTA: all k2 < R when
 // Q = 1, else k2 in [q R / Q, (q + 1) R / Q).  `q` is the CTA's rank in
 // its cluster of Q (0 when Q = 1).  When Q = 1 the hook may write `buf`
 // (the caller synchronises the CTA before reading it).
 template <int R, int R1, int R2, int Q, Finish kFinish = Finish::kAlongC,
-          typename Load, typename Store>
+          typename Load, typename Store, typename Prep = NoPrep>
 __device__ __forceinline__ void col_fft_tile(float2* buf,
                                              const float2* __restrict__ tw,
                                              int N, int q, float sgn,
-                                             Load load, Store store) {
+                                             Load load, Store store,
+                                             Prep prep = Prep{}) {
   using T = Tile<R, R1, R2, Q>;
-  pass1_from_global<R, R1, R2, Q>(buf, q, sgn, load);
+  pass1_from_global<R, R1, R2, Q>(buf, q, sgn, load, prep);
   if constexpr (Q == 1) {
     pass2<R, R1, R2, Q>(buf, tw, N, sgn, [&](int k2, int c, float2 y) {
       const float2 out[1] = {y};

@@ -11,20 +11,12 @@
 // Built WITHOUT -use_fast_math: the W-phase 2 pi w (n - 1) of K4 and K6
 // reaches far beyond +-pi, where __sinf/__cosf lose all accuracy.
 //
-// K8, K3 and K4 run on the four-step column-FFT tile core of
-// col_fft_tile.cuh (one launch, clusters of Q CTAs, radix-16/32
-// butterflies in registers), each with its own load and store hooks.  K6
-// and K7 still use the radix-2 core below.
-//
-// Radix-2 core: an in-place radix-2 decimation-in-time FFT over CB
-// columns held in shared memory.  Inputs are loaded in bit-reversed order,
-// so log2(N) butterfly passes leave the output in natural order.
-// Twiddles exp(+2 pi i k / N), k < N/2, come from a table computed in
-// float64 on the host and stored as float32; the forward transforms (K6,
-// K7) conjugate them (an exact sign flip).  All arithmetic is FP32 FMA.
-// What bounds it on this card: shared-memory traffic of the log2(N)
-// passes (each reads and writes CB * N complex values) and the strided
-// column loads, whose row segments are CB * 4 bytes.
+// All five run on the four-step column-FFT tile core of col_fft_tile.cuh
+// (one launch, clusters of Q CTAs, radix-16/32 butterflies in registers),
+// each with its own load and store hooks (K6 also with a per-value hook
+// for its prologue).  What bounds them on this card is device memory: the
+// core reads every input once and writes every output once, and the
+// 5 N log2 N flops per column are about a percent of the FP32 rate.
 //
 // The TPU kernels' Bailey four-step with 64 x 64 DFT matrices suited the
 // MXU but costs about 10x the flops of an FFT in FP32 at N = 4096, so it
@@ -38,172 +30,17 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kSmemComplex = 8192;  // CB * N complex values: 64 KB
-
-__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
-  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
-}
-
-// In-place radix-2 DIT FFT of CB columns of length N = 2^logN in `buf`
-// (column j at buf[j * N], bit-reversed input order), with the twiddles
-// exp(sgn 2 pi i k / N): sgn = +1 inverse, -1 forward.  Ends synchronised.
-__device__ void fft_columns(float2* buf, int logN, int CB,
-                            const float2* __restrict__ tw, float sgn) {
-  const int N = 1 << logN;
-  const int half = N >> 1;
-  const int total = CB * half;
-  for (int s = 0; s < logN; ++s) {
-    __syncthreads();
-    const int h = 1 << s;
-    const int stride = half >> s;  // N / (2h): twiddle index step
-    for (int t = threadIdx.x; t < total; t += blockDim.x) {
-      const int col = t >> (logN - 1);
-      const int bf = t & (half - 1);
-      const int pos = bf & (h - 1);
-      const int i0 = ((bf >> s) << (s + 1)) | pos;
-      float2* x = buf + col * N;
-      const float2 tp = tw[pos * stride];
-      const float2 w = make_float2(tp.x, sgn * tp.y);
-      const float2 u = x[i0];
-      const float2 v = cmul(w, x[i0 + h]);
-      x[i0] = make_float2(u.x + v.x, u.y + v.y);
-      x[i0 + h] = make_float2(u.x - v.x, u.y - v.y);
-    }
-  }
-  __syncthreads();
-}
-
-__device__ __forceinline__ int bitrev(int r, int logN) {
-  return static_cast<int>(__brev(static_cast<unsigned>(r)) >> (32 - logN));
-}
-
-// Load CB columns [c0, c0 + CB) of one (N, N) plane pair into `buf` in
-// bit-reversed order.
-__device__ void load_columns(float2* buf, const float* __restrict__ xr,
-                             const float* __restrict__ xi, int logN, int CB,
-                             int c0) {
-  const int N = 1 << logN;
-  for (int e = threadIdx.x; e < N * CB; e += blockDim.x) {
-    const int r = e / CB;
-    const int j = e - r * CB;
-    const size_t off = static_cast<size_t>(r) * N + c0 + j;
-    buf[j * N + bitrev(r, logN)] = make_float2(xr[off], xi[off]);
-  }
-}
-
-// Transposed store of CB transformed columns: column c0 + j of the plane
-// becomes row c0 + j of the output, contiguous along k (coalesced).
-__device__ void store_transposed(const float2* buf, float* __restrict__ yr,
-                                 float* __restrict__ yi, size_t plane,
-                                 int logN, int CB, int c0) {
-  const int N = 1 << logN;
-  for (int e = threadIdx.x; e < N * CB; e += blockDim.x) {
-    const int j = e >> logN;
-    const int k = e & (N - 1);
-    const size_t off = plane + static_cast<size_t>(c0 + j) * N + k;
-    const float2 v = buf[e];
-    yr[off] = v.x;
-    yi[off] = v.y;
-  }
-}
-
 // ---------------------------------------------------------------------------
-// K6 -- replaces katsdpimager_tpu/ops/pallas_fft.py:_make_pre_col_kernel
-// (pass A of image_to_grid_fused_parts) and the XLA transpose after it.
-//
-// From the TRANSPOSED real model image imgT, per element (r, c):
-//     layer = img * (cb / (taper[r] taper[c] * n)) * exp(-2 pi i w (n - 1))
-// with lm = (index - N/2) * pixel_size, n = sqrt(1 - lm_r^2 - lm_c^2),
-// cb = (-1)^(r+c), computed in registers from the indices while the
-// columns load; then the unnormalised FORWARD DFT of every column, stored
-// transposed, so K7 again transforms columns.  The factors are symmetric
-// in (r, c), so the transposed image takes the same formulas.  The
-// prologue uses round-to-nearest intrinsics (no contracted multiply-add),
-// so it rounds as the plain version does.  Bound by the radix-2 core's
-// shared-memory passes; the prologue adds no memory pass.
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(kThreads)
-pre_col_fft_kernel(const float* __restrict__ img,
-                   const float2* __restrict__ tw,
-                   const float* __restrict__ taper,
-                   const float* __restrict__ scal, float* __restrict__ yr,
-                   float* __restrict__ yi, int logN, int CB) {
-  extern __shared__ float2 buf[];
-  const int N = 1 << logN;
-  const size_t plane = static_cast<size_t>(blockIdx.y) * N * N;
-  const int c0 = blockIdx.x * CB;
-  const float w = scal[0];
-  const float ps = scal[1];
-  const float half = 0.5f * static_cast<float>(N);
-  const float m_two_pi_w = __fmul_rn(-6.28318530717958647692f, w);
-  for (int e = threadIdx.x; e < N * CB; e += blockDim.x) {
-    const int r = e / CB;
-    const int j = e - r * CB;
-    const int c = c0 + j;
-    const float lm_r = __fmul_rn(__fsub_rn(static_cast<float>(r), half), ps);
-    const float lm_c = __fmul_rn(__fsub_rn(static_cast<float>(c), half), ps);
-    const float n_lm = sqrtf(__fsub_rn(__fsub_rn(1.0f, __fmul_rn(lm_r, lm_r)),
-                                       __fmul_rn(lm_c, lm_c)));
-    const float phase = __fmul_rn(m_two_pi_w, __fsub_rn(n_lm, 1.0f));
-    const float cb = ((r + c) & 1) ? -1.0f : 1.0f;
-    const float taper2 = __fmul_rn(taper[r], taper[c]);
-    const float pre = __fmul_rn(img[plane + static_cast<size_t>(r) * N + c],
-                                __fdiv_rn(cb, __fmul_rn(taper2, n_lm)));
-    float sn, cs;
-    sincosf(phase, &sn, &cs);
-    buf[j * N + bitrev(r, logN)] =
-        make_float2(__fmul_rn(pre, cs), __fmul_rn(pre, sn));
-  }
-  fft_columns(buf, logN, CB, tw, -1.0f);
-  store_transposed(buf, yr, yi, plane, logN, CB, c0);
-}
-
-// ---------------------------------------------------------------------------
-// K7 -- replaces katsdpimager_tpu/ops/pallas_fft.py:_make_cbout_col_kernel
-// (pass B of image_to_grid_fused_parts).
-//
-// g[p, k', k] = (-1)^(k'+k) sum_c x[p, c, k] exp(-2 pi i c k' / N): the
-// forward DFT of every column of K6's transposed output, times the output
-// checkerboard, stored in place of its column, so the (P, N, N) grid
-// planes come out the right way round (K5's input).  Bound like K6.
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(kThreads)
-cbout_col_fft_kernel(const float* __restrict__ xr,
-                     const float* __restrict__ xi,
-                     const float2* __restrict__ tw, float* __restrict__ yr,
-                     float* __restrict__ yi, int logN, int CB) {
-  extern __shared__ float2 buf[];
-  const int N = 1 << logN;
-  const size_t plane = static_cast<size_t>(blockIdx.y) * N * N;
-  const int c0 = blockIdx.x * CB;
-  load_columns(buf, xr + plane, xi + plane, logN, CB, c0);
-  fft_columns(buf, logN, CB, tw, -1.0f);
-  for (int e = threadIdx.x; e < N * CB; e += blockDim.x) {
-    const int r = e / CB;
-    const int j = e - r * CB;
-    const int c = c0 + j;
-    const size_t off = plane + static_cast<size_t>(r) * N + c;
-    const float2 v = buf[j * N + r];
-    const bool neg = (r + c) & 1;
-    yr[off] = neg ? -v.x : v.x;
-    yi[off] = neg ? -v.y : v.y;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// The tile kernels: K8, K3 and K4 on the core of col_fft_tile.cuh, one
-// launch each, a cluster of Q CTAs per 16-column tile and plane (grid
+// The tile kernels: K8, K3, K4, K6 and K7 on the core of col_fft_tile.cuh,
+// one launch each, a cluster of Q CTAs per 16-column tile and plane (grid
 // (Q, tiles, planes)), N = Q R four-step: each CTA reads its R rows
 // q + Q r2 once (64-byte row segments), does the length-R DFT as two
 // register-resident radix passes with one shared-memory exchange, and
 // after a cluster barrier finishes a length-Q DFT over the cluster's
 // shared memory.  What bounds them on this card: device memory, one read
 // and one write of two planes (268 MB at (1, 4096, 4096): 0.080 ms at
-// 3.35 TB/s); the 5 N log2 N flops per column are about a percent of the
-// FP32 rate.
+// 3.35 TB/s; K6 reads one plane, 201 MB); the 5 N log2 N flops per column
+// are about a percent of the FP32 rate.
 // ---------------------------------------------------------------------------
 
 template <int R, int R1, int R2, int Q>
@@ -457,28 +294,152 @@ epi_col_fft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
       });
 }
 
-int log2_exact(int N) {
-  int l = 0;
-  while ((1 << l) < N) ++l;
-  return (1 << l) == N ? l : -1;
+// ---------------------------------------------------------------------------
+// K6 -- replaces katsdpimager_tpu/ops/pallas_fft.py:_make_pre_col_kernel
+// (pass A of image_to_grid_fused_parts) and the XLA transpose after it.
+//
+// From the TRANSPOSED real model image imgT, per element (r, c):
+//     layer = img * (cb / (taper[r] taper[c] * n)) * exp(-2 pi i w (n - 1))
+// with lm = (index - N/2) * pixel_size, n = sqrt(1 - lm_r^2 - lm_c^2),
+// cb = (-1)^(r+c); then the unnormalised FORWARD DFT of every column,
+// stored transposed, so K7 again transforms columns.  The factors are
+// symmetric in (r, c), so the transposed image takes the same formulas.
+//
+// Bound by device memory: one plane read, two written (201 MB at
+// (1, 4096, 4096): 0.060 ms at 3.35 TB/s).  The load hook fetches only the
+// image value; the prologue (~70 instructions: IEEE sqrtf, __fdiv_rn, the
+// full-range sincosf) runs in the core's per-value hook once all of a
+// thread's loads are in flight, so its branches never hold a load back.
+// The transposed store is K3's: with clusters the finish runs along k
+// (128-byte runs of an output row), without them (N = 256, 512) the
+// outputs are staged in shared memory by column.
+// ---------------------------------------------------------------------------
+
+// K6's prologue at image row r, column c: round-to-nearest intrinsics, so
+// that no multiply-add is contracted and it rounds as the plain version
+// does; IEEE sqrtf and the full-range sincosf.
+__device__ __forceinline__ float2 prologue(float img, int r, int c,
+                                           float taper_r, float taper_c,
+                                           float m_two_pi_w, float ps,
+                                           float half) {
+  const float lm_r = __fmul_rn(__fsub_rn(static_cast<float>(r), half), ps);
+  const float lm_c = __fmul_rn(__fsub_rn(static_cast<float>(c), half), ps);
+  const float n_lm = sqrtf(__fsub_rn(__fsub_rn(1.0f, __fmul_rn(lm_r, lm_r)),
+                                     __fmul_rn(lm_c, lm_c)));
+  const float phase = __fmul_rn(m_two_pi_w, __fsub_rn(n_lm, 1.0f));
+  const float cb = ((r + c) & 1) ? -1.0f : 1.0f;
+  const float taper2 = __fmul_rn(taper_r, taper_c);
+  const float pre = __fmul_rn(img, __fdiv_rn(cb, __fmul_rn(taper2, n_lm)));
+  float sn, cs;
+  sincosf(phase, &sn, &cs);
+  return make_float2(__fmul_rn(pre, cs), __fmul_rn(pre, sn));
 }
 
-// Columns per CTA: CB * N complex values fill 64 KB of shared memory.
-int columns_per_block(int N) { return N >= kSmemComplex ? 1 : kSmemComplex / N; }
+template <int R, int R1, int R2, int Q>
+__global__ void __launch_bounds__(col_fft_tile::Tile<R, R1, R2, Q>::kThreads,
+                                  col_fft_tile::Tile<R, R1, R2, Q>::kMinBlocks)
+pre_col_fft_kernel(const float* __restrict__ img,
+                   const float2* __restrict__ tw,
+                   const float* __restrict__ taper,
+                   const float* __restrict__ scal, float* __restrict__ yr,
+                   float* __restrict__ yi) {
+  constexpr int N = Q * R;
+  extern __shared__ float2 tile_buf[];
+  const size_t plane = static_cast<size_t>(blockIdx.z) * N * N;
+  const int c0 = static_cast<int>(blockIdx.y) * col_fft_tile::kCols;
+  img += plane;
+  yr += plane;
+  yi += plane;
+  const float ps = scal[1];
+  const float half = 0.5f * static_cast<float>(N);
+  const float m_two_pi_w = __fmul_rn(-6.28318530717958647692f, scal[0]);
+  auto load = [&](int r, int c) {
+    return make_float2(__ldcs(img + static_cast<size_t>(r) * N + c0 + c),
+                       0.0f);
+  };
+  auto prep = [&](int r, int c, float2 v) {
+    return prologue(v.x, r, c0 + c, __ldg(taper + r), __ldg(taper + c0 + c),
+                    m_two_pi_w, ps, half);
+  };
+  if constexpr (Q == 1) {
+    col_fft_tile::col_fft_tile<R, R1, R2, Q>(
+        tile_buf, tw, N, 0, -1.0f, load,
+        [&](int k, int c, const float2(&y)[1]) {
+          tile_buf[col_fft_tile::column_slot<R>(k, c)] = y[0];
+        },
+        prep);
+    __syncthreads();
+    col_fft_tile::store_staged_transposed<R, R1, R2>(tile_buf, yr, yi, N, c0);
+  } else {
+    col_fft_tile::col_fft_tile<R, R1, R2, Q, col_fft_tile::Finish::kAlongK>(
+        tile_buf, tw, N, static_cast<int>(blockIdx.x), -1.0f, load,
+        [&](int k2, int c, const float2(&y)[Q]) {
+#pragma unroll
+          for (int k1 = 0; k1 < Q; ++k1) {
+            const size_t off = static_cast<size_t>(c0 + c) * N + k2 + R * k1;
+            __stcs(yr + off, y[k1].x);
+            __stcs(yi + off, y[k1].y);
+          }
+        },
+        prep);
+  }
+}
 
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, int N, int P, int* logN, int* CB,
-                    int* smem) {
-  *logN = log2_exact(N);
-  if (*logN < 8 || *logN > 13 || P <= 0) return cudaErrorInvalidValue;
-  *CB = columns_per_block(N);
-  *smem = *CB * N * static_cast<int>(sizeof(float2));
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
+// ---------------------------------------------------------------------------
+// K7 -- replaces katsdpimager_tpu/ops/pallas_fft.py:_make_cbout_col_kernel
+// (pass B of image_to_grid_fused_parts).
+//
+// g[p, k, c] = (-1)^(k+c) sum_r x[p, r, c] exp(-2 pi i r k / N): the
+// forward DFT of every column of K6's transposed output, times the output
+// checkerboard, stored in place of its column, so the (P, N, N) grid
+// planes come out the right way round (K5's input).
+//
+// Bound, like K8, by device memory: two planes read and two written
+// (268 MB at (1, 4096, 4096)).  It is K8 at sgn = -1 with the checkerboard
+// moved to the load: (-1)^k is the DFT of the input shifted by N/2 rows,
+// so the load hook reads row (r + N/2) mod N and flips the sign of odd
+// columns, and the store hook is K8's.  The half shift only negates one
+// output of the first butterfly stage, so the result is bitwise the sign
+// flip on store, with fewer registers (no spill at the production plan,
+// against 8 bytes and, at N = 256, 352 for the flip on store).
+// ---------------------------------------------------------------------------
+
+template <int R, int R1, int R2, int Q>
+__global__ void __launch_bounds__(col_fft_tile::Tile<R, R1, R2, Q>::kThreads,
+                                  col_fft_tile::Tile<R, R1, R2, Q>::kMinBlocks)
+cbout_col_fft_kernel(const float* __restrict__ xr,
+                     const float* __restrict__ xi,
+                     const float2* __restrict__ tw, float* __restrict__ yr,
+                     float* __restrict__ yi) {
+  constexpr int N = Q * R;
+  extern __shared__ float2 tile_buf[];
+  const size_t plane = static_cast<size_t>(blockIdx.z) * N * N;
+  const int c0 = static_cast<int>(blockIdx.y) * col_fft_tile::kCols;
+  xr += plane;
+  xi += plane;
+  yr += plane;
+  yi += plane;
+  col_fft_tile::col_fft_tile<R, R1, R2, Q>(
+      tile_buf, tw, N, Q == 1 ? 0 : static_cast<int>(blockIdx.x), -1.0f,
+      [&](int r, int c) {
+        const size_t off =
+            static_cast<size_t>((r + N / 2) & (N - 1)) * N + c0 + c;
+        const float2 x = make_float2(__ldcs(xr + off), __ldcs(xi + off));
+        return ((c0 + c) & 1) ? make_float2(-x.x, -x.y) : x;
+      },
+      [&](int k2, int c, const float2(&y)[Q]) {
+#pragma unroll
+        for (int k1 = 0; k1 < Q; ++k1) {
+          const size_t off = static_cast<size_t>(k2 + R * k1) * N + c0 + c;
+          __stcs(yr + off, y[k1].x);
+          __stcs(yi + off, y[k1].y);
+        }
+      });
 }
 
 }  // namespace
 
+// tw for every kernel: exp(+2 pi i k / N) for k < N (fused_fft.twiddles_full).
 extern "C" int ktt_cb_col_fft(const void* xr, const void* xi, const void* tw,
                               void* yr, void* yi, int P, int N,
                               void* stream) {
@@ -509,19 +470,17 @@ extern "C" int ktt_epi_col_fft(const void* xr, const void* xi, const void* tw,
 extern "C" int ktt_pre_col_fft(const void* imgT, const void* tw,
                                const void* taper, const void* scal, void* yr,
                                void* yi, int P, int N, void* stream) {
-  int logN, CB, smem;
-  cudaError_t err = prepare(pre_col_fft_kernel, N, P, &logN, &CB, &smem);
-  if (err != cudaSuccess) return err;
-  pre_col_fft_kernel<<<dim3(N / CB, P), kThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(imgT), static_cast<const float2*>(tw),
-      static_cast<const float*>(taper), static_cast<const float*>(scal),
-      static_cast<float*>(yr), static_cast<float*>(yi), logN, CB);
-  return cudaGetLastError();
+  return with_plan(N, [&](auto plan) {
+    using Pn = decltype(plan);
+    return launch_tiles<Pn>(
+        pre_col_fft_kernel<Pn::kR, Pn::kR1, Pn::kR2, Pn::kQ>,
+        N / col_fft_tile::kCols, P, stream, static_cast<const float*>(imgT),
+        static_cast<const float2*>(tw), static_cast<const float*>(taper),
+        static_cast<const float*>(scal), static_cast<float*>(yr),
+        static_cast<float*>(yi));
+  });
 }
 
-// tw for K8, K3 and K4: exp(+2 pi i k / N) for k < N (the full circle;
-// the radix-2 kernels take the half).
 extern "C" int ktt_col_fft(const void* xr, const void* xi, const void* tw,
                            void* yr, void* yi, int B, int N, int M, int sign,
                            void* stream) {
@@ -540,13 +499,12 @@ extern "C" int ktt_col_fft(const void* xr, const void* xi, const void* tw,
 extern "C" int ktt_cbout_col_fft(const void* xr, const void* xi,
                                  const void* tw, void* yr, void* yi, int P,
                                  int N, void* stream) {
-  int logN, CB, smem;
-  cudaError_t err = prepare(cbout_col_fft_kernel, N, P, &logN, &CB, &smem);
-  if (err != cudaSuccess) return err;
-  cbout_col_fft_kernel<<<dim3(N / CB, P), kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(xr), static_cast<const float*>(xi),
-      static_cast<const float2*>(tw), static_cast<float*>(yr),
-      static_cast<float*>(yi), logN, CB);
-  return cudaGetLastError();
+  return with_plan(N, [&](auto plan) {
+    using Pn = decltype(plan);
+    return launch_tiles<Pn>(
+        cbout_col_fft_kernel<Pn::kR, Pn::kR1, Pn::kR2, Pn::kQ>,
+        N / col_fft_tile::kCols, P, stream, static_cast<const float*>(xr),
+        static_cast<const float*>(xi), static_cast<const float2*>(tw),
+        static_cast<float*>(yr), static_cast<float*>(yi));
+  });
 }

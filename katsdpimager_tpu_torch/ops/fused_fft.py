@@ -26,9 +26,9 @@ The 2-D transform building block:
   -1, stored in natural orientation; :func:`fft2` drives it twice, as the
   JAX package's ``fft2_pallas`` does.
 
-K8, K3 and K4 run on the four-step column-FFT tile core
-(``csrc/col_fft_tile.cuh``), each with its own load and store hooks; K6
-and K7 on the radix-2 core of ``csrc/fft.cu``.
+All five run on one four-step column-FFT tile core
+(``csrc/col_fft_tile.cuh``), each with its own load and store hooks (K6
+also with a per-value hook that computes its prologue after the loads).
 
 The dirty image stays TRANSPOSED across the W-slice loop (every factor is
 symmetric in (row, col)); the caller transposes it once per channel.
@@ -70,18 +70,9 @@ def checkerboard(n: int, device) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=16)
-def twiddles(n: int, device: torch.device) -> torch.Tensor:
-    """exp(+2 pi i k / n) for k < n/2: computed in float64, stored as
-    complex64 on ``device`` (K6's and K7's twiddle table)."""
-    k = np.arange(n // 2)
-    t = np.exp(2j * np.pi * k / n).astype(np.complex64)
-    return torch.from_numpy(t).to(device)
-
-
-@functools.lru_cache(maxsize=16)
 def twiddles_full(n: int, device: torch.device) -> torch.Tensor:
     """exp(+2 pi i k / n) for k < n: computed in float64, stored as
-    complex64 on ``device`` (the tile core's twiddle table: K8, K3, K4)."""
+    complex64 on ``device`` (the tile core's twiddle table)."""
     k = np.arange(n)
     t = np.exp(2j * np.pi * k / n).astype(np.complex64)
     return torch.from_numpy(t).to(device)
@@ -265,10 +256,12 @@ def pre_col_fft(imageT, taper, scal):
     ``ktt_pre_col_fft`` (``csrc/fft.cu``) or raise.
 
     Replaces ``katsdpimager_tpu/ops/pallas_fft.py:_make_pre_col_kernel``
-    and the transpose after it.  Bound by the radix-2 core's
-    shared-memory passes and strided column loads; the prologue is
-    computed from the indices as the columns load, so it adds no memory
-    pass."""
+    and the transpose after it.  Bound by device memory (one plane read,
+    two written).  The tile core of :func:`col_fft` at sign -1: the load
+    hook fetches only the image value, and the prologue, computed from
+    the indices, runs once all of a thread's loads are in flight, so its
+    branches never hold a load back; the transposed store is
+    :func:`cb_col_fft`'s."""
     if imageT.device.type == "cpu":
         return pre_col_fft_plain(imageT, taper, scal)
     dev = imageT.device
@@ -277,7 +270,7 @@ def pre_col_fft(imageT, taper, scal):
     _build.expect(imageT, "imageT", torch.float32, (P, n, n), dev)
     _build.expect(taper, "taper", torch.float32, (n,), dev)
     _build.expect(scal, "scal", torch.float32, (2,), dev)
-    tw = twiddles(n, dev)
+    tw = twiddles_full(n, dev)
     yr = torch.empty_like(imageT)
     yi = torch.empty_like(imageT)
     err = _build.load().ktt_pre_col_fft(
@@ -312,14 +305,17 @@ def cbout_col_fft(xr, xi):
     ``ktt_cbout_col_fft`` (``csrc/fft.cu``) or raise.
 
     Replaces ``katsdpimager_tpu/ops/pallas_fft.py:_make_cbout_col_kernel``.
-    Bound like K6."""
+    Bound by device memory (one read and one write of both planes).  The
+    tile core of :func:`col_fft` at sign -1; the checkerboard is moved to
+    the load, exactly: the input shifted by N/2 rows (which makes
+    ``(-1)^k``), odd columns negated."""
     if xr.device.type == "cpu":
         return cbout_col_fft_plain(xr, xi)
     P, n, _ = xr.shape
     _check_kernel_size(n)
     _build.expect(xr, "xr", torch.float32, (P, n, n), xr.device)
     _build.expect(xi, "xi", torch.float32, (P, n, n), xr.device)
-    tw = twiddles(n, xr.device)
+    tw = twiddles_full(n, xr.device)
     yr = torch.empty_like(xr)
     yi = torch.empty_like(xr)
     err = _build.load().ktt_cbout_col_fft(

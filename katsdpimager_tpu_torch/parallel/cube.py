@@ -112,7 +112,8 @@ def _check_supported(cfg: CubeConfig, vis, taper1d) -> None:
 def _grid_slices(cfg: CubeConfig, kernel, density, uv, sub_uv, w_plane,
                  anchor, valid, vis, taper1d, pixel_size, mid_w, nc_slices,
                  plain: bool = False):
-    """W-stacked image of chunked visibilities (K1-K4 per slice)."""
+    """W-stacked image of chunked visibilities (K1, K2 and the routed
+    grid -> image transform per slice: :func:`multichannel.image_slices`)."""
     if cfg.weight_type == "natural":
         density = None   # density == 1: skip the per-vis window lookups
     return multichannel.image_slices(

@@ -2,8 +2,9 @@
 
 Counterpart of :mod:`katsdpimager_tpu.parallel.multichannel` for one
 device: imaging density weights, then per W slice the fused gridder (K1,
-K2) and the fused grid -> image transform (K3, K4) accumulating into the
-transposed dirty image; with ``minor_cycles > 0``, a PSF from the weights
+K2) and the grid -> image transform accumulating into the dirty image
+(K3, K4 on the transposed image, or ``torch.fft`` at sizes the kernels
+do not take, by :func:`~..ops.fourier.use_fused_fft`); with ``minor_cycles > 0``, a PSF from the weights
 and that many CLEAN minor cycles on the PSF-normalised dirty image.
 Channels of a batch share their geometry; the per-channel physics (kernel
 tables, taper, pixel size, mid-w values) are tensor inputs.
@@ -19,8 +20,7 @@ import torch
 
 from .. import device as device_mod
 from ..ops import clean as clean_ops
-from ..ops import mxu_gridder
-from ..ops.fused_fft import grid_to_image_fused_parts
+from ..ops import fourier, fused_fft, mxu_gridder
 from .slices import scan_slices
 
 
@@ -110,27 +110,42 @@ def image_slices(kernel, density, taper1d, pixel_size, mid_w, uv, sub_uv,
                  ts: int, plain: bool = False):
     """The W-stacked (P, N, N) image of one channel's chunked ``vis``:
     per W slice the fused gridder (K1, K2) with the ``density`` weights
-    (None: natural), then K3 and K4 accumulating into the transposed
-    image.  Slices whose host count in ``nc_slices`` is 0 skip the
+    (None: natural), then the grid -> image transform accumulating into
+    the image.  Slices whose host count in ``nc_slices`` is 0 skip the
     gridder and the transform (a zero grid adds exactly zero).  ``plain``
-    runs every kernel's plain version whatever the device."""
+    runs every kernel's plain version whatever the device.
 
-    def slice_body(imageT, xs):
+    The transform's route is chosen once, by the rule of
+    :func:`fourier.grid_to_image_parts`: where
+    :func:`fourier.use_fused_fft` holds, K3 and K4 accumulate into the
+    transposed image, transposed back once at the end; elsewhere each
+    slice takes :func:`fourier.grid_to_image_plain` (``torch.fft``), the
+    counterpart of the JAX package's XLA branch.  CPU tensors take K3's
+    and K4's plain versions wherever the kernels take the size."""
+    dev = vis.device
+    fused = (fused_fft.kernel_size_ok(pixels) if dev.type == "cpu"
+             else fourier.use_fused_fft(pixels, dev, vis.dtype,
+                                        taper1d.dtype))
+
+    def slice_body(image, xs):
         uv_s, sub_s, wp_s, anc_s, val_s, vis_s, w_mid, nc_s = xs
         if nc_s == 0:
-            return imageT
+            return image
         gr, gi = mxu_gridder.grid_chunks_parts(
             kernel, density, uv_s, sub_s, wp_s, vis_s, anc_s, val_s, None,
             int(nc_s), pixels=pixels, ts=ts, plain=plain)
-        return grid_to_image_fused_parts(gr, gi, imageT, taper1d, w_mid,
-                                         pixel_size, plain=plain)
+        if fused:
+            return fused_fft.grid_to_image_fused_parts(
+                gr, gi, image, taper1d, w_mid, pixel_size, plain=plain)
+        return fourier.grid_to_image_plain(torch.complex(gr, gi), image,
+                                           taper1d, w_mid, pixel_size)
 
-    imageT = torch.zeros((vis.shape[-1], pixels, pixels),
-                         dtype=torch.float32, device=vis.device)
-    imageT = scan_slices(slice_body, imageT,
-                         (uv, sub_uv, w_plane, anchor, valid, vis, mid_w,
-                          list(nc_slices)))
-    return imageT.transpose(-1, -2).contiguous()
+    image = torch.zeros((vis.shape[-1], pixels, pixels),
+                        dtype=torch.float32, device=dev)
+    image = scan_slices(slice_body, image,
+                        (uv, sub_uv, w_plane, anchor, valid, vis, mid_w,
+                         list(nc_slices)))
+    return image.transpose(-1, -2).contiguous() if fused else image
 
 
 def check_float32(vis, taper1d) -> None:

@@ -2,7 +2,7 @@
 JAX package's ``pallas_fft.col_fft`` and ``fft2_pallas`` (Pallas in
 interpret mode).  Tolerance as ``tests/test_pallas_fft.py``: 2e-6 of the
 largest output (f32 transforms in another order).  Then the index plans
-of the tile core that K8, K3 and K4 share, as a numpy model."""
+of the tile core that K8, K3, K4, K6 and K7 share, as a numpy model."""
 
 import numpy as np
 import pytest
@@ -59,8 +59,10 @@ def test_col_fft_sign_and_size_checks():
 # rank, stage slot and output address), in float64, against ``np.fft``
 # and the plain versions.  It checks the four-step split N = Q R, the two
 # Stockham passes, the cluster's length-Q finish (along columns, or along
-# k for K3), K3's checkerboard load and transposed store, and where K4's
-# epilogue and prefetches land; not the kernels' rounding.  Arrays run
+# k for K3 and K6), K3's checkerboard load and transposed store, where
+# K4's epilogue and prefetches land, where K6's prologue (the core's
+# per-value hook) is applied, and K7's checkerboard as a half shift and
+# a column sign on load; not the kernels' rounding.  Arrays run
 # over (thread, butterfly of the thread, value of the butterfly): one warp
 # instruction is 32 consecutive threads at one (butterfly, value).
 
@@ -107,10 +109,11 @@ def _conflict_free(idx):
     assert (np.diff(np.sort(half, axis=-1), axis=-1) != 0).all()
 
 
-def _tile_model(load, N, plan, sgn, along_k=False):
+def _tile_model(load, N, plan, sgn, along_k=False, prep=None):
     """One tile of ``col_fft_tile``: ``load(rows, c)`` gives the inputs at
     plane rows ``rows`` of tile column ``c``, called once for each CTA q
-    of the cluster in turn.  Returns, for each CTA, what it hands its
+    of the cluster in turn, and ``prep(rows, c, values)`` (the core's
+    per-value hook; None: the identity) turns them into the DFT's input.  Returns, for each CTA, what it hands its
     store hook as ``(k, c, y)``: the values y[k1] of a k2 at rows
     k = k2 + R k1 of tile column c (k1 on the last axis when Q > 1).
     ``along_k`` is the finish ``Finish::kAlongK``."""
@@ -131,7 +134,11 @@ def _tile_model(load, N, plan, sgn, along_k=False):
     for q in range(Q):
         b = butterflies(_PER_THREAD // R1)                     # pass 1
         c, j, i = b % _COLS, b // _COLS, np.arange(R1)
-        v = _dft_reg(load(q + Q * (j + i * (R // R1)), c), tw, N // R1, sgn)
+        rows = q + Q * (j + i * (R // R1))
+        v = load(rows, c)
+        if prep is not None:
+            v = prep(*np.broadcast_arrays(rows, c), v)
+        v = _dft_reg(v, tw, N // R1, sgn)
         slots = (j * R1 + i) * _COLS + c
         _written_once(slots, R * _COLS)
         buf = np.full(R * _COLS, np.nan, complex)
@@ -175,14 +182,15 @@ def _k8_model(x, plan, sgn):
     return y
 
 
-def _k3_model(x, cols, plan):
-    """K3 on the tiles of the column subset ``cols`` (whole tiles) of
-    (P, N, N) planes, given as ``x[p][:, i]`` at column ``cols[i]``:
-    checkerboard load, then the transposed store, each output address
-    once, each warp on 32 consecutive floats: with clusters straight from
-    a finish along k, without through a stage in shared memory (every
-    slot once, free of bank conflicts).  Returns rows ``cols`` of the
-    (P, N, N) output."""
+def _transposed_model(x, cols, plan, sgn, load, prep=None):
+    """A tile kernel with K3's transposed store on the tiles of the
+    column subset ``cols`` (whole tiles) of (P, N, N) planes, given as
+    ``x[p][:, i]`` at column ``cols[i]``; ``load(xp, rows, c, c0)`` gives
+    plane ``xp``'s inputs at tile column c of the tile at column c0.  Each
+    output address once, each warp on 32 consecutive floats: with
+    clusters straight from a finish along k, without through a stage in
+    shared memory (every slot once, free of bank conflicts).  Returns rows
+    ``cols`` of the (P, N, N) output."""
     R, R1, R2, Q = plan
     P, N, _ = x.shape
     T = R * _COLS // _PER_THREAD
@@ -190,12 +198,13 @@ def _k3_model(x, cols, plan):
     for p in range(P):
         for t0 in range(0, len(cols), _COLS):
             c0 = cols[t0]
-
-            def load(rows, c):
-                sign = np.where((rows + c0 + c) % 2, -1, 1)
-                return sign * x[p][rows, t0 + c]
-
-            for k, c, y in _tile_model(load, N, plan, 1, along_k=Q > 1):
+            xp = x[p][:, t0:t0 + _COLS]
+            tile = _tile_model(
+                lambda rows, c: load(xp, rows, c, c0), N, plan, sgn,
+                along_k=Q > 1,
+                prep=None if prep is None else
+                lambda rows, c, v: prep(rows, c0 + c, v))
+            for k, c, y in tile:
                 k, c, y = np.broadcast_arrays(k, c, y)
                 if Q == 1:
                     stage = np.full(R * _COLS, np.nan, complex)
@@ -216,6 +225,79 @@ def _k3_model(x, cols, plan):
                 yT[p, t0 + c, k] = y
     assert not np.isnan(yT).any()
     return yT
+
+
+def _k3_model(x, cols, plan):
+    """K3 on the tiles of ``cols``: the checkerboard on load, the inverse
+    DFT, the transposed store (:func:`_transposed_model`)."""
+    def load(xp, rows, c, c0):
+        return np.where((rows + c0 + c) % 2, -1, 1) * xp[rows, c]
+
+    return _transposed_model(x, cols, plan, 1, load)
+
+
+def _prologue(img, r, c, taper, w, ps, N):
+    """K6's prologue in float64: the layer of the transposed image at
+    (r, c)."""
+    lm_r, lm_c = (r - N / 2) * ps, (c - N / 2) * ps
+    n = np.sqrt(1 - lm_r * lm_r - lm_c * lm_c)
+    pre = img * np.where((r + c) % 2, -1, 1) / (taper[r] * taper[c] * n)
+    return pre * np.exp(-2j * np.pi * w * (n - 1))
+
+
+def _k6_model(img, cols, plan, taper, w, ps):
+    """K6 on the tiles of ``cols``: the load hook fetches only the image
+    value, the per-value hook applies the prologue at its (row, column),
+    then the forward DFT and K3's transposed store."""
+    N = img.shape[1]
+    fetched = []
+
+    def load(xp, rows, c, c0):
+        fetched.append(xp[rows, c])
+        return xp[rows, c].astype(complex)
+
+    def prep(rows, c, v):
+        assert (v.imag == 0).all()
+        assert any(v.shape == f.shape and (v.real == f).all()
+                   for f in fetched)
+        return _prologue(v.real, rows, c, taper, w, ps, N)
+
+    return _transposed_model(img, cols, plan, -1, load, prep)
+
+
+def _k7_model(x, cols, plan):
+    """K7 on the tiles of ``cols``: the load hook reads row (r + N/2) mod N
+    (a half shift, which makes the output's (-1)^k) with odd columns
+    negated, the forward DFT, stored in natural orientation; the loads
+    cover every input row once, every half-warp stores 16 consecutive
+    floats (64 bytes) of a row, each address once.  Returns the columns
+    ``cols`` of the (P, N, N) output."""
+    R, _, _, Q = plan
+    P, N, _ = x.shape
+    T = R * _COLS // _PER_THREAD
+    y = np.full(x.shape, np.nan, complex)
+    for p in range(P):
+        for t0 in range(0, len(cols), _COLS):
+            c0 = cols[t0]
+            read = []
+
+            def load(rows, c):
+                src = (rows + N // 2) % N
+                read.append(np.broadcast_arrays(src, c))
+                return np.where((c0 + c) % 2, -1, 1) * x[p][src, t0 + c]
+
+            tile = _tile_model(load, N, plan, -1)
+            src = np.concatenate([(r * _COLS + c).ravel() for r, c in read])
+            _written_once(src, N * _COLS)
+            for k, c, v in tile:
+                k, c, v = np.broadcast_arrays(k, c, v)
+                addr = k * N + c0 + c
+                half = addr.reshape(T // 16, 16, -1)
+                assert (np.diff(half, axis=1) == 1).all()
+                assert np.isnan(y[p, k, t0 + c]).all()
+                y[p, k, t0 + c] = v
+    assert not np.isnan(y).any()
+    return y
 
 
 def _epilogue(img, y, r, c, taper, w, ps, N):
@@ -333,3 +415,46 @@ def test_k4_tile_plan_model(N):
                         w, ps, N)
         tol = 1e-10
     np.testing.assert_allclose(got, ref, atol=tol * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("N", sorted(_PLANS))
+def test_k6_tile_plan_model(N):
+    """K6's plan at every dispatched (R, R1, R2, Q), two planes: against
+    ``pre_col_fft_plain`` at N <= 1024 (f32 prologue factors: 1e-5 of the
+    peak at w = 7) and the float64 prologue on ``np.fft`` above."""
+    cols = _columns(N)
+    rng = np.random.default_rng(N + 2)
+    square, x = _square_or_columns(rng, 2, N)
+    taper = 0.5 + rng.random(N)
+    w, ps = 7.0, 1.0 / (16 * N)
+    got = _k6_model(x.real, cols, _PLANS[N], taper, w, ps)
+    if square is not None:
+        tr, ti = fused_fft.pre_col_fft_plain(
+            torch.from_numpy(square.real), torch.from_numpy(taper),
+            torch.tensor([w, ps], dtype=torch.float64))
+        ref = (tr.numpy() + 1j * ti.numpy())[:, cols]
+        tol = 1e-5
+    else:
+        layer = _prologue(x.real, np.arange(N)[:, None], cols[None, :],
+                          taper, w, ps, N)
+        ref = np.swapaxes(np.fft.fft(layer, axis=1), 1, 2)
+        tol = 1e-10
+    np.testing.assert_allclose(got, ref, atol=tol * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("N", sorted(_PLANS))
+def test_k7_tile_plan_model(N):
+    """K7's plan at every dispatched (R, R1, R2, Q), two planes: against
+    ``cbout_col_fft_plain`` (float64) at N <= 1024 and ``np.fft`` times
+    the checkerboard above."""
+    cols = _columns(N)
+    square, x = _square_or_columns(np.random.default_rng(N + 3), 2, N)
+    got = _k7_model(x, cols, _PLANS[N])
+    if square is not None:
+        tr, ti = fused_fft.cbout_col_fft_plain(torch.from_numpy(square.real),
+                                               torch.from_numpy(square.imag))
+        ref = (tr.numpy() + 1j * ti.numpy())[..., cols]
+    else:
+        cb = np.where((np.arange(N)[:, None] + cols) % 2, -1, 1)
+        ref = cb * np.fft.fft(x, axis=1)
+    np.testing.assert_allclose(got, ref, atol=1e-10 * np.abs(ref).max())

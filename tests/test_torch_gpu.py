@@ -153,8 +153,14 @@ def test_k4_accumulates(cuda, n):
 
 def test_kernels_reject_unsupported(cuda):
     x = torch.zeros((1, 384, 384), device=cuda)
+    taper = torch.ones(384, device=cuda)
+    scal = torch.tensor([0.0, 1e-4], device=cuda)
     with pytest.raises(NotImplementedError):
         fused_fft.cb_col_fft(x, x)
+    with pytest.raises(NotImplementedError):
+        fused_fft.pre_col_fft(x, taper, scal)
+    with pytest.raises(NotImplementedError):
+        fused_fft.cbout_col_fft(x, x)
     y = torch.zeros((1, 256, 256), dtype=torch.float64, device=cuda)
     with pytest.raises(TypeError):
         fused_fft.cb_col_fft(y, y)
@@ -178,11 +184,11 @@ def test_step_matches_plain(cuda, weight_type):
     assert (got - ref).abs()[:, inside].max().item() <= 1e-4 * peak
 
 
-@pytest.mark.parametrize("n", [256, 1024, 4096])
+@pytest.mark.parametrize("n", [256, 512, 1024, 2048, 4096, 8192])
 def test_k6_k7_match_plain(cuda, n):
-    """K6 and K7 within 1e-5 of the peak of their plain versions (f32 DFT
-    rounding in another order), on a CLEAN-like model in the central
-    half of the image."""
+    """K6 and K7 on the tile core at every size it takes within 1e-5 of
+    the peak of their plain versions (f32 DFT rounding in another order),
+    on a CLEAN-like model in the central half of the image."""
     gen = torch.Generator(device="cpu").manual_seed(n)
     P = 1 if n > 1024 else 2
     model = torch.zeros((P, n, n))
@@ -249,6 +255,36 @@ def test_clean_cycle_never_syncs(cuda):
     assert int(args[0]) == 3
 
 
+def _inside(taper):
+    """The anti-aliased field: taper^2 >= 0.2% of its peak."""
+    t2 = torch.outer(taper, taper)
+    return t2 >= 0.002 * t2.max()
+
+
+@pytest.mark.parametrize("weight_type", ["natural", "uniform"])
+def test_step_at_1000px_matches_plain(cuda, weight_type):
+    """The dirty step at 1000 px (no power of two: the grid -> image
+    transform takes torch.fft by rule, and K3 never launches) against the
+    all-plain step, within 1e-4 of the peak inside the field, as
+    :func:`test_step_matches_plain`."""
+    cfg = multichannel.MultiChannelConfig(
+        pixels=1000, num_pols=1, kernel_width=16, oversample=8, w_planes=8,
+        w_slices=2, chunks_per_slice=512, chunk_size=128, rv=32, ru=32,
+        weight_type=weight_type)
+    batch = multichannel.make_example_batch(cfg, 1, seed=3, device=cuda)
+    args = multichannel.channel_args(batch, 0)
+    fused_fft.cb_col_fft.launches = 0
+    launches = fused_gridder.grid_planes.launches
+    got = multichannel.single_channel_step(cfg)(*args)[0]
+    assert fused_gridder.grid_planes.launches > launches
+    assert fused_fft.cb_col_fft.launches == 0
+    ref = multichannel.single_channel_step(cfg, plain=True)(*args)[0]
+    peak = ref.abs().max().item()
+    assert got.shape == (1, 1000, 1000) and torch.isfinite(got).all()
+    inside = _inside(batch.taper1d[0])
+    assert (got - ref).abs()[:, inside].max().item() <= 1e-4 * peak
+
+
 def test_wave_matches_plain(cuda):
     """A small cube wave through K1-K7 against the all-plain wave: the
     same CLEAN components and images within 1e-4 of the dirty peak inside
@@ -270,6 +306,35 @@ def test_wave_matches_plain(cuda):
     peak = float(flux.max())
     assert torch.equal((got.model != 0)[..., inside],
                        (ref.model != 0)[..., inside])
+    for a, b in ((got.model, ref.model), (got.residual, ref.residual)):
+        assert torch.isfinite(a).all()
+        assert (a - b).abs()[..., inside].max().item() <= 1e-4 * peak
+
+
+def test_wave_at_1000px_matches_plain(cuda):
+    """A cube wave at 1000 px: its PSF and dirty images take torch.fft by
+    rule, its degrid major cycle K5 (image -> grid by torch.fft too);
+    against the all-plain wave as :func:`test_wave_matches_plain`."""
+    small = dict(pixels=1000, num_pols=1, kernel_width=16, oversample=8,
+                 w_planes=8, w_slices=2, chunks_per_slice=512,
+                 chunk_size=128, rv=32, ru=32)
+    cfg = cube.CubeConfig(**small, majors=2, minor=500, patch=33,
+                          psf_core=32)
+    batch = multichannel.make_example_batch(
+        multichannel.MultiChannelConfig(**small, weight_type="natural"), 1,
+        seed=3, device=cuda)
+    batch, pos, flux = cube.with_point_sources(cfg, batch, seed=1)
+    fused_fft.cb_col_fft.launches = 0
+    fused_degrid.degrid_planes.launches = 0
+    got = cube.wave_image(cfg, batch)
+    assert fused_fft.cb_col_fft.launches == 0
+    assert fused_degrid.degrid_planes.launches > 0
+    ref = cube.wave_image(cfg, batch, plain=True)
+    inside = _inside(batch.taper1d[0])
+    peak = float(flux.max())
+    assert torch.equal((got.model != 0)[..., inside],
+                       (ref.model != 0)[..., inside])
+    assert torch.isfinite(got.psf_core).all()
     for a, b in ((got.model, ref.model), (got.residual, ref.residual)):
         assert torch.isfinite(a).all()
         assert (a - b).abs()[..., inside].max().item() <= 1e-4 * peak
@@ -341,9 +406,8 @@ def test_per_channel_run_matches_plain(cuda, pixels):
     through K1-K7; at 1000 px (smooth, no power of two, 1000 % ts != 0)
     through K1, K2 and K5, the transforms taking torch.fft by rule."""
     import chip_smoke
-    from katsdpimager_tpu import arguments
-    from katsdpimager_tpu.ops import wkernel
-    from katsdpimager_tpu_torch import frontend, imager
+    from katsdpimager_tpu_torch import arguments, frontend, imager
+    from katsdpimager_tpu_torch.ops import wkernel
 
     dataset, _ = chip_smoke.sim_dataset(16, 128, 1, noise_jy=0.5)
     argv = ["simulated", "unused_%c.fits", "--pixels", str(pixels),

@@ -1,5 +1,6 @@
 """The PyTorch port must run where JAX is not installed: none of its
-modules, nor ``chip_smoke.py``, may import JAX or anything of the JAX
+modules, nor ``chip_smoke.py``, nor ``tests/test_torch_gpu.py`` (the one
+test file that runs on the card), may import JAX or anything of the JAX
 package ``katsdpimager_tpu`` (the port has its own host modules)."""
 
 import os
@@ -12,6 +13,9 @@ import katsdpimager_tpu_torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = pathlib.Path(katsdpimager_tpu_torch.__file__).parent
+#: Every source that runs where JAX is not installed.
+SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                      ROOT / "tests" / "test_torch_gpu.py"]
 
 _PROBE = r"""
 import importlib, pkgutil, sys
@@ -40,15 +44,16 @@ def test_port_imports_without_jax():
 
 def test_sources_name_no_jax():
     pattern = re.compile(r"\s*(import|from)\s+jax(\.|\s|$)")
-    for path in list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+    for path in SOURCES:
         for line in path.read_text().splitlines():
             assert not pattern.match(line), (path, line)
 
 
 def test_sources_name_no_jax_package():
-    """No import line of the port or of ``chip_smoke.py`` names the JAX
-    package (``katsdpimager_tpu`` without ``_torch``)."""
+    """No import line of the port, of ``chip_smoke.py`` or of
+    ``tests/test_torch_gpu.py`` names the JAX package
+    (``katsdpimager_tpu`` without ``_torch``)."""
     pattern = re.compile(r"\s*(import|from)\s+katsdpimager_tpu(?!_torch)\b")
-    for path in list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+    for path in SOURCES:
         for line in path.read_text().splitlines():
             assert not pattern.match(line), (path, line)

@@ -11,7 +11,7 @@ import jax
 
 from katsdpimager_tpu.parallel import multichannel as jax_mc
 from katsdpimager_tpu_torch import convert
-from katsdpimager_tpu_torch.ops import fused_gridder
+from katsdpimager_tpu_torch.ops import fused_fft, fused_gridder
 from katsdpimager_tpu_torch.parallel import multichannel
 
 torch.set_num_threads(2)
@@ -21,9 +21,9 @@ SMALL = dict(pixels=256, num_pols=1, kernel_width=16, oversample=8,
              rv=32, ru=32)
 
 
-def jax_batch(empty_slice: bool = False):
-    batch = jax_mc.make_example_batch(jax_mc.MultiChannelConfig(**SMALL), 2,
-                                      seed=4)
+def jax_batch(empty_slice: bool = False, pixels: int = SMALL["pixels"]):
+    batch = jax_mc.make_example_batch(
+        jax_mc.MultiChannelConfig(**dict(SMALL, pixels=pixels)), 2, seed=4)
     if not empty_slice:
         return batch
     d = convert.batch_to_numpy(convert.batch_from_jax(batch))
@@ -34,15 +34,17 @@ def jax_batch(empty_slice: bool = False):
 
 @pytest.fixture(scope="module")
 def jax_dirty():
-    """Channel 0's JAX dirty image per (weight type, empty slice), with
-    ``KTPU_GRID_ASSEMBLY=pallas`` and ``KTPU_FFT=pallas``."""
+    """Channel 0's JAX dirty image per (weight type, empty slice, pixels),
+    with ``KTPU_GRID_ASSEMBLY=pallas`` and ``KTPU_FFT=pallas`` (the fused
+    FFT declines sizes that are not powers of two: XLA's FFT there)."""
     memo = {}
 
-    def get(weight_type, empty_slice=False):
-        key = (weight_type, empty_slice)
+    def get(weight_type, empty_slice=False, pixels=SMALL["pixels"]):
+        key = (weight_type, empty_slice, pixels)
         if key not in memo:
-            batch = jax_batch(empty_slice)
-            cfg = jax_mc.MultiChannelConfig(**SMALL, weight_type=weight_type)
+            batch = jax_batch(empty_slice, pixels)
+            cfg = jax_mc.MultiChannelConfig(**dict(SMALL, pixels=pixels),
+                                            weight_type=weight_type)
             with pytest.MonkeyPatch.context() as mp:
                 mp.setenv("KTPU_GRID_ASSEMBLY", "pallas")
                 mp.setenv("KTPU_FFT", "pallas")
@@ -72,6 +74,27 @@ def test_step_matches_jax(jax_dirty, weight_type):
     got, model = multichannel.single_channel_step(cfg)(
         *multichannel.channel_args(tb, 0))
     assert got.shape == (1, 256, 256) and not model.any()
+    assert_image_close(got.numpy(), ref, tb.taper1d[0].numpy())
+
+
+@pytest.mark.parametrize("weight_type", ["natural", "uniform"])
+def test_step_at_smooth_size_matches_jax(jax_dirty, weight_type,
+                                         monkeypatch):
+    """At 320 px (2^6 5, not a power of two) the step's transform takes
+    the torch.fft route, as the JAX step takes XLA's FFT; K3 and K4, even
+    their plain versions, never run."""
+    batch, ref = jax_dirty(weight_type, pixels=320)
+    tb = convert.batch_from_jax(batch)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("K3/K4 ran at 320 px")
+
+    monkeypatch.setattr(fused_fft, "grid_to_image_fused_parts", refuse)
+    cfg = multichannel.MultiChannelConfig(**dict(SMALL, pixels=320),
+                                          weight_type=weight_type)
+    got, _ = multichannel.single_channel_step(cfg)(
+        *multichannel.channel_args(tb, 0))
+    assert got.shape == (1, 320, 320)
     assert_image_close(got.numpy(), ref, tb.taper1d[0].numpy())
 
 
