@@ -10,8 +10,9 @@ It builds the port's CUDA kernels (K1-K8 and the probes P1/P2) from
 4096 px, K=60, oversample 8, 32 W planes, 4 W slices, 2^19 visibilities
 per slice, natural weights), then:
 
-- prints what ``ptxas -v`` reported for K1, K3, K4, K6, K7 and K8
-  (registers, spills, stack frame, shared memory);
+- prints what ``ptxas -v`` reported for K1, K3, K4, K5 (its instance for
+  the production K), K6, K7 and K8 (registers, spills, stack frame,
+  shared memory);
 - checks every kernel against its plain PyTorch version at the shapes of
   the main paths (channel 0, slice 0; K8 at (1, 4096, 4096)) and times
   both, and the column DFTs (K3, K4, K6, K7, K8) also against
@@ -32,7 +33,8 @@ per slice, natural weights), then:
   (``cube.wave_image``: weights, PSF, 2 major cycles of grid, FFT, CLEAN
   and degrid-subtract; then the beam fit and ``cube.wave_restore``), with
   the counters reset just before, and checks its launch counts; then
-  profiles one more wave (the device's busy time and idle share);
+  profiles one more wave (the device's busy time, idle share and K5's
+  share of the busy time);
 - checks K5 against its plain version on the grid of the wave's own
   channel-0 model, within the f32 bound of its sums;
 - checks channel 0's wave against the all-plain wave, as configured
@@ -74,11 +76,12 @@ import torch
 H100_SXM_HBM_BYTES_PER_S = 3.35e12
 H100_SXM_FLOP_PER_S = {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12}
 
-#: Times of the designs that K1, K8, K3, K4, K6 and K7 replace, on
+#: Times of the designs that K1, K8, K3, K4, K6, K7 and K5 replace, on
 #: "NVIDIA H100 80GB HBM3, 700.00 W", as PERF.md records them (the kernel
 #: table's earlier designs).
 REPLACED_DESIGN_MS = {"K1": 5.204, "K8": (0.854, 0.901), "K3": 0.608,
-                      "K4": 0.938, "K6": (0.610, 0.675), "K7": (0.894, 0.980)}
+                      "K4": 0.938, "K6": (0.610, 0.675), "K7": (0.894, 0.980),
+                      "K5": (6.45, 6.47)}
 
 
 def emit(obj) -> None:
@@ -178,21 +181,25 @@ def main() -> None:
     _build.load()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": _build.lib_path()})
+    cfg = mc.MultiChannelConfig(
+        pixels=4096, num_pols=1, kernel_width=60, oversample=8,
+        w_planes=32, w_slices=4, chunks_per_slice=8192, chunk_size=256,
+        rv=64, ru=64, minor_cycles=0, weight_type="natural")
+    # K5 is built for 1-16 taps per lane (ceil(K / 16)); the production K
+    # runs one instance.
+    k5_instance = "degrid_planes_kernelILi%dE" % (
+        (cfg.kernel_width + 15) // 16)
     emit({"phase": "ptxas", "kernels": [
         k for k in _build.ptxas_report()
         if any(name in k["function"] for name in (
-            "grid_planes_kernelI", "col_fft_k8_kernel", "cb_col_fft_kernel",
-            "epi_col_fft_kernel", "pre_col_fft_kernel",
-            "cbout_col_fft_kernel"))]})
+            "18grid_planes_kernelI", "col_fft_k8_kernel",
+            "cb_col_fft_kernel", "epi_col_fft_kernel", "pre_col_fft_kernel",
+            "cbout_col_fft_kernel", k5_instance))]})
     emit({"phase": "roofline", "card": card,
           "hbm_bytes_per_s": H100_SXM_HBM_BYTES_PER_S,
           "flop_per_s": H100_SXM_FLOP_PER_S,
           "peaks_of": "H100 SXM, NVIDIA data sheet, 700 W"})
 
-    cfg = mc.MultiChannelConfig(
-        pixels=4096, num_pols=1, kernel_width=60, oversample=8,
-        w_planes=32, w_slices=4, chunks_per_slice=8192, chunk_size=256,
-        rv=64, ru=64, minor_cycles=0, weight_type="natural")
     num_channels = 8
     t0 = time.perf_counter()
     batch = mc.make_example_batch(cfg, num_channels, vis_per_slice=1 << 19,
@@ -414,21 +421,24 @@ def main() -> None:
     av, au, diu, div, dsu, dsv = fused_degrid.degrid_taps(
         kern, uv, sub, wp, anc, pixels=N, ts=ts)
     dtab = fused_degrid.degrid_table(kern)
-    dargs = (pgr, pgi, av, au, diu, div, dsu, dsv, dtab, n)
+    dargs = (pgr, pgi, av, au, count, diu, div, dsu, dsv, dtab, n)
     ms, plain_ms = timed_pair(
         lambda: out.__setitem__("p", fused_degrid.degrid_planes_plain(
             *dargs, ts=ts)),
         lambda: out.__setitem__("k", fused_degrid.degrid_planes(*dargs,
                                                                 ts=ts)))
     scale = out["p"].abs().max().item()
-    # Reads both grid planes and each valid slot's six taps, writes one
-    # complex prediction per slot and polarization; K^2 complex MACs each.
+    # Every slot is compared: the slots past a chunk's valid count, and the
+    # chunks past n, are zero in both.  K5 reads both grid planes and each
+    # valid slot's six taps, writes one complex prediction per slot and
+    # polarization; K^2 complex MACs each.
     record("K5 fused degridder", "katsdpimager_tpu_torch/csrc/degrid.cu",
            "katsdpimager_tpu/ops/pallas_gridder.py:706",
            max_err(out["k"], out["p"]), 1e-5 * scale, ms, plain_ms,
            bound(2 * plane_bytes + n_valid * (6 * 4 + P * 8)
                  + dtab.numel() * dtab.element_size(),
                  fp32=8.0 * K * K * P * n_valid))
+    redesign_line("K5", ms)
     del kr, ki, pr, pi, out, img_k, img_p, par, pai, ar, ai, gr, gi
     del pgr, pgi, model, dargs, xc
     k8_phase(dev, record, rows, fused_fft)
@@ -602,9 +612,12 @@ def wave_phases(mcfg, batch, num_channels, rows, card, mc, cube, fourier,
         torch.cuda.synchronize()
         profiled = time.perf_counter() - t0
     busy_ms, by_kernel = device_busy_ms(prof)
+    k5_ms = sum(t for name, t in by_kernel.items()
+                if "degrid_planes_kernel" in name)
     emit({"phase": "wave_profile", "card": card, "wave_s": elapsed,
           "profiled_s": profiled, "device_busy_ms": busy_ms,
           "idle_share": 1 - busy_ms / 1e3 / elapsed,
+          "k5_device_ms": k5_ms, "k5_share_of_busy": k5_ms / busy_ms,
           "top_device_ms": sorted(by_kernel.items(),
                                   key=lambda kv: -kv[1])[:10]})
     if not busy_ms > 0:
@@ -629,7 +642,8 @@ def wave_phases(mcfg, batch, num_channels, rows, card, mc, cube, fourier,
     b0 = mc.ChannelBatch(*(x[:1] for x in batch))
     args = tuple(x[0] for x in b0[:11])
     kern, tap, ps, midw, uv, sub, wp, anc, val, _, vis = args
-    k5_on_wave_model(cfg, res.model[0], b0, fourier, fused_degrid)
+    k5_on_wave_model(cfg, res.model[0], b0, fourier, fused_gridder,
+                     fused_degrid)
 
     # ---- wave parity: channel 0 against the all-plain wave on the card
     ref = cube.wave_image(cfg, b0, plain=True)
@@ -737,7 +751,8 @@ def field_border(taper) -> int:
     return -(-b // 16) * 16
 
 
-def k5_on_wave_model(cfg, model, b0, fourier, fused_degrid) -> None:
+def k5_on_wave_model(cfg, model, b0, fourier, fused_gridder,
+                     fused_degrid) -> None:
     """K5 against its plain version on the grid of the wave's own
     channel-0 model (through K6 and K7), for channel 0, slice 0.
 
@@ -748,13 +763,14 @@ def k5_on_wave_model(cfg, model, b0, fourier, fused_degrid) -> None:
     for the complex products): that bound, per visibility, is the gate.
     The line also gives the error against the largest prediction."""
     N, ts, K = cfg.pixels, cfg.rv, cfg.kernel_width
-    kern, tap, ps, midw, uv, sub, wp, anc = (x[0] for x in b0[:8])
+    kern, tap, ps, midw, uv, sub, wp, anc, val = (x[0] for x in b0[:9])
     n = int(b0.n_chunks[0, 0])
     gr, gi = fourier.image_to_grid_parts(model, tap, midw[0], ps)
     av, au, iu, iv, su, sv = fused_degrid.degrid_taps(
         kern, uv[0], sub[0], wp[0], anc[0], pixels=N, ts=ts)
     tab = fused_degrid.degrid_table(kern)
-    taps = (av, au, iu, iv, su, sv)
+    # Every slot is compared: past each chunk's valid count both are zero.
+    taps = (av, au, fused_gridder.valid_counts(val[0]), iu, iv, su, sv)
     got = fused_degrid.degrid_planes(gr, gi, *taps, tab, n, ts=ts)
     want = fused_degrid.degrid_planes_plain(gr, gi, *taps, tab, n, ts=ts)
     mag = torch.complex(gr, gi).abs()

@@ -65,8 +65,9 @@ SIGNATURES = {
     "ktt_pre_col_fft": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     # xr, xi, tw, yr, yi, P, N, stream
     "ktt_cbout_col_fft": [_P, _P, _P, _P, _P, _I, _I, _P],
-    # gr, gi, av, au, iu, iv, su, sv, tab, pred, n, Mc, P, N, K, ts2, stream
-    "ktt_degrid_planes": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    # gr, gi, av, au, count, iu, iv, su, sv, tab, pred, n, Mc, P, N, K, ts,
+    # stream
+    "ktt_degrid_planes": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _P],
     # xr, xi, tw, yr, yi, B, N, M, sign, stream
     "ktt_col_fft": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -87,7 +88,8 @@ _lib: ctypes.CDLL | None = None
 
 def sources() -> list[str]:
     return sorted(glob.glob(os.path.join(_CSRC, "*.cu"))
-                  + glob.glob(os.path.join(_CSRC, "*.cuh")))
+                  + glob.glob(os.path.join(_CSRC, "*.cuh"))
+                  + glob.glob(os.path.join(_CSRC, "*.h")))
 
 
 def _key() -> str:

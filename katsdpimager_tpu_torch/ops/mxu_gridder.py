@@ -298,8 +298,8 @@ def degrid_chunks_parts(grid, kernel, plan_uv, plan_sub, plan_wp, plan_wt,
         n_chunks = occupied_chunks(plan_valid)
     gr, gi = grid
     pred = degrid_chunks_fused(gr, gi, kernel, plan_uv, plan_sub, plan_wp,
-                               plan_anchor, n_chunks, pixels=pixels, ts=rv,
-                               plain=plain)
+                               plan_anchor, plan_valid, n_chunks,
+                               pixels=pixels, ts=rv, plain=plain)
     pred = torch.where(plan_valid[..., None], pred, 0)
     return plan_vis - plan_wt * pred
 
@@ -343,7 +343,7 @@ def tile_size(pixels: int, kernel_width: int) -> int:
     """The per-channel path's square tile size: ``max(min(64, max(8,
     N // 8)), K)`` (the JAX ``Imaging`` window, raised to cover the
     kernel as its dense mode does).  64 at 4096 px with K = 60, 32 at
-    256 px with K = 16; K1 takes 32 and 64, K5 up to 80."""
+    256 px with K = 16; K1 takes 32 and 64, K5 any with K <= ts + 1."""
     return max(min(64, max(8, pixels // 8)), kernel_width)
 
 

@@ -209,24 +209,95 @@ def test_k6_k7_match_plain(cuda, n):
         assert (k - p).abs().max().item() <= 1e-5 * scale
 
 
-@pytest.mark.parametrize("ts,K,P", [(64, 60, 1), (32, 16, 2), (64, 16, 1)])
+def _k5_plan(seed, *, pixels, K, ts, P, n, mc=256, w_planes=4, O=8):
+    """A tile-aligned plan whose uv cover the whole grid (every footprint
+    inside it), corners included, so windows cross the grid's edge."""
+    rng = np.random.default_rng(seed)
+    kernel = (rng.normal(size=(w_planes, O, K))
+              + 1j * rng.normal(size=(w_planes, O, K))).astype(np.complex64)
+    uv_bias = (K - 1) // 2 - pixels // 2
+    uv = rng.integers(0, pixels - K + 1, size=(n, 2))
+    uv[:4] = [[0, 0], [pixels - K, 0], [0, pixels - K],
+              [pixels - K, pixels - K]]
+    uv = (uv + uv_bias).astype(np.int16)
+    sub = rng.integers(0, O, size=(n, 2)).astype(np.int16)
+    wp = rng.integers(0, w_planes, size=n).astype(np.int16)
+    vis = np.ones((n, P), np.complex64)
+    plan = mxu_gridder.plan_chunks_tiled(
+        uv, sub, wp, vis, np.ones_like(vis, np.float32), pixels=pixels,
+        kernel_width=K, ts=ts, mc=mc)
+    return kernel, plan
+
+
+@pytest.mark.parametrize("ts,K,P", [(64, 60, 1), (32, 16, 2), (64, 16, 1),
+                                    (96, 96, 1)])
 def test_k5_matches_plain(cuda, ts, K, P):
     """K5 within 1e-5 of the largest prediction of its plain version
-    (f32 sums in another order); chunks past n predict zero."""
+    (f32 sums in another order) on every slot: slots past a chunk's valid
+    count and chunks past n predict zero, also with n covering the empty
+    padding chunks.  At ts = 96 (> 80, K = ts) the old 2ts <= 160 limit
+    is gone; windows at the grid's edge read zero beyond it."""
     pixels = 1024
-    kernel, _, plan = _plan_case(4, pixels=pixels, K=K, ts=ts, P=P,
-                                 n=20000)
+    kernel, plan = _k5_plan(4, pixels=pixels, K=K, ts=ts, P=P, n=20000)
     t = [torch.from_numpy(np.ascontiguousarray(x)).to(cuda) for x in
-         (kernel, plan.uv, plan.sub_uv, plan.w_plane, plan.anchor)]
-    n = int(plan.valid.any(axis=1).sum())
+         (kernel, plan.uv, plan.sub_uv, plan.w_plane, plan.anchor,
+          plan.valid)]
+    occupied = int(plan.valid.any(axis=1).sum())
+    valid = torch.from_numpy(plan.valid).to(cuda)
+    assert plan.anchor.max() + ts + K - 1 > pixels
     gen = torch.Generator(device="cpu").manual_seed(K)
     gr = torch.randn((P, pixels, pixels), generator=gen).to(cuda)
     gi = torch.randn((P, pixels, pixels), generator=gen).to(cuda)
-    k = fused_degrid.degrid_chunks_fused(gr, gi, *t, n, pixels=pixels, ts=ts)
-    p = fused_degrid.degrid_chunks_fused(gr, gi, *t, n, pixels=pixels, ts=ts,
-                                         plain=True)
+    for n in sorted({occupied, len(plan.valid)}):
+        launches = fused_degrid.degrid_planes.launches
+        k = fused_degrid.degrid_chunks_fused(gr, gi, *t, n, pixels=pixels,
+                                             ts=ts)
+        p = fused_degrid.degrid_chunks_fused(gr, gi, *t, n, pixels=pixels,
+                                             ts=ts, plain=True)
+        torch.cuda.synchronize()
+        assert fused_degrid.degrid_planes.launches == launches + 1
+        assert torch.isfinite(k).all() and not k[n:].any()
+        assert not k[~valid].any()
+        assert (k - p).abs().max().item() <= 1e-5 * p.abs().max().item()
+
+
+@pytest.mark.parametrize("ts,K,P", [(64, 60, 1), (32, 30, 4), (96, 96, 2),
+                                    (30, 30, 1)])
+def test_k5_valid_counts_match_plain(cuda, ts, K, P):
+    """K5 on direct inputs: chunks of 0, 1, 31, 255 and 256 valid slots,
+    shifts anywhere in [0, ts - 1], windows up to and across the grid's
+    edge; every slot within 1e-5 of the largest prediction of the plain
+    version, the slots past each count exactly zero.  At ts = 30 most
+    column anchors are not multiples of 4, so the window loads 4 bytes at
+    a time there."""
+    rng = np.random.default_rng(ts + K + P)
+    pixels, Mc, WO = 700, 256, 64
+    counts = np.array([256, 0, 1, 31, 255, 7, 0, 128, 256], np.int32)
+    NC = len(counts)
+    edge = pixels // ts          # the tile whose window crosses the edge
+    av, au = (rng.integers(0, edge + 1, size=NC).astype(np.int32) * ts
+              for _ in range(2))
+    av[0] = au[0] = edge * ts
+    assert ts % 4 == 0 or (au[counts > 0] % 4).any()
+    iu, iv = (rng.integers(0, WO, size=(NC, Mc)).astype(np.int32)
+              for _ in range(2))
+    su, sv = (rng.integers(0, ts, size=(NC, Mc)).astype(np.int32)
+              for _ in range(2))
+    table = (rng.normal(size=(WO, K))
+             + 1j * rng.normal(size=(WO, K))).astype(np.complex64)
+    gen = torch.Generator(device="cpu").manual_seed(P)
+    gr = torch.randn((P, pixels, pixels), generator=gen).to(cuda)
+    gi = torch.randn((P, pixels, pixels), generator=gen).to(cuda)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in
+            (av, au, counts, iu, iv, su, sv, table)]
+    n = NC - 1
+    k = fused_degrid.degrid_planes(gr, gi, *args, n, ts=ts)
+    p = fused_degrid.degrid_planes_plain(gr, gi, *args, n, ts=ts)
     torch.cuda.synchronize()
-    assert torch.isfinite(k).all() and not k[n:].any()
+    live = torch.arange(Mc, device=cuda)[None, :] < args[2][:, None]
+    live[n:] = False
+    assert (p[live] != 0).any()
+    assert not k[~live].any()
     assert (k - p).abs().max().item() <= 1e-5 * p.abs().max().item()
 
 
