@@ -49,7 +49,15 @@ per slice, natural weights), then:
   slice, block and major counts, the restored fluxes against the truth,
   and each channel against the all-plain run;
 - profiles both channels: host seconds by stage, and the device's busy
-  time and idle share under ``torch.profiler``.
+  time and idle share under ``torch.profiler``;
+- runs the batch pipeline (``pipeline.run`` with ``--cube``, one channel
+  per wave) on the same observation at the same width, with
+  ``--primary-beam meerkat`` and ``--subtract`` of the 1.5 Jy off-centre
+  source: both channels complete, the subtracted source gone, the
+  centre source within 10%, the restored images against the all-plain
+  run, K1-K7 launch counts against slices x passes, a rerun that skips
+  both waves; each wave's host, blocked and device seconds, and the
+  device's busy time and idle share of one profiled wave.
 
 Each phase prints one JSON line; the card's name and power limit, the
 kernel table and, last, the ``ok`` line follow.  Any failure raises: the
@@ -523,6 +531,7 @@ def main() -> None:
     del batch
     probe_phase(dev, rows)
     imager_phase(dev, card, rows)
+    pipeline_phase(dev, card, rows)
 
     print(card, flush=True)
     emit({"kernels": rows})
@@ -1142,6 +1151,190 @@ def imager_phase(dev, card, rows) -> None:
         imager_parity(channel, got, run(channel, degrid, plain=True))
 
     imager_profile(dev, dataset, vis_block)
+
+
+def pipeline_phase(dev, card, rows) -> None:
+    """The batch pipeline's ``--cube`` route (``pipeline.run``) at full
+    width on the simulated 2-channel observation: 4096 px, K = 60, 2
+    majors, the MeerKAT primary beam, and the off-centre 1.5 Jy source
+    subtracted from a text sky model.  Two waves of one channel each, so
+    the worker preprocesses and packs wave 2 while wave 1 runs.  The run
+    with the kernels (timed, counted and not instrumented); then the
+    all-plain run (instrumented: the dirty peaks and non-empty slices),
+    a rerun into the first run's directory (both waves skipped) and one
+    profiled wave (not instrumented)."""
+    import math
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from katsdpimager_tpu_torch import (arguments, cube_frontend, io,
+                                        pipeline, simulate)
+    from katsdpimager_tpu_torch.ops import (fused_degrid, fused_fft,
+                                            fused_gridder, wkernel)
+    from katsdpimager_tpu_torch.parallel import cube
+
+    num_antennas, num_dumps = 64, 1024
+    dataset, num_rows = sim_dataset(num_antennas, num_dumps, 2,
+                                    noise_jy=1.0)
+    src = simulate.DEFAULT_SOURCES[1]
+    counters = (fused_gridder.grid_planes, fused_gridder.combine_planes,
+                fused_fft.cb_col_fft, fused_fft.epi_col_fft,
+                fused_degrid.degrid_planes, fused_fft.pre_col_fft,
+                fused_fft.cbout_col_fft)
+    names = ("K1", "K2", "K3", "K4", "K5", "K6", "K7")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        lsm = os.path.join(tmp, "subtract.txt")
+        with open(lsm, "w") as f:
+            f.write(f"{math.degrees(src.ra)!r} {math.degrees(src.dec)!r} "
+                    f"{src.flux_iquv[0]!r} 0 0 0\n")
+
+        def run(name, plain=False, channels=(0, 2), probe=False):
+            """One ``pipeline.run`` into ``tmp/name``, with the kernels'
+            counters set to 0 just before it.  Only a ``probe`` run (the
+            all-plain one, which is not what the timings report) is
+            wrapped, to read each wave's non-empty slices and CLEAN's
+            input images (one device sync per CLEAN stage); the others
+            run the pipeline as a user does, and their images are read
+            back from the FITS files after the clock stops."""
+            out = os.path.join(tmp, name)
+            argv = ["simulated", out, "--cube", "--pixels", "4096",
+                    "--kernel-width", "60", "--stokes", "I", "--major", "2",
+                    "--no-tmp-file", "--vis-block", "131072",
+                    "--no-thumbnails", "--primary-beam", "meerkat",
+                    "--subtract", lsm, "-c", str(channels[0]), "-C",
+                    str(channels[1])]
+            args = pipeline.get_parser().parse_args(
+                argv, namespace=arguments.SmartNamespace())
+            writer = pipeline.PipelineWriter(out, thumbnails=False)
+            cap = {"nonempty": [], "clean_inputs": []}
+            to_batch, clean_stage = (cube_frontend.batch_from_arrays,
+                                     cube._clean_stage)
+
+            def capture_batch(*a, **k):
+                batch = to_batch(*a, **k)
+                cap["nonempty"].append(int((batch.n_chunks[0] > 0).sum()))
+                return batch
+
+            def capture_clean(cfg, residual, *a):
+                cap["clean_inputs"].append(residual.abs().max().item())
+                return clean_stage(cfg, residual, *a)
+
+            if probe:
+                cube_frontend.batch_from_arrays = capture_batch
+                cube._clean_stage = capture_clean
+            torch.cuda.synchronize()
+            for fn in counters:
+                fn.launches = 0
+            t = time.perf_counter()
+            try:
+                cap["timings"] = pipeline.run(args, dataset, writer,
+                                              device=dev, plain=plain)
+                torch.cuda.synchronize()
+            finally:
+                cube_frontend.batch_from_arrays = to_batch
+                cube._clean_stage = clean_stage
+            cap["seconds"] = time.perf_counter() - t
+            cap["launches"] = [fn.launches for fn in counters]
+            # Each channel's first CLEAN input is its dirty image (2
+            # majors, one channel per wave).
+            cap["dirty_peaks"] = cap["clean_inputs"][::2]
+            with open(os.path.join(out, "state.json")) as f:
+                cap["state"] = json.load(f)
+            cap["images"] = {}
+            for c in range(*channels):
+                path = os.path.join(out, f"image_{c:05d}_clean.fits")
+                if os.path.exists(path):
+                    # The writer stores (1, P, N, N) with RA reversed.
+                    header, data = io.read_fits(path)
+                    cap["images"][c] = np.ascontiguousarray(
+                        data[0, :, :, ::-1], np.float32)
+                    cap["header"] = header
+            return cap
+
+        got = run("kernels")
+        ref = run("plain", plain=True, probe=True)
+        resume = run("kernels")
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            profiled = run("profiled", channels=(0, 1))
+        busy_ms, by_kernel = device_busy_ms(prof)
+
+    state = got["state"]
+    complete = [state.get(f"status/{c}") == "complete" for c in range(2)]
+    minor = [[state[f"stats/{c}"]["minor"], ref["state"][f"stats/{c}"][
+        "minor"]] for c in range(2)]
+    N = got["header"]["NAXIS1"]
+    pixel_size = math.sin(math.radians(got["header"]["CDELT2"]))
+    taper = wkernel.taper(N, 7.0, 8, wkernel.default_beta(7.0))
+    t2 = np.outer(taper, taper)
+    inside = t2 >= 0.002 * t2.max()
+    ra0, dec0 = simulate.DEFAULT_PHASE_CENTRE
+
+    def peak_at(image, s):
+        l, m, _ = simulate.lmn(np.array([s.ra]), np.array([s.dec]), ra0,
+                               dec0)
+        iy = int(round(N // 2 + m[0] / pixel_size))
+        ix = int(round(N // 2 + l[0] / pixel_size))
+        return float(np.nanmax(image[0, iy - 2:iy + 3, ix - 2:ix + 3]))
+
+    centre = simulate.DEFAULT_SOURCES[0]
+    subtracted = [peak_at(got["images"][c], src) / src.flux_iquv[0]
+                  for c in range(2)]
+    centre_ratio = [peak_at(got["images"][c], centre) / centre.flux_iquv[0]
+                    for c in range(2)]
+    errs, nan_same, finite = [], True, True
+    for c in range(2):
+        a, b = got["images"][c], ref["images"][c]
+        nan_same = nan_same and bool(np.array_equal(np.isnan(a),
+                                                    np.isnan(b)))
+        both = inside & ~np.isnan(b[0])
+        finite = finite and bool(np.isfinite(a[0][both]).all())
+        errs.append(float(np.abs(a[0] - b[0])[both].max())
+                    / ref["dirty_peaks"][c])
+    # Per channel: the PSF and 2 majors grid each non-empty slice (K1-K4),
+    # the second major degrids each (K5-K7).  The slices are counted in
+    # the plain run: the same host packer on the same data.
+    per_channel = [[3 * n] * 4 + [n] * 3 for n in ref["nonempty"]]
+    want = [sum(w[k] for w in per_channel) for k in range(7)]
+    launches = dict(zip(names, got["launches"]))
+    wall = profiled["timings"][0]["device_write_s"]
+    checks = {
+        "both_channels_complete": all(complete),
+        "subtracted_below_0.2": max(subtracted) < 0.2,
+        "centre_within_10pct": all(abs(r - 1) <= 0.1 for r in centre_ratio),
+        "plain_parity_1e-4": max(errs) <= 1e-4 and nan_same and finite,
+        "equal_minor_counts": all(m[0] == m[1] for m in minor),
+        "resume_skips_both_waves": resume["timings"] == [],
+        "launches_match": got["launches"] == want,
+    }
+    emit({"phase": "pipeline", "card": card, "route": "--cube",
+          "pixels": N, "channels": 2, "rows_per_channel": num_rows,
+          "waves": len(got["timings"]),
+          "nonempty_slices_per_channel": ref["nonempty"],
+          "subtracted_source_5x5_max_over_flux": subtracted,
+          "centre_source_5x5_max_over_flux": centre_ratio,
+          "max_err_inside_over_dirty_peak": errs, "tolerance": 1e-4,
+          "dirty_peaks": ref["dirty_peaks"], "minor_kernels_plain": minor,
+          "launches": launches, "expected_launches": dict(zip(names, want)),
+          "expected_per_channel": [dict(zip(names, w)) for w in per_channel],
+          **checks})
+    emit({"phase": "pipeline_timing", "card": card,
+          "waves": [{k: v for k, v in w.items()} for w in got["timings"]],
+          "s_per_channel": got["seconds"] / 2, "seconds": got["seconds"],
+          "plain_seconds": ref["seconds"], "resume_seconds":
+          resume["seconds"], "profiled_wave": profiled["timings"][0],
+          "device_busy_ms": busy_ms,
+          "idle_share_of_device_write": 1 - busy_ms / 1e3 / wall,
+          "top_device_ms": sorted(by_kernel.items(),
+                                  key=lambda kv: -kv[1])[:8]})
+    if not all(checks.values()) or not busy_ms > 0:
+        raise AssertionError(f"pipeline phase failed: {checks}")
+    by_name = {row["name"].split()[0]: row for row in rows}
+    for name, n in launches.items():
+        by_name[name]["pipeline_launches"] = n
 
 
 def imager_args(channel: int, degrid: bool, vis_block: int):

@@ -30,7 +30,7 @@ from .ops import wkernel
 
 from .ops import beam as beam_ops
 from .ops import clean as clean_ops
-from .ops import fourier, mxu_gridder, predict
+from .ops import fourier, gridder, mxu_gridder, predict
 from .ops import weights as weight_ops
 
 
@@ -178,6 +178,20 @@ class Imaging:
         self._mxu.grid(self.grid, self.kernel, None, plan, vis_chunked,
                        dw_chunks=dw, n_chunks=n)
 
+    def grid_chunk(self, chunk, vis):
+        """Grid (pre-weighted) visibilities onto the running grid with the
+        scatter gridder (:mod:`.ops.gridder`); ``vis`` is (n, P) complex or
+        real (the weights, for the PSF).  :meth:`grid_slice` is the fast
+        path."""
+        gr, gi = self.grid
+        grid = gridder.grid_vis(
+            torch.complex(gr, gi), self.kernel, self.weights.grid,
+            self._tensor(chunk.uv, torch.int32),
+            self._tensor(chunk.sub_uv, torch.int32),
+            self._tensor(chunk.w_plane, torch.int32),
+            self._tensor(vis, torch.complex64), pixels=self.pixels)
+        self.grid = (grid.real.contiguous(), grid.imag.contiguous())
+
     def degrid_slice(self, chunk, vis, model_grid, w_slice: int,
                      block: int = 0):
         """``vis`` less the weighted degridded prediction of ``model_grid``
@@ -189,6 +203,20 @@ class Imaging:
         out = self._mxu.degrid(model_grid, self.kernel, plan, vis_chunked,
                                n_chunks=n)
         return self._mxu.unchunk_vis(plan, out)
+
+    def degrid_chunk(self, chunk, vis, model_grid):
+        """``vis`` less the weighted prediction of ``model_grid`` (a
+        ``(gr, gi)`` pair) by the scatter degridder (:mod:`.ops.gridder`);
+        the result stays on the device.  :meth:`degrid_slice` is the fast
+        path."""
+        gr, gi = model_grid
+        return gridder.degrid_vis(
+            torch.complex(gr, gi), self.kernel,
+            self._tensor(chunk.uv, torch.int32),
+            self._tensor(chunk.sub_uv, torch.int32),
+            self._tensor(chunk.w_plane, torch.int32),
+            self._tensor(chunk.weights, torch.float32),
+            self._tensor(vis, torch.complex64), pixels=self.pixels)
 
     def predict_chunk(self, chunk, vis, w_slice: int, lmn, flux):
         """``vis`` less the direct DFT prediction of (lmn, flux); the

@@ -46,6 +46,9 @@ _PLAIN_GROUP = 256
 #: Slots per chunk K1 takes (it holds a chunk's slot data in shared memory).
 MAX_CHUNK = 256
 
+#: The tile sizes K1 is built for.
+TILES = (32, 64)
+
 
 # ---------------------------------------------------------------------------
 # K1: per-anchor band accumulation into the colour planes
@@ -138,8 +141,8 @@ def grid_planes(slot, n: int, count, iu, iv, su, sv, sre, sim, table, accr,
     NC, Mc = iu.shape
     P = sre.shape[1]
     WO, K = table.shape
-    if ts not in (32, 64):
-        raise NotImplementedError(f"K1 is built for ts in (32, 64), not {ts}")
+    if ts not in TILES:
+        raise NotImplementedError(f"K1 is built for ts in {TILES}, not {ts}")
     if K + ts - 1 > 2 * ts:
         raise NotImplementedError(f"K1: kernel width {K} > ts + 1")
     if Mc > MAX_CHUNK:

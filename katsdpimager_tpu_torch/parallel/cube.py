@@ -5,13 +5,16 @@ wave of channels runs, channel after channel:
 
 1. imaging weights (natural, uniform or robust) and the PSF, gridded from
    the weights through the dirty-image path (kernels K1-K4);
-2. ``majors`` major cycles: the first images the visibilities; each later
+2. with a sky model (``cfg.num_sources > 0``, ``--subtract``), its DFT
+   subtracted once from the stored visibilities of every non-empty W
+   slice (:func:`_predict_subtract_slices`);
+3. ``majors`` major cycles: the first images the visibilities; each later
    one first subtracts the degridded model from every non-empty W slice
    (K6 and K7 transform the model to grid planes, K5 predicts), then
    images the residual visibilities; each ends with a CLEAN stage whose
    threshold, ``max(noise * sigma, (1 - major_gain) * peak)``, is derived
    on the device;
-3. on the host, a restoring beam fitted to each channel's PSF core
+4. on the host, a restoring beam fitted to each channel's PSF core
    (:func:`fit_wave_beams`); then :func:`wave_restore` convolves each
    model with its beam and adds the residual.
 
@@ -34,7 +37,7 @@ import torch
 
 from ..ops import beam as beam_ops
 from ..ops import clean as clean_ops
-from ..ops import fourier, mxu_gridder
+from ..ops import fourier, mxu_gridder, predict
 from . import multichannel
 
 
@@ -65,8 +68,8 @@ class CubeConfig:
     #: "natural", "uniform" or "robust"
     weight_type: str = "natural"
     robustness: float = 0.0
-    #: sky-model capacity for continuum subtraction (``--subtract``);
-    #: not ported: only 0 is accepted
+    #: sky-model capacity for continuum subtraction (``--subtract``); 0
+    #: disables the subtraction stage
     num_sources: int = 0
     #: apply primary-beam correction in the restore stage
     primary_beam: bool = False
@@ -79,6 +82,15 @@ class CubeConfig:
             border_pixels=self.border_pixels, patch_y=self.patch,
             patch_x=self.patch, mode=self.clean_mode,
             loop_gain=self.loop_gain)
+
+
+class SkyBatch(NamedTuple):
+    """Per-wave continuum-subtraction model, zero-padded to
+    ``cfg.num_sources`` rows (a zero-flux row subtracts exactly zero)."""
+
+    lmn: torch.Tensor         # (C, Smax, 3) float32 (l, m, n-1)
+    flux: torch.Tensor        # (C, Smax, P) float32, sinc-tapered
+    uvw_scales: torch.Tensor  # (C, 3) float32 (uv_scale, w_scale, w_bias)
 
 
 class WaveResult(NamedTuple):
@@ -102,11 +114,17 @@ class PsfWaveResult(NamedTuple):
 
 
 def _check_supported(cfg: CubeConfig, vis, taper1d) -> None:
-    if cfg.num_sources > 0:
-        raise NotImplementedError(
-            "continuum subtraction (num_sources > 0, --subtract) is not "
-            "ported yet")
     multichannel.check_float32(vis, taper1d)
+
+
+def _wave_sky(cfg: CubeConfig, sky):
+    """The wave's sky model where ``cfg.num_sources > 0`` (it must be
+    given there), else None."""
+    if cfg.num_sources == 0:
+        return None
+    if sky is None:
+        raise ValueError("cfg.num_sources > 0 requires a SkyBatch")
+    return sky
 
 
 def _grid_slices(cfg: CubeConfig, kernel, density, uv, sub_uv, w_plane,
@@ -138,6 +156,41 @@ def _degrid_slices(cfg: CubeConfig, kernel, model, uv, sub_uv, w_plane,
             grid, kernel, uv[s], sub_uv[s], w_plane[s], weights[s], vis[s],
             anchor[s], valid[s], int(nc_s), pixels=cfg.pixels, rv=cfg.rv,
             ru=cfg.ru, plain=plain))
+    return torch.stack(out)
+
+
+#: Visibility rows per DFT block times sky-model rows: bounds the
+#: (block, Smax) phase matrix of :func:`_predict_subtract_slices`.
+_PREDICT_BLOCK_ELEMENTS = 1 << 25
+
+
+def _predict_subtract_slices(cfg: CubeConfig, sky_lmn, sky_flux, uv, sub_uv,
+                             w_plane, valid, weights, vis, uvw_scales, mid_w,
+                             nc_slices):
+    """Continuum subtraction: every non-empty slice's stored (weighted)
+    visibilities less the weighted DFT of the sky model, at coordinates
+    dequantised at bin centres, ``w = wp * w_scale + (w_bias + mid_w[s])``
+    (:func:`..ops.predict.predict_subtract`).  Only the first
+    ``nc_slices[s]`` chunks hold valid slots; invalid slots keep their
+    visibilities (a select), and an empty slice is returned as it is.
+    The scales stay 0-d device tensors: no host sync."""
+    out = []
+    Pp = vis.shape[-1]
+    block = max(8192, _PREDICT_BLOCK_ELEMENTS // max(1, sky_lmn.shape[0]))
+    for s, nc_s in enumerate(nc_slices):
+        nc_s = int(nc_s)
+        if nc_s == 0:
+            out.append(vis[s])
+            continue
+        live = vis[s, :nc_s]
+        sub = predict.predict_subtract(
+            sky_lmn, sky_flux, uv[s, :nc_s].reshape(-1, 2),
+            sub_uv[s, :nc_s].reshape(-1, 2), w_plane[s, :nc_s].reshape(-1),
+            live.reshape(-1, Pp), weights[s, :nc_s].reshape(-1, Pp),
+            uvw_scales[0], uvw_scales[1], uvw_scales[2] + mid_w[s],
+            oversample=cfg.oversample, block=block).reshape(live.shape)
+        sub = torch.where(valid[s, :nc_s, :, None], sub, live)
+        out.append(torch.cat([sub, vis[s, nc_s:]]))
     return torch.stack(out)
 
 
@@ -221,11 +274,19 @@ def _channel_density_psf(cfg: CubeConfig, kernel, taper1d, pixel_size,
 
 def _channel_majors(cfg: CubeConfig, kernel, taper1d, pixel_size, mid_w,
                     uv, sub_uv, w_plane, anchor, valid, weights, vis,
-                    density, scale, patch, nc_slices, plain: bool = False):
+                    density, scale, patch, nc_slices, sky=None,
+                    plain: bool = False):
     """Major cycles of one channel given its density weights and PSF
-    patch.  Returns (residual, model, noise, minor cycles in all)."""
+    patch; with ``sky`` (this channel's ``(lmn, flux, uvw_scales)``) the
+    sky model is subtracted first, once: every major cycle degrids
+    against the subtracted visibilities.  Returns (residual, model,
+    noise, minor cycles in all)."""
     N, Pp = cfg.pixels, cfg.num_pols
     dev = vis.device
+    if sky is not None:
+        vis = _predict_subtract_slices(cfg, *sky[:2], uv, sub_uv, w_plane,
+                                       valid, weights, vis, sky[2], mid_w,
+                                       nc_slices)
     model = torch.zeros((Pp, N, N), dtype=torch.float32, device=dev)
     cur_vis = vis
     minor_total = torch.zeros((), dtype=torch.int32, device=dev)
@@ -273,13 +334,22 @@ def wave_psf(cfg: CubeConfig, batch: multichannel.ChannelBatch, *,
     return PsfWaveResult(*(torch.stack(x) for x in zip(*outs)))
 
 
+def _sky_of(sky, c: int):
+    """Channel ``c``'s ``(lmn, flux, uvw_scales)`` of a :class:`SkyBatch`
+    (None without one)."""
+    return None if sky is None else tuple(x[c] for x in sky)
+
+
 def wave_clean(cfg: CubeConfig, batch: multichannel.ChannelBatch,
-               psf_result: PsfWaveResult, patch: int, *,
-               plain: bool = False):
+               psf_result: PsfWaveResult, patch: int,
+               sky: SkyBatch = None, *, plain: bool = False):
     """Phase B of the auto-patch route: the major cycles with a CLEAN
-    patch of ``patch`` pixels cut from phase A's PSFs.  Returns
-    (residual, model, noise, minor), each stacked over the channels."""
+    patch of ``patch`` pixels cut from phase A's PSFs, after the
+    continuum subtraction of ``sky`` where ``cfg.num_sources > 0``.
+    Returns (residual, model, noise, minor), each stacked over the
+    channels."""
     _check_supported(cfg, batch.vis, batch.taper1d)
+    sky = _wave_sky(cfg, sky)
     cfgp = dataclasses.replace(cfg, patch=patch)
     outs = []
     for c in range(batch.kernel.shape[0]):
@@ -288,15 +358,18 @@ def wave_clean(cfg: CubeConfig, batch: multichannel.ChannelBatch,
         outs.append(_channel_majors(
             cfgp, kern, tap, ps, midw, uv, sub, wp, anc, val, wt, vis,
             psf_result.density[c], psf_result.scale[c],
-            _centre(psf_result.psf[c], patch), nc, plain=plain))
+            _centre(psf_result.psf[c], patch), nc, sky=_sky_of(sky, c),
+            plain=plain))
     return tuple(torch.stack(x) for x in zip(*outs))
 
 
-def wave_image(cfg: CubeConfig, batch: multichannel.ChannelBatch, *,
-               plain: bool = False) -> WaveResult:
+def wave_image(cfg: CubeConfig, batch: multichannel.ChannelBatch,
+               sky: SkyBatch = None, *, plain: bool = False) -> WaveResult:
     """A wave of channels through everything before the restore: weights,
-    PSF, the major cycles and their CLEAN stages."""
+    PSF, the continuum subtraction of ``sky`` where ``cfg.num_sources >
+    0``, the major cycles and their CLEAN stages."""
     _check_supported(cfg, batch.vis, batch.taper1d)
+    sky = _wave_sky(cfg, sky)
     outs = []
     for c in range(batch.kernel.shape[0]):
         args, nc = _channel(batch, c)
@@ -306,7 +379,8 @@ def wave_image(cfg: CubeConfig, batch: multichannel.ChannelBatch, *,
             plain=plain)
         residual, model, noise, minor = _channel_majors(
             cfg, kern, tap, ps, midw, uv, sub, wp, anc, val, wt, vis,
-            density, scale, _centre(psf, cfg.patch), nc, plain=plain)
+            density, scale, _centre(psf, cfg.patch), nc,
+            sky=_sky_of(sky, c), plain=plain)
         outs.append((residual, model, _centre(psf, cfg.psf_core), noise,
                      psf_peak, minor, w_rms, w_norm))
     return WaveResult(*(torch.stack(x) for x in zip(*outs)))

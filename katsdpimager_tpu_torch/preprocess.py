@@ -354,6 +354,12 @@ class VisibilityReader:
                           for name in ("uv", "sub_uv", "w_plane", "weights",
                                        "vis")))
 
+    def slice_coords(self, channel: int, w_slice: int):
+        """(uv, sub_uv, w_plane) only, for planning passes that do not
+        need the payloads."""
+        c = self.slice_arrays(channel, w_slice)
+        return c.uv, c.sub_uv, c.w_plane
+
     def iter_slice(self, channel: int, w_slice: int,
                    block_size: Optional[int] = None):
         arrays = self.slice_arrays(channel, w_slice)
@@ -465,6 +471,15 @@ class VisibilityReaderHDF5(VisibilityReader):
             return _empty_chunk(self._collector.num_pols)
         return VisChunk(d["uv"][:], d["sub_uv"][:], d["w_plane"][:],
                         d["weights"][:], d["vis"][:])
+
+    def slice_coords(self, channel, w_slice):
+        """Read only the coordinate datasets (planning passes skip the
+        vis/weights payload)."""
+        d = self._dset(channel, w_slice)
+        if d is None:
+            e = _empty_chunk(self._collector.num_pols)
+            return e.uv, e.sub_uv, e.w_plane
+        return d["uv"][:], d["sub_uv"][:], d["w_plane"][:]
 
     def iter_slice(self, channel, w_slice, block_size=None):
         """Stream fixed-size blocks through a recycled buffer, so read-back

@@ -6,7 +6,8 @@ Two sources are supported:
 
 - :class:`TrivialPrimaryBeam` backed by samples loaded from a
   katsdpmodels-style HDF5 file (``frequency`` (F,), ``beam`` (F, R) power
-  samples at radius step ``beam_step_deg``);
+  samples at radius step ``beam_step_deg``) or from its ``.npz`` copy
+  (the bundled MeerKAT tables);
 - :func:`airy_beam`, an analytic unblocked-aperture Airy power pattern used
   when no measured model is available (the reference derives its FOV
   heuristic from the same Airy null).
@@ -77,8 +78,9 @@ def airy_beam(diameter_m: float, band: Optional[str] = None,
     return TrivialPrimaryBeam(freqs, radii, power, band)
 
 
-def load_hdf5_beam(filename: str, band: Optional[str] = None) -> TrivialPrimaryBeam:
-    """Load a radially-symmetric beam from a katsdpmodels-style HDF5 file."""
+def _read_hdf5_beam(filename: str):
+    """(frequency, beam, radius) arrays of a katsdpmodels-style HDF5
+    beam (needs h5py)."""
     import h5py
 
     with h5py.File(filename, "r") as f:
@@ -89,6 +91,31 @@ def load_hdf5_beam(filename: str, band: Optional[str] = None) -> TrivialPrimaryB
             radii = np.asarray(f["radius"])
         else:
             radii = np.sin(np.deg2rad(np.arange(beam.shape[1]) * float(step)))
+    return freqs, beam, radii
+
+
+def load_hdf5_beam(filename: str, band: Optional[str] = None) -> TrivialPrimaryBeam:
+    """Load a radially-symmetric beam from a katsdpmodels-style HDF5 file."""
+    freqs, beam, radii = _read_hdf5_beam(filename)
+    return TrivialPrimaryBeam(freqs, radii, beam ** 2 if beam.ndim == 2 else beam,
+                              band)
+
+
+def hdf5_to_npz(src: str, dst: str) -> None:
+    """Write the ``frequency``, ``beam`` (voltage) and ``radius`` arrays
+    of a katsdpmodels-style HDF5 beam to the ``.npz`` that
+    :func:`load_npz_beam` reads.  The bundled MeerKAT tables are this
+    function applied to the JAX package's
+    ``models/beams/meerkat/v1/beam_{L,UHF}.h5``."""
+    freqs, beam, radii = _read_hdf5_beam(src)
+    np.savez(dst, frequency=freqs, beam=beam, radius=radii)
+
+
+def load_npz_beam(filename: str, band: Optional[str] = None) -> TrivialPrimaryBeam:
+    """Load a radially-symmetric beam from the ``.npz`` that
+    :func:`hdf5_to_npz` writes: numpy only, no h5py."""
+    with np.load(filename) as f:
+        freqs, beam, radii = f["frequency"], f["beam"], f["radius"]
     return TrivialPrimaryBeam(freqs, radii, beam ** 2 if beam.ndim == 2 else beam,
                               band)
 
@@ -97,9 +124,9 @@ def meerkat_v1_beam(band: str) -> TrivialPrimaryBeam:
     """MeerKAT measured primary beam (parity with reference
     ``primary_beam.py:179-188``, which samples the katsdpmodels v1 HDF5
     tables).  This build bundles the measured tables downsampled in
-    frequency (``models/beams/meerkat/v1``, regenerate with
-    ``scripts/make_meerkat_beams.py``); if a table is missing the analytic
-    Airy pattern for a 13.5 m dish stands in."""
+    frequency as ``.npz`` (``models/beams/meerkat/v1``, made by
+    :func:`hdf5_to_npz`), so reading them needs no h5py.  If a table is
+    missing the analytic Airy pattern for a 13.5 m dish stands in."""
     ranges = {"L": (856e6, 1712e6), "UHF": (544e6, 1088e6)}
     if band not in ranges:
         raise ValueError(f"No primary beam model for band {band!r}")
@@ -107,7 +134,7 @@ def meerkat_v1_beam(band: str) -> TrivialPrimaryBeam:
 
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "models", "beams", "meerkat", "v1",
-                        f"beam_{band}.h5")
+                        f"beam_{band}.npz")
     if os.path.exists(path):
-        return load_hdf5_beam(path, band)
+        return load_npz_beam(path, band)
     return airy_beam(13.5, band, ranges[band])

@@ -596,3 +596,98 @@ def test_k8_clusters_match_plain(cuda, n, square, sign):
     scale = max(pr.abs().max().item(), pi.abs().max().item())
     assert (kr - pr).abs().max().item() <= 1e-6 * scale
     assert (ki - pi).abs().max().item() <= 1e-6 * scale
+
+
+def test_cube_pipeline_matches_plain(cuda, tmp_path):
+    """The batch pipeline's --cube route (K = 16, 2 channels in 2 waves,
+    --subtract of the 1.5 Jy off-centre source, the MeerKAT primary
+    beam, 2 majors) on the card against its all-plain run: the same NaN
+    pixels (the beam's cutoff), restored images within 1e-4 of the
+    plain run's peak inside the anti-aliased field, equal minor counts,
+    and every kernel of the wave launched."""
+    import json
+    import math
+
+    import chip_smoke
+    from katsdpimager_tpu_torch import arguments, pipeline, simulate
+    from katsdpimager_tpu_torch.ops import wkernel
+
+    dataset, _ = chip_smoke.sim_dataset(16, 128, 2, noise_jy=0.5)
+    src = simulate.DEFAULT_SOURCES[1]
+    lsm = tmp_path / "lsm.txt"
+    lsm.write_text(f"{math.degrees(src.ra)!r} {math.degrees(src.dec)!r} "
+                   f"{src.flux_iquv[0]!r} 0 0 0\n")
+
+    def run(name, plain):
+        out = tmp_path / name
+        args = pipeline.get_parser().parse_args(
+            ["simulated", str(out), "--cube", "--pixels", "256",
+             "--kernel-width", "16", "--major", "2", "--no-tmp-file",
+             "--no-thumbnails", "--vis-block", "1024", "--subtract",
+             str(lsm), "--primary-beam", "meerkat"],
+            namespace=arguments.SmartNamespace())
+        images = {}
+        writer = pipeline.PipelineWriter(str(out), thumbnails=False)
+        write = writer.write_fits_image
+
+        def capture(name, desc, ds, image, ip, ch, *a, **k):
+            images[ch] = np.array(image)
+            return write(name, desc, ds, image, ip, ch, *a, **k)
+
+        writer.write_fits_image = capture
+        timings = pipeline.run(args, dataset, writer, device=cuda,
+                               plain=plain)
+        assert len(timings) == 2
+        return images, json.loads((out / "state.json").read_text())
+
+    for fn in (fused_gridder.grid_planes, fused_fft.cb_col_fft,
+               fused_degrid.degrid_planes, fused_fft.pre_col_fft):
+        fn.launches = 0
+    got, got_state = run("kernels", False)
+    assert fused_gridder.grid_planes.launches > 0
+    assert fused_fft.cb_col_fft.launches > 0
+    assert fused_degrid.degrid_planes.launches > 0
+    assert fused_fft.pre_col_fft.launches > 0
+    ref, ref_state = run("plain", True)
+    taper = wkernel.taper(256, 7.0, 8, wkernel.default_beta(7.0))
+    t2 = np.outer(taper, taper)
+    inside = t2 >= 0.002 * t2.max()
+    for ch in range(2):
+        assert got_state[f"status/{ch}"] == "complete"
+        assert (got_state[f"stats/{ch}"]["minor"]
+                == ref_state[f"stats/{ch}"]["minor"])
+        np.testing.assert_array_equal(np.isnan(got[ch]), np.isnan(ref[ch]))
+        both = inside & ~np.isnan(ref[ch][0])
+        peak = np.abs(ref[ch][0][both]).max()
+        assert np.isfinite(got[ch][0][both]).all()
+        assert np.abs(got[ch][0] - ref[ch][0])[both].max() <= 1e-4 * peak
+
+
+def test_wave_arena_waits_for_its_upload(cuda):
+    """The pack arena of a wave is refilled two waves later by the
+    prefetch worker; its upload is asynchronous from pinned memory, so
+    the refill waits on the upload's event.  With the upload held back
+    behind a device sleep, the batch keeps the packed bytes; the same
+    steps without the event's wait lose them to the refill."""
+    from katsdpimager_tpu_torch import cube_frontend
+
+    cfg = cube.CubeConfig(pixels=256, num_pols=1, kernel_width=16,
+                          oversample=8, w_planes=4, w_slices=2,
+                          chunks_per_slice=2048, chunk_size=256)
+
+    def upload_then_refill(guarded):
+        arena = {}
+        arrs = cube_frontend._wave_buffers(arena, cfg, 1, pin=True)
+        assert all(t.is_pinned() for t in arena["tensors"])
+        arrs[10][...] = 1.0 + 2.0j                       # the packed vis
+        torch.cuda._sleep(1 << 30)                 # hold the copy back
+        batch = cube_frontend.batch_from_arrays(arrs, cuda, arena)
+        if not guarded:
+            arena.pop("event")
+        refilled = cube_frontend._wave_buffers(arena, cfg, 1, pin=True)
+        refilled[10][...] = 7.0
+        torch.cuda.synchronize()
+        return bool((batch.vis == 1.0 + 2.0j).all())
+
+    assert upload_then_refill(guarded=True)
+    assert not upload_then_refill(guarded=False)

@@ -8,8 +8,12 @@ objects.  The ``str()`` of the port's parameters is taken in a process
 where JAX cannot be imported.
 """
 
+import base64
+import io as _io
+import json
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -18,18 +22,22 @@ import pytest
 
 import katsdpimager_tpu as jax_pkg
 import katsdpimager_tpu.native as jax_native
-from katsdpimager_tpu import (io as jax_io, parameters as jax_params,
+from katsdpimager_tpu import (fits_video as jax_fits_video, io as jax_io,
+                              metadata as jax_metadata,
+                              parameters as jax_params,
                               polarization as jax_pol,
-                              primary_beam as jax_pb, simulate as jax_sim,
-                              sky_model as jax_sky, units as jax_units)
+                              primary_beam as jax_pb, report as jax_report,
+                              simulate as jax_sim, sky_model as jax_sky,
+                              units as jax_units)
 from katsdpimager_tpu.ops import wkernel as jax_wkernel
 from katsdpimager_tpu.ops.clean import CLEAN_I as JAX_CLEAN_I
 from katsdpimager_tpu.ops.weights import WeightType as JaxWeightType
 from katsdpimager_tpu.preprocess import ChannelGeometry
 
 import katsdpimager_tpu_torch as port_pkg
-from katsdpimager_tpu_torch import (io, native, parameters, polarization,
-                                    primary_beam, simulate, sky_model, units)
+from katsdpimager_tpu_torch import (fits_video, io, metadata, native,
+                                    parameters, polarization, primary_beam,
+                                    report, simulate, sky_model, units)
 from katsdpimager_tpu_torch.ops import wkernel
 from katsdpimager_tpu_torch.ops.clean import CLEAN_I
 from katsdpimager_tpu_torch.ops.weights import WeightType
@@ -127,8 +135,8 @@ def _units(u):
                                                 "1.2 GHz", "100 m")]
 
 
-def _beam(pb):
-    beam = pb.meerkat_v1_beam("L")
+def _beam(pb, band="L"):
+    beam = pb.meerkat_v1_beam(band)
     x = np.linspace(-0.05, 0.05, 33)
     return [beam.frequencies, beam.radii, beam.power, beam.band,
             beam.sample_grid(x, x, 1.2e9)]
@@ -141,6 +149,42 @@ def _parameters_str(pkg, weight_type, clean_i):
             str(pkg.WeightParameters(weight_type.UNIFORM)),
             str(pkg.CleanParameters(100, 0.1, 0.85, 5.0, clean_i, 0.01, 0.5,
                                     0.02))]
+
+
+class _Dataset:
+    """The dataset surface ``metadata.make_metadata`` reads."""
+
+    def phase_centre(self):
+        return (0.9, -0.61)
+
+    def frequency(self, channel):
+        return 1.0e9 + 2.5e5 * channel
+
+    def capture_block_id(self):
+        return "1234567890"
+
+
+def _metadata(md, tmp_path):
+    """``make_metadata`` (its ``StartTime`` is the clock's and is left
+    out), ``format_timestamp`` at a fixed time, and the written file."""
+    data = md.make_metadata(_Dataset(), None, [3, 4, 7])
+    start = data.pop("StartTime")
+    path = tmp_path / "metadata.json"
+    md.write_metadata(str(path), dict(data, StartTime="fixed"))
+    return [json.dumps(data, sort_keys=True), len(start),
+            md.format_timestamp(1.6e9), path.read_text()]
+
+
+def _sefd(rep):
+    freqs = np.linspace(5e8, 1.8e9, 41)
+    out = []
+    for band in ("L", "UHF"):
+        model = rep.meerkat_sefd_model(band)
+        out += [model(freqs), model.coeffs, model.min_freq, model.max_freq]
+    out += [rep.meerkat_sefd_model("S") is None,
+            rep.PolynomialSEFDModel([1.0, 2.0, 3.0], 1e9, 2e9)(1.5e9),
+            rep.predicted_noise(400.0, 64, 208984.375, 3600.0)]
+    return out
 
 
 CASES = {
@@ -163,6 +207,12 @@ CASES = {
     "units": (lambda tmp: _units(jax_units), lambda tmp: _units(units)),
     "primary_beam": (lambda tmp: _beam(jax_pb),
                      lambda tmp: _beam(primary_beam)),
+    "primary_beam UHF": (lambda tmp: _beam(jax_pb, "UHF"),
+                         lambda tmp: _beam(primary_beam, "UHF")),
+    "metadata": (lambda tmp: _metadata(jax_metadata, tmp),
+                 lambda tmp: _metadata(metadata, tmp)),
+    "PolynomialSEFDModel": (lambda tmp: _sefd(jax_report),
+                            lambda tmp: _sefd(report)),
     "parameters str": (
         lambda tmp: _parameters_str(jax_params, JaxWeightType, JAX_CLEAN_I),
         lambda tmp: _parameters_str(parameters, WeightType, CLEAN_I)),
@@ -223,3 +273,129 @@ def test_native_builds_into_the_port():
     port_dir = pathlib.Path(port_pkg.__file__).parent
     assert path.parent == port_dir / "_build" / "native"
     assert pathlib.Path(jax_pkg.__file__).parent not in path.parents
+
+
+def _state_dir(tmp_path):
+    """A fixed pipeline ``state.json`` (three channels, one without
+    data, an observation summary) and one channel thumbnail."""
+    rng = np.random.default_rng(12)
+    state = {"observation": {
+        "antenna_positions": (np.array([[5109224.0, 2006790.0, -3239100.0]]
+                                       * 4) + np.arange(4)[:, None] * 60
+                              ).tolist(),
+        "phase_centre": [0.9, -0.61],
+        "time_range": [1590969600.0, 1590976800.0],
+        "uvw_samples": rng.uniform(-800, 800, size=(200, 3)).tolist(),
+        "band": "L"}}
+    for ch, f in enumerate((1.0e9, 1.0002e9, 1.0004e9)):
+        if ch == 1:
+            state["status/1"] = "no-data"
+            continue
+        state[f"stats/{ch}"] = {
+            "noise": 1e-4 * (1 + ch), "weights_noise": 8e-5, "peak": 1.5,
+            "minor": 40 + ch, "major": 2, "totals": {"I": 5.2 - 0.1 * ch},
+            "compressed_vis": 1911, "frequency": f}
+        state[f"status/{ch}"] = "complete"
+    path = tmp_path / "state.json"
+    path.write_text(json.dumps(state))
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fig, ax = plt.subplots(figsize=(1, 1), dpi=32)
+    ax.imshow(rng.normal(size=(16, 16)))
+    fig.savefig(tmp_path / "image_00000_clean.png")
+    plt.close(fig)
+    return path
+
+
+_PNG = re.compile(r"data:image/png;base64,([A-Za-z0-9+/=]+)")
+
+
+def _report_parts(html_text):
+    """(the HTML with each embedded PNG replaced by a placeholder, the
+    PNGs decoded to pixel arrays)."""
+    import matplotlib.image as mpimg
+
+    pngs = [mpimg.imread(_io.BytesIO(base64.b64decode(b)), format="png")
+            for b in _PNG.findall(html_text)]
+    return _PNG.sub("data:image/png;base64,PNG", html_text), pngs
+
+
+def test_report_matches_original(tmp_path):
+    """``report.write_report`` on a fixed ``state.json`` with an images
+    directory writes the original's HTML: the text equal, each embedded
+    plot and thumbnail equal as a decoded PNG pixel array."""
+    pytest.importorskip("matplotlib")
+    state = _state_dir(tmp_path)
+    want_path, got_path = tmp_path / "jax.html", tmp_path / "port.html"
+    jax_report.write_report(str(state), str(want_path), "QA",
+                            str(tmp_path))
+    assert report.main([str(state), str(got_path), "--title", "QA"]) == 0
+    want_text, want_png = _report_parts(want_path.read_text())
+    got_text, got_png = _report_parts(got_path.read_text())
+    assert got_text == want_text
+    assert len(got_png) == len(want_png) >= 6
+    for g, w in zip(got_png, want_png):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_fits_video_matches_original(tmp_path):
+    """``fits_video.main`` on two FITS images writes the original's
+    animation (a GIF through Pillow; ffmpeg is not needed), bitwise."""
+    pytest.importorskip("matplotlib")
+    import matplotlib.animation as animation
+
+    if "pillow" not in animation.writers.list():
+        pytest.skip("matplotlib's Pillow animation writer is not available")
+    ip, _ = _grid_setup(parameters, pixels=32)
+    rng = np.random.default_rng(5)
+    for ch in range(2):
+        io.write_fits_image(rng.normal(size=(1, 32, 32)).astype(np.float32),
+                            ip, str(tmp_path / f"image_{ch:05d}_clean.fits"),
+                            (0.3, -0.5))
+    pattern = str(tmp_path / "image_*_clean.fits")
+    outs = []
+    for mod, name in ((jax_fits_video, "jax.gif"), (fits_video, "port.gif")):
+        assert mod.main([pattern, str(tmp_path / name), "--fps", "2",
+                         "--dpi", "20"]) == 0
+        outs.append((tmp_path / name).read_bytes())
+    assert outs[0] == outs[1] and len(outs[0]) > 0
+
+
+@pytest.mark.parametrize("band", ["L", "UHF"])
+def test_bundled_beam_npz_is_hdf5_to_npz_of_jax_table(band, tmp_path):
+    """The port's bundled MeerKAT table is ``hdf5_to_npz`` of the JAX
+    package's HDF5 table: regenerated here, its arrays equal the
+    shipped ``.npz``'s bitwise."""
+    table = os.path.join("models", "beams", "meerkat", "v1", f"beam_{band}")
+    made = tmp_path / "beam.npz"
+    primary_beam.hdf5_to_npz(
+        os.path.join(os.path.dirname(jax_pkg.__file__), table + ".h5"),
+        str(made))
+    with np.load(made) as want, np.load(os.path.join(
+            os.path.dirname(port_pkg.__file__), table + ".npz")) as got:
+        assert sorted(got.files) == sorted(want.files) == [
+            "beam", "frequency", "radius"]
+        for k in want.files:
+            assert got[k].dtype == want[k].dtype
+            np.testing.assert_array_equal(got[k], want[k])
+
+
+@pytest.mark.parametrize("band", ["L", "UHF"])
+def test_meerkat_beam_without_h5py(band, monkeypatch):
+    """The port reads its MeerKAT beam tables from ``.npz`` copies of the
+    HDF5 files (the card's machine has no h5py): with h5py unimportable
+    the beam equals the JAX package's, read from HDF5, bitwise."""
+    want = _beam(jax_pb, band)
+    monkeypatch.setitem(sys.modules, "h5py", None)
+    with pytest.raises(ImportError):
+        import h5py  # noqa: F401
+    got = _beam(primary_beam, band)
+    for g, w in zip(got, want):
+        if isinstance(w, np.ndarray):
+            assert g.dtype == w.dtype
+            np.testing.assert_array_equal(g, w)
+        else:
+            assert g == w
