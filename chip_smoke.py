@@ -1,5 +1,7 @@
 """Drive the PyTorch/CUDA port on one GPU: its kernels, the dirty-image
-step, the cube wave, the numerics probes and the per-channel CLI.
+step, the cube wave, the numerics probes, the per-channel CLI, the batch
+pipeline, K1 at every tile size, the exact predict, the float64 route and
+the profile dumps.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -57,7 +59,25 @@ per slice, natural weights), then:
   centre source within 10%, the restored images against the all-plain
   run, K1-K7 launch counts against slices x passes, a rerun that skips
   both waves; each wave's host, blocked and device seconds, and the
-  device's busy time and idle share of one profiled wave.
+  device's busy time and idle share of one profiled wave;
+- ``tiles``: K1 and K2 against their plain versions at ts 8, 16, 33, 50,
+  96, 128 and 256, each with K = ts + 1 (K <= 256) and a smaller K, on
+  direct inputs at 2048 px (K1 within 2e-5 of the largest written value,
+  K2 bitwise), with times, bounds and shares; then the paths that take
+  those tile sizes against their all-plain runs inside the field: the
+  CLI at 400 px, K = 16 (ts 50) and at 4096 px, K = 96 (ts 96), both
+  ``--degrid`` on channel 1, and ``pipeline --cube`` at 4096 px, K = 96
+  (ts 128), one channel and one major (cut from 2; ``--w-step 2`` at
+  K = 96, where the default needs more than 1024 W planes per slice);
+- ``exact``: channel 0 with ``KTPU_PREDICT_EXACT=1`` against the default
+  route (restored images, components) and both routes' ``model_predict``
+  seconds;
+- ``double``: channel 1 (``--degrid``) at ``--precision double`` against
+  its float32 run: float64, finite, within the 1e-4 gate inside the
+  field with the same components, K1 and K5 launched;
+- ``profile``: channel 0 through ``imager.run`` with ``--write-profile``
+  and ``--write-device-profile``: the frontend's stages named, K1-K4 with
+  nonzero device time, the five largest device ops.
 
 Each phase prints one JSON line; the card's name and power limit, the
 kernel table and, last, the ``ok`` line follow.  Any failure raises: the
@@ -530,8 +550,13 @@ def main() -> None:
     route_phase(dev, mc, cube, fused_fft)
     del batch
     probe_phase(dev, rows)
-    imager_phase(dev, card, rows)
+    dataset, runs = imager_phase(dev, card, rows)
     pipeline_phase(dev, card, rows)
+    tiles_phase(dev, card)
+    tiles_runs_phase(dev, card, dataset, IMAGER_VIS_BLOCK)
+    exact_phase(dev, card, dataset, IMAGER_VIS_BLOCK)
+    double_phase(dev, card, dataset, IMAGER_VIS_BLOCK, runs[1])
+    profile_phase(dev, card, dataset, IMAGER_VIS_BLOCK)
 
     print(card, flush=True)
     emit({"kernels": rows})
@@ -1031,91 +1056,122 @@ def truth_peaks(image_p, beam, image):
     return out
 
 
-def imager_phase(dev, card, rows) -> None:
+#: Visibilities per block of the CLI runs (``--vis-block``).
+IMAGER_VIS_BLOCK = 1 << 17
+
+#: The imaging kernels' names, in the order of :func:`kernel_counters`.
+KERNEL_NAMES = ("K1", "K2", "K3", "K4", "K5", "K6", "K7")
+
+
+def kernel_counters():
+    """The wrappers of K1-K7, whose ``launches`` count their launches."""
+    from katsdpimager_tpu_torch.ops import (fused_degrid, fused_fft,
+                                            fused_gridder)
+
+    return (fused_gridder.grid_planes, fused_gridder.combine_planes,
+            fused_fft.cb_col_fft, fused_fft.epi_col_fft,
+            fused_degrid.degrid_planes, fused_fft.pre_col_fft,
+            fused_fft.cbout_col_fft)
+
+
+def cli_run(dataset, args, dev, *, plain=False, timed=("clean_cycles",)):
+    """One per-channel CLI run (``frontend.run``) of ``dataset`` on
+    ``dev``, with the kernels' counters set to 0 just before it.  Returns
+    the dirty, model, residual and restored images, the statistics, the
+    seconds, the launches of K1-K7, the seconds of each ``Imaging``
+    method in ``timed`` (synchronised on both sides; a key ``<name>_s``),
+    and the W slices' blocks and non-empty count (the counts follow
+    them)."""
+    import numpy as np
+
+    from katsdpimager_tpu_torch import frontend, imaging
+
+    cap = {f"{name}_s": 0.0 for name in timed}
+
+    class Capture(frontend.Writer):
+        def needs_fits_image(self, name):
+            return name in ("dirty", "model", "residuals", "clean")
+
+        def needs_fits_grid(self, name):
+            return False
+
+        def write_fits_image(self, name, description, ds, image, ip,
+                             ch, beam=None, bunit=None):
+            cap[name] = np.array(image)
+
+        def write_fits_grid(self, *args, **kwargs):
+            pass
+
+        def statistics(self, ds, ch, **kwargs):
+            cap["stats"] = kwargs
+
+    # Wrap the collector (for the slice lengths the counts follow) and
+    # the timed stages (host clock, synchronised).
+    pre = frontend.preprocess_visibilities
+    originals = {name: getattr(imaging.Imaging, name) for name in timed}
+
+    def capture_pre(*a, **k):
+        cap["collector"] = pre(*a, **k)
+        return cap["collector"]
+
+    def timer(name, fn):
+        def wrapper(self, *a):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            result = fn(self, *a)
+            torch.cuda.synchronize()
+            cap[f"{name}_s"] += time.perf_counter() - t
+            return result
+        return wrapper
+
+    frontend.preprocess_visibilities = capture_pre
+    for name, fn in originals.items():
+        setattr(imaging.Imaging, name, timer(name, fn))
+    counters = kernel_counters()
+    torch.cuda.synchronize()
+    for fn in counters:
+        fn.launches = 0
+    t = time.perf_counter()
+    try:
+        frontend.run(args, dataset, Capture(), device=dev, plain=plain)
+        torch.cuda.synchronize()
+    finally:
+        frontend.preprocess_visibilities = pre
+        for name, fn in originals.items():
+            setattr(imaging.Imaging, name, fn)
+    cap["seconds"] = time.perf_counter() - t
+    cap["launches"] = [fn.launches for fn in counters]
+    reader = cap.pop("collector").reader()     # one channel, at 0
+    lens = [reader.len(0, s) for s in range(reader.num_w_slices(0))]
+    cap["blocks"] = sum(-(-n // args.vis_block) for n in lens)
+    cap["nonempty"] = sum(n > 0 for n in lens)
+    return cap
+
+
+def imager_phase(dev, card, rows):
     """The per-channel CLI path (``frontend.run``) at full width on a
     simulated 2-channel L-band observation with noise: channel 0 with the
     default DFT-predict major cycle, channel 1 with ``--degrid``.  Each
     run resets the kernel counters just before and checks them against
     the slice, block and major counts; the restored fluxes against the
-    truth; and the images against the same run on the all-plain path."""
+    truth; and the images against the same run on the all-plain path.
+    Returns the dataset and each channel's run with the kernels."""
     import math
 
-    import numpy as np
-
-    from katsdpimager_tpu_torch import frontend, imaging
-    from katsdpimager_tpu_torch.ops import (fused_degrid, fused_fft,
-                                            fused_gridder)
-
-    num_antennas, num_dumps, vis_block = 64, 1024, 1 << 17
+    num_antennas, num_dumps, vis_block = 64, 1024, IMAGER_VIS_BLOCK
     t0 = time.perf_counter()
     dataset, num_rows = sim_dataset(num_antennas, num_dumps, 2, noise_jy=1.0)
     emit({"phase": "imager_data", "seconds": time.perf_counter() - t0,
           "antennas": num_antennas, "dumps": num_dumps,
           "rows_per_channel": num_rows,
           "frequencies_hz": [dataset.frequency(c) for c in range(2)]})
-    counters = (fused_gridder.grid_planes, fused_gridder.combine_planes,
-                fused_fft.cb_col_fft, fused_fft.epi_col_fft,
-                fused_degrid.degrid_planes, fused_fft.pre_col_fft,
-                fused_fft.cbout_col_fft)
-    names = ("K1", "K2", "K3", "K4", "K5", "K6", "K7")
+    names = KERNEL_NAMES
 
     def run(channel, degrid, plain):
-        args = imager_args(channel, degrid, vis_block)
-        cap = {"clean_s": 0.0}
+        return cli_run(dataset, imager_args(channel, degrid, vis_block), dev,
+                       plain=plain)
 
-        class Capture(frontend.Writer):
-            def needs_fits_image(self, name):
-                return name in ("dirty", "model", "residuals", "clean")
-
-            def needs_fits_grid(self, name):
-                return False
-
-            def write_fits_image(self, name, description, ds, image, ip,
-                                 ch, beam=None, bunit=None):
-                cap[name] = np.array(image)
-
-            def write_fits_grid(self, *args, **kwargs):
-                pass
-
-            def statistics(self, ds, ch, **kwargs):
-                cap["stats"] = kwargs
-
-        # Wrap the collector (for the slice lengths the counts follow) and
-        # the CLEAN cycles (host clock, synchronised, for CLEAN's share).
-        pre, cycles = frontend.preprocess_visibilities, \
-            imaging.Imaging.clean_cycles
-
-        def capture_pre(*a, **k):
-            cap["collector"] = pre(*a, **k)
-            return cap["collector"]
-
-        def timed_cycles(self, *a):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            result = cycles(self, *a)
-            cap["clean_s"] += time.perf_counter() - t
-            return result
-
-        frontend.preprocess_visibilities = capture_pre
-        imaging.Imaging.clean_cycles = timed_cycles
-        torch.cuda.synchronize()
-        for fn in counters:
-            fn.launches = 0
-        t = time.perf_counter()
-        try:
-            frontend.run(args, dataset, Capture(), device=dev, plain=plain)
-            torch.cuda.synchronize()
-        finally:
-            frontend.preprocess_visibilities = pre
-            imaging.Imaging.clean_cycles = cycles
-        cap["seconds"] = time.perf_counter() - t
-        cap["launches"] = [fn.launches for fn in counters]
-        reader = cap.pop("collector").reader()
-        lens = [reader.len(0, s) for s in range(reader.num_w_slices(0))]
-        cap["blocks"] = sum(-(-n // vis_block) for n in lens)
-        cap["nonempty"] = sum(n > 0 for n in lens)
-        return cap
-
+    runs = {}
     for channel, degrid in ((0, False), (1, True)):
         got = run(channel, degrid, plain=False)
         stats = got["stats"]
@@ -1129,7 +1185,7 @@ def imager_phase(dev, card, rows) -> None:
         flux_ok = all(math.isclose(g, t, rel_tol=0.1) for g, t in peaks)
         emit({"phase": "imager", "card": card, "channel": channel,
               "major_cycle": "degrid" if degrid else "DFT predict",
-              "seconds": got["seconds"], "clean_s": got["clean_s"],
+              "seconds": got["seconds"], "clean_s": got["clean_cycles_s"],
               "compressed_vis": stats["compressed_vis"],
               "minor": stats["minor"], "major": major,
               "peak": stats["peak"], "totals": stats["totals"],
@@ -1149,8 +1205,10 @@ def imager_phase(dev, card, rows) -> None:
             by_name[name].setdefault("imager_launches", []).append(count)
 
         imager_parity(channel, got, run(channel, degrid, plain=True))
+        runs[channel] = got
 
     imager_profile(dev, dataset, vis_block)
+    return dataset, runs
 
 
 def pipeline_phase(dev, card, rows) -> None:
@@ -1171,19 +1229,15 @@ def pipeline_phase(dev, card, rows) -> None:
 
     from katsdpimager_tpu_torch import (arguments, cube_frontend, io,
                                         pipeline, simulate)
-    from katsdpimager_tpu_torch.ops import (fused_degrid, fused_fft,
-                                            fused_gridder, wkernel)
+    from katsdpimager_tpu_torch.ops import wkernel
     from katsdpimager_tpu_torch.parallel import cube
 
     num_antennas, num_dumps = 64, 1024
     dataset, num_rows = sim_dataset(num_antennas, num_dumps, 2,
                                     noise_jy=1.0)
     src = simulate.DEFAULT_SOURCES[1]
-    counters = (fused_gridder.grid_planes, fused_gridder.combine_planes,
-                fused_fft.cb_col_fft, fused_fft.epi_col_fft,
-                fused_degrid.degrid_planes, fused_fft.pre_col_fft,
-                fused_fft.cbout_col_fft)
-    names = ("K1", "K2", "K3", "K4", "K5", "K6", "K7")
+    counters = kernel_counters()
+    names = KERNEL_NAMES
 
     with tempfile.TemporaryDirectory() as tmp:
         lsm = os.path.join(tmp, "subtract.txt")
@@ -1337,9 +1391,10 @@ def pipeline_phase(dev, card, rows) -> None:
         by_name[name]["pipeline_launches"] = n
 
 
-def imager_args(channel: int, degrid: bool, vis_block: int):
+def imager_args(channel: int, degrid: bool, vis_block: int, extra=()):
     """The CLI's arguments for one channel of the simulated observation
-    at full width (the default W spacing)."""
+    at full width (the default W spacing); ``extra`` arguments come last
+    and override."""
     from katsdpimager_tpu_torch import arguments
     from katsdpimager_tpu_torch import imager
 
@@ -1348,7 +1403,7 @@ def imager_args(channel: int, degrid: bool, vis_block: int):
             "--no-tmp-file", "--vis-block", str(vis_block),
             "-c", str(channel), "-C", str(channel + 1)]
     return imager.get_parser().parse_args(
-        argv + (["--degrid"] if degrid else []),
+        argv + (["--degrid"] if degrid else []) + list(extra),
         namespace=arguments.SmartNamespace())
 
 
@@ -1471,11 +1526,18 @@ def imager_profile(dev, dataset, vis_block: int) -> None:
             raise AssertionError("the profiler saw no device work")
 
 
-def imager_parity(channel, got, ref) -> None:
-    """The kernels' run against the all-plain run of the same channel:
-    images within 1e-4 of the dirty peak inside the anti-aliased field
-    (taper^2 >= 0.2% of its peak) and the same CLEAN component positions
-    there; the minor-count difference is printed."""
+IMAGES = ("dirty", "model", "residuals", "clean")
+
+
+def imager_parity(channel, got, ref, *, phase="imager_parity",
+                  ref_name="plain", tolerance=1e-4, gated=IMAGES,
+                  **extra) -> dict:
+    """The kernels' run against the all-plain run of the same channel
+    (or against ``ref``, named ``ref_name``): the ``gated`` images within
+    ``tolerance`` (None: not gated) of the dirty peak inside the
+    anti-aliased field (taper^2 >= 0.2% of its peak) and the same CLEAN
+    component positions there; the minor-count difference is printed
+    with ``extra``.  Raises unless it holds; returns the line printed."""
     import numpy as np
 
     from katsdpimager_tpu_torch.ops import wkernel
@@ -1494,16 +1556,393 @@ def imager_parity(channel, got, ref) -> None:
     minor = [got["stats"]["minor"], ref["stats"]["minor"]]
     finite = all(np.isfinite(x[name]).all() for x in (got, ref)
                  for name in ("dirty", "model", "residuals", "clean"))
-    ok = max(errs.values()) <= 1e-4 and same and finite and dirty_peak > 0
-    emit({"phase": "imager_parity", "channel": channel,
-          "max_err_inside_over_dirty_peak": errs, "tolerance": 1e-4,
-          "dirty_peak": dirty_peak,
-          "components_inside": int((got["model"] != 0)[:, inside].sum()),
-          "same_component_positions_inside": same, "finite": finite,
-          "minor": minor, "minor_difference": minor[0] - minor[1],
-          "plain_seconds": ref["seconds"], "ok": ok})
+    ok = ((tolerance is None
+           or max(errs[name] for name in gated) <= tolerance)
+          and same and finite and dirty_peak > 0)
+    line = {"phase": phase, "channel": channel,
+            "max_err_inside_over_dirty_peak": errs, "tolerance": tolerance,
+            "gated": list(gated),
+            "dirty_peak": dirty_peak,
+            "components_inside": int((got["model"] != 0)[:, inside].sum()),
+            "same_component_positions_inside": same, "finite": finite,
+            "minor": minor, "minor_difference": minor[0] - minor[1],
+            "seconds": got["seconds"], f"{ref_name}_seconds": ref["seconds"],
+            **extra, "ok": ok}
+    emit(line)
     if not ok:
-        raise AssertionError(f"imager parity failed on channel {channel}")
+        raise AssertionError(f"{phase} failed on channel {channel}")
+    return line
+
+
+#: K1's tile sizes beyond the production 64 and the 256 px 32, each with
+#: K = ts + 1 (K <= 256) and a smaller K: the per-channel planner's
+#: 8-31 (below 256 px), 33-63 (264-504 px) and ts = K > 64, the cube's
+#: 128 and 256.
+TILE_CASES = [(8, 9), (8, 5), (16, 17), (16, 12), (33, 34), (33, 20),
+              (50, 51), (50, 30), (96, 97), (96, 60), (128, 129),
+              (128, 100), (256, 256), (256, 200)]
+
+
+def k1_inputs(dev, seed, *, ts, K, pixels, P=1, max_runs=600, Mc=256,
+              WO=256):
+    """Direct K1 inputs at tile size ``ts``: up to ``max_runs`` runs of
+    1-4 chunks on distinct colour-plane slots of a ``pixels`` grid, every
+    chunk full but each run's last (0-256 valid slots), taps and shifts
+    anywhere in range, random samples and kernel rows."""
+    import numpy as np
+
+    from katsdpimager_tpu_torch.ops import mxu_gridder
+
+    rng = np.random.default_rng(seed)
+    nt2 = mxu_gridder.colour_tiles(pixels, ts)
+    runs = min(max_runs, 4 * nt2 * nt2)
+    lengths = rng.integers(1, 5, size=runs)
+    slot = np.repeat(rng.choice(4 * nt2 * nt2, size=runs, replace=False),
+                     lengths).astype(np.int32)
+    NC = len(slot)
+    count = np.full(NC, Mc, np.int32)
+    count[np.cumsum(lengths) - 1] = rng.integers(0, Mc + 1, size=runs)
+    iu, iv = (rng.integers(0, WO, size=(NC, Mc)).astype(np.int32)
+              for _ in range(2))
+    su, sv = (rng.integers(0, ts, size=(NC, Mc)).astype(np.int32)
+              for _ in range(2))
+    live = np.arange(Mc)[None, None, :] < count[:, None, None]
+    sre, sim = (np.where(live, rng.normal(size=(NC, P, Mc)), 0.0).astype(
+        np.float32) for _ in range(2))
+    table = (rng.normal(size=(WO, K))
+             + 1j * rng.normal(size=(WO, K))).astype(np.complex64)
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in
+         (slot, count, iu, iv, su, sv, sre, sim, table)]
+    return t, nt2
+
+
+def tiles_phase(dev, card) -> None:
+    """K1 and K2 at every tile size of :data:`TILE_CASES` against their
+    plain versions on direct inputs at 2048 px: K1 within 2e-5 of the
+    largest written value, K2 bitwise; times in turns, with the bound
+    computed as the kernel table's K1 and K2 rows compute it.  K1 and its
+    plain version are also held to a float64 run of the plain version
+    (printed), here and at ts 32 and 64, whose windows do not promote
+    their sums."""
+    from katsdpimager_tpu_torch.ops import fused_gridder
+
+    N, P = 2048, 1
+    for ts, K in TILE_CASES + [(32, 33), (64, 65)]:
+        (slot, count, iu, iv, su, sv, sre, sim, table), nt2 = k1_inputs(
+            dev, ts * 1000 + K, ts=ts, K=K, pixels=N, P=P)
+        n = slot.shape[0]
+        ext2 = nt2 * 2 * ts
+        shape = (2, 2, P, ext2, ext2)
+        kr, ki, pr, pi = (torch.empty(shape, device=dev) for _ in range(4))
+        args = (slot, n, count, iu, iv, su, sv, sre, sim, table)
+        occ = fused_gridder.occupancy(slot, n, nt2)
+        k1_ms, k1_plain_ms = timed_pair(
+            lambda: fused_gridder.grid_planes_plain(*args, pr, pi, ts=ts),
+            lambda: fused_gridder.grid_planes(*args, kr, ki, ts=ts))
+        written = occ.repeat_interleave(2 * ts, -2).repeat_interleave(
+            2 * ts, -1)[:, :, None]
+        scale = max(pr.abs().where(written, 0.0).max().item(),
+                    pi.abs().where(written, 0.0).max().item())
+        k1_err = max((kr - pr).abs().where(written, 0.0).max().item(),
+                     (ki - pi).abs().where(written, 0.0).max().item())
+        r64, i64 = (torch.zeros(shape, dtype=torch.float64, device=dev)
+                    for _ in range(2))
+        fused_gridder.grid_planes_plain(
+            slot, n, count, iu, iv, su, sv, sre.double(), sim.double(),
+            table.to(torch.complex128), r64, i64, ts=ts)
+        scale64 = max(r64.abs().max().item(), i64.abs().max().item())
+        vs64 = {name: max((a.double() - r64).abs().where(written, 0.0).max(),
+                          (b.double() - i64).abs().where(written, 0.0).max()
+                          ).item() / scale64
+                for name, (a, b) in (("kernel", (kr, ki)),
+                                     ("plain", (pr, pi)))}
+        del r64, i64
+        n_valid = int(count.sum())
+        runs = int(occ.sum())
+        window_bytes = runs * P * (2 * ts) ** 2 * 8
+        k1_bound = bound(
+            2 * n * 4 + n_valid * (4 * 4 + 2 * P * 4) + table.numel() * 8
+            + window_bytes, tf32=3 * 8.0 * K * K * P * n_valid)
+        out = {}
+        k2_ms, k2_plain_ms = timed_pair(
+            lambda: out.update(p=fused_gridder.combine_planes_plain(
+                kr, ki, occ, pixels=N, ts=ts)),
+            lambda: out.update(k=fused_gridder.combine_planes(
+                kr, ki, occ, pixels=N, ts=ts)))
+        k2_same = all(torch.equal(a, b) for a, b in zip(out["k"], out["p"]))
+        # K2 reads the written blocks' cells that land in the N x N grid
+        # (at ts 256 the blocks reach far past it), re and im.
+        k2_read = sum(int(written[a, b, 0, :N - a * ts, :N - b * ts].sum())
+                      for a in range(2) for b in range(2)) * 8 * P
+        k2_bound = bound(k2_read + occ.numel() + 2 * P * N * N * 4)
+        ok = k1_err <= 2e-5 * scale and scale > 0 and k2_same
+        emit({"phase": "tiles", "card": card, "ts": ts, "K": K,
+              "pixels": N, "chunks": n, "valid_slots": n_valid,
+              "runs": runs,
+              "k1": {"ms": k1_ms, "plain_ms": k1_plain_ms, **k1_bound,
+                     "share": k1_bound["bound_ms"] / k1_ms,
+                     "max_abs_err": k1_err, "tolerance": 2e-5 * scale,
+                     "err_vs_float64_over_peak": vs64},
+              "k2": {"ms": k2_ms, "plain_ms": k2_plain_ms, **k2_bound,
+                     "share": k2_bound["bound_ms"] / k2_ms,
+                     "bitwise_equal": k2_same},
+              "ok": ok})
+        if not ok:
+            raise AssertionError(f"tiles: K1/K2 at ts {ts}, K {K} failed")
+        del kr, ki, pr, pi, out
+
+
+#: ``--w-step`` of the K = 96 runs: with K = 96 a W slice spans more W,
+#: and the default step of 1 cell needs more than the preprocessor's 1024
+#: W planes per slice at 4096 px.
+W_STEP_K96 = "2"
+
+
+def tiles_runs_phase(dev, card, dataset, vis_block: int) -> None:
+    """The paths that take K1 at tile sizes other than 32 and 64, on the
+    CLI's observation, each against its all-plain run inside the field:
+    the CLI at 400 px, K = 16 (ts = 50; ``--degrid``: K1, K2 and K5, the
+    transforms in torch.fft by rule), the CLI at 4096 px, K = 96 (ts = 96,
+    ``--degrid``: K1-K7) and ``pipeline --cube`` at 4096 px, K = 96 (ts =
+    128), one channel and one major (K1-K4)."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from katsdpimager_tpu_torch import arguments, io, pipeline
+    from katsdpimager_tpu_torch.ops import mxu_gridder, wkernel
+
+    for pixels, K, want_k3 in ((400, 16, False), (4096, 96, True)):
+        ts = mxu_gridder.tile_size(pixels, K)
+        extra = ["--pixels", str(pixels), "--kernel-width", str(K),
+                 "--w-step", W_STEP_K96 if K == 96 else "1"]
+        got = cli_run(dataset, imager_args(1, True, vis_block, extra), dev)
+        ref = cli_run(dataset, imager_args(1, True, vis_block, extra), dev,
+                      plain=True)
+        launches = dict(zip(KERNEL_NAMES, got["launches"]))
+        ran = (launches["K1"] > 0 and launches["K5"] > 0
+               and (launches["K3"] > 0) == want_k3)
+        imager_parity(1, got, ref, phase="tiles_cli", pixels=pixels,
+                      kernel_width=K, ts=ts, launches=launches,
+                      kernels_ran=ran)
+        if not ran:
+            raise AssertionError(f"tiles_cli at {pixels} px, K {K}: "
+                                 f"launches {launches}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        def run(name, plain):
+            out = os.path.join(tmp, name)
+            argv = ["simulated", out, "--cube", "--pixels", "4096",
+                    "--kernel-width", "96", "--w-step", W_STEP_K96,
+                    "--stokes", "I", "--major", "1",
+                    "--no-tmp-file", "--vis-block", str(vis_block),
+                    "--no-thumbnails", "-c", "0", "-C", "1"]
+            args = pipeline.get_parser().parse_args(
+                argv, namespace=arguments.SmartNamespace())
+            counters = kernel_counters()
+            torch.cuda.synchronize()
+            for fn in counters:
+                fn.launches = 0
+            t = time.perf_counter()
+            pipeline.run(args, dataset,
+                         pipeline.PipelineWriter(out, thumbnails=False),
+                         device=dev, plain=plain)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t
+            _, data = io.read_fits(os.path.join(out,
+                                                "image_00000_clean.fits"))
+            with open(os.path.join(out, "state.json")) as f:
+                state = json.load(f)
+            return (np.asarray(data[0], np.float64), state, seconds,
+                    dict(zip(KERNEL_NAMES, [fn.launches for fn in counters])))
+
+        got, st, seconds, launches = run("kernels", False)
+        ref, ref_st, ref_seconds, _ = run("plain", True)
+    taper = wkernel.taper(4096, 7.0, 8, wkernel.default_beta(7.0))
+    t2 = np.outer(taper, taper)
+    inside = t2 >= 0.002 * t2.max()
+    peak = float(np.abs(ref[0]).max())
+    err = float(np.abs(got[0] - ref[0])[inside].max()) / peak
+    minor = [st["stats/0"]["minor"], ref_st["stats/0"]["minor"]]
+    ok = (err <= 1e-4 and bool(np.isfinite(got[0][inside]).all())
+          and st["status/0"] == "complete" and launches["K1"] > 0
+          and launches["K4"] > 0 and minor[0] == minor[1])
+    emit({"phase": "tiles_pipeline", "card": card, "route": "--cube",
+          "pixels": 4096, "kernel_width": 96, "ts": 128, "majors": 1,
+          "max_err_inside_over_restored_peak": err, "tolerance": 1e-4,
+          "restored_peak": peak, "minor": minor, "seconds": seconds,
+          "plain_seconds": ref_seconds, "launches": launches, "ok": ok})
+    if not ok:
+        raise AssertionError("tiles_pipeline failed")
+
+
+def exact_phase(dev, card, dataset, vis_block: int) -> None:
+    """Channel 0 of the imager phase (the DFT-predict major cycle) with
+    ``KTPU_PREDICT_EXACT=1`` and again with the default route: the
+    restored images and CLEAN components against each other inside the
+    field (the same positions and minor counts; the images' difference
+    printed, not gated: it is the default route's float32 phase error,
+    see below), and both routes' ``model_predict`` seconds.  Then both
+    predicts of the exact run's components, on 2^20 visibilities drawn
+    over the channel's grid, against a float64 DFT: the exact one within
+    2e-6 of its largest value (tests/test_predict.py's tolerance) and no
+    further from it than the DFT route."""
+    import os
+
+    import numpy as np
+
+    from katsdpimager_tpu_torch.ops import predict
+
+    timed = ("clean_cycles", "model_predict")
+    os.environ["KTPU_PREDICT_EXACT"] = "1"
+    try:
+        exact = cli_run(dataset, imager_args(0, False, vis_block), dev,
+                        timed=timed)
+    finally:
+        del os.environ["KTPU_PREDICT_EXACT"]
+    default = cli_run(dataset, imager_args(0, False, vis_block), dev,
+                      timed=timed)
+
+    ip = exact["stats"]["image_parameters"]
+    gp = exact["stats"]["grid_parameters"]
+    N, O, W = ip.pixels, gp.fixed.oversample, gp.w_planes
+    lmn, flux, xi, yi = predict.extract_sky_image(
+        ip, gp, exact["model"].astype(np.float32), return_pixels=True)
+    uv_scale, w_scale, w_bias = predict.uvw_scale_bias(ip, gp)
+    rng = np.random.default_rng(9)
+    n = 1 << 20
+    half = N // 2 - gp.fixed.kernel_width
+    uv = rng.integers(-half, half, size=(n, 2)).astype(np.int16)
+    sub = rng.integers(0, O, size=(n, 2)).astype(np.int16)
+    wp = rng.integers(0, W, size=n).astype(np.int16)
+    u64, v64 = ((uv[:, i] * O + sub[:, i] + 0.5) * uv_scale for i in (0, 1))
+    w64 = wp * w_scale + w_bias
+    l64, m64 = xi * float(ip.pixel_size), yi * float(ip.pixel_size)
+    n64 = np.sqrt(1 - l64 * l64 - m64 * m64) - 1
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    phase = (-2 * np.pi) * (t(u64)[:, None] * t(l64)[None]
+                            + t(v64)[:, None] * t(m64)[None]
+                            + t(w64)[:, None] * t(n64)[None])
+    want = torch.polar(torch.ones_like(phase), phase) @ t(
+        flux.astype(np.float64)).to(torch.complex128)
+    zero = torch.zeros((n, flux.shape[1]), dtype=torch.complex64,
+                       device=dev)
+    ones = torch.ones((n, flux.shape[1]), dtype=torch.float32, device=dev)
+    got_exact = -predict.predict_subtract_exact(
+        t(xi), t(yi), t(lmn[:, 2]), t(flux), t(uv), t(sub), zero, ones,
+        t(wp), float(np.float32(w_scale)), float(np.float32(w_bias)),
+        pixels=N, oversample=O, w_planes=W)
+    got_dft = -predict.predict_subtract(
+        t(lmn), t(flux), t(uv), t(sub), t(wp), zero, ones, uv_scale,
+        w_scale, float(np.float32(w_bias)), oversample=O)
+    scale = want.abs().max().item()
+    err_exact = (got_exact - want).abs().max().item() / scale
+    err_dft = (got_dft - want).abs().max().item() / scale
+    accurate = err_exact <= 2e-6 and err_exact <= err_dft
+    imager_parity(0, exact, default, phase="exact", ref_name="default",
+                  tolerance=None, card=card,
+                  model_predict_s=exact["model_predict_s"],
+                  default_model_predict_s=default["model_predict_s"],
+                  components=int(len(xi)),
+                  predict_vs_float64={"visibilities": n, "exact": err_exact,
+                                      "dft": err_dft, "tolerance": 2e-6},
+                  exact_accurate=accurate)
+    if not accurate:
+        raise AssertionError(f"exact predict: {err_exact} of the float64 "
+                             f"DFT (the DFT route {err_dft})")
+
+
+def double_phase(dev, card, dataset, vis_block: int, single) -> None:
+    """Channel 1 of the imager phase (``--degrid``) with ``--precision
+    double`` on the card, against the same channel's float32 run
+    (``single``): float64 images, finite, the dirty image within the 1e-4
+    gate of the float32 run inside the field, the same components and
+    minor counts; K1 and K5 launched (the transforms and the colour-plane
+    add run in torch).  The model, residual and restored images are
+    printed, not gated: CLEAN's components drift apart between a float32
+    and a float64 run, in the JAX package as much as here
+    (tests/test_torch_imager.py::test_single_and_double_differ_as_in_jax),
+    more with the image's size."""
+    import numpy as np
+
+    got = cli_run(dataset, imager_args(1, True, vis_block,
+                                       ["--precision", "double"]), dev)
+    launches = dict(zip(KERNEL_NAMES, got["launches"]))
+    f64 = all(got[name].dtype == np.float64
+              for name in ("dirty", "model", "residuals", "clean"))
+    finite = all(np.isfinite(got[name]).all()
+                 for name in ("dirty", "model", "residuals", "clean"))
+    ran = launches["K1"] > 0 and launches["K5"] > 0
+    minor_equal = got["stats"]["minor"] == single["stats"]["minor"]
+    imager_parity(1, got, single, phase="double", ref_name="single",
+                  gated=("dirty",), card=card, launches=launches,
+                  float64=f64,
+                  finite_everywhere=finite, kernels_ran=ran,
+                  minor_equal=minor_equal)
+    if not (f64 and finite and ran and minor_equal):
+        raise AssertionError(f"double: float64 {f64}, finite {finite}, "
+                             f"launches {launches}, minor equal "
+                             f"{minor_equal}")
+
+
+def profile_phase(dev, card, dataset, vis_block: int) -> None:
+    """One CLI channel (channel 0) through ``imager.run`` with both
+    profile dumps: the flamegraph names the frontend's stages and the
+    device profile names K1-K4 with nonzero time; the five largest
+    device ops."""
+    import os
+    import re
+    import tempfile
+
+    from katsdpimager_tpu_torch import frontend, imager
+
+    class CleanOnly(frontend.Writer):
+        def needs_fits_image(self, name):
+            return False
+
+        def needs_fits_grid(self, name):
+            return False
+
+        def write_fits_image(self, *args, **kwargs):
+            pass
+
+        def write_fits_grid(self, *args, **kwargs):
+            pass
+
+    kernels = {"K1": "grid_planes_kernel", "K2": "combine_planes_kernel",
+               "K3": "cb_col_fft_kernel", "K4": "epi_col_fft_kernel"}
+    stages = ("preprocess_visibilities", "process_channel;make_weights",
+              "process_channel;make_dirty")
+    with tempfile.TemporaryDirectory() as tmp:
+        args = imager_args(0, False, vis_block)
+        args.write_profile = os.path.join(tmp, "profile.txt")
+        args.write_device_profile = os.path.join(tmp, "device.txt")
+        t = time.perf_counter()
+        imager.run(args, dataset, CleanOnly(), device=dev)
+        seconds = time.perf_counter() - t
+        with open(args.write_profile) as f:
+            host = [ln.rsplit(" ", 1) for ln in f.read().splitlines()]
+        with open(args.write_device_profile) as f:
+            device = [ln.rsplit(" ", 1) for ln in f.read().splitlines()]
+    host_stacks = {stack for stack, _ in host}
+    kernel_us = {name: sum(int(us) for op, us in device
+                           if re.search(r"\b%s\b" % fn, op))
+                 for name, fn in kernels.items()}
+    checks = {"stages_named": all(st in host_stacks for st in stages),
+              "k1_k4_nonzero": all(us > 0 for us in kernel_us.values())}
+    emit({"phase": "profile", "card": card, "seconds": seconds,
+          "host_lines": len(host), "device_lines": len(device),
+          "kernel_us": kernel_us,
+          "top_device_us": [[op[:80], int(us)] for op, us in device[:5]],
+          **checks})
+    if not all(checks.values()):
+        raise AssertionError(f"profile phase failed: {checks}")
+
+
 
 
 if __name__ == "__main__":

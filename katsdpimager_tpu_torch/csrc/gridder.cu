@@ -29,26 +29,40 @@ namespace {
 // roofline (K^2 taps per visibility at the FP32 rate, 67 TFLOP/s) is
 // 0.23 ms, the bytes written 0.15 ms.
 //
-// Design: one CTA per anchor run (grid NC x P); a CTA whose chunk is not
+// Design: the window, padded to Wp = 64 ceil(2ts / 64) rows and columns,
+// is cut into square blocks of B = 128 (Wp a multiple of 128) or 64
+// (otherwise); one CTA per anchor run and block (grid NC x P x
+// (Wp / B)^2), so ts 32 and 64 keep one CTA per run, and a thread never
+// holds more than 64 + 64 accumulators (a 256- or 512-wide band at ts 128
+// or 256 would not fit one CTA's registers).  A CTA whose chunk is not
 // the first of its run exits at once.  The CTA loops over its run's
 // chunks, and in each over the valid slots only, kKB = 8 visibilities at a
-// time (the MMA depth): padding costs nothing.  The band is a complex
+// time (the MMA depth): padding costs nothing.  The block is a complex
 // matrix product A^T B over the staged visibilities, A[m, j] = conj(K_v)
-// sample and B[m, k] = conj(K_u), computed on the tensor cores with
-// wgmma.mma_async m64nNk8 TF32 (N = 2ts) as four real products in the
-// 3xTF32 scheme: each staged operand is split once into hi = tf32_rna(x)
-// and lo = tf32_rna(x - hi), and every product sums lo*hi + hi*lo + hi*hi
-// in FP32 accumulators (the lo*lo term, below 2^-22 of the product, is
-// dropped), so the band keeps FP32 accuracy; plain TF32 would not.  One
-// warpgroup per 64 window rows keeps its rows of the band in accumulator
-// registers across the run; A and B come from shared memory through
-// descriptors, -Bi by the instruction's B scale of -1.  Each chunk's slot
-// data is loaded into shared memory once; while batch b's wgmmas run, the
-// same threads write batch b + 1's split operands (double buffered), one
-// barrier per batch.  The JAX kernel's one-hot selection and lane shift
-// become an indexed table load with a bounds test.  The run is written
-// once with plain stores: no atomics, so the result does not depend on
-// scheduling.
+// sample for the block's rows j and B[m, k] = conj(K_u) for its columns
+// k, computed on the tensor cores with wgmma.mma_async m64nBk8 TF32 as
+// four real products in the 3xTF32 scheme: each staged operand is split
+// once into hi = tf32_rna(x) and lo = tf32_rna(x - hi), and every product
+// sums lo*hi + hi*lo + hi*hi in FP32 accumulators (the lo*lo term, below
+// 2^-22 of the product, is dropped), so the band keeps FP32 accuracy;
+// plain TF32 would not.  One warpgroup per 64 rows of the block keeps its
+// rows in accumulator registers across the run; A and B come from shared
+// memory through descriptors, -Bi by the instruction's B scale of -1.
+// Rows and columns at or past 2ts (the padding) stage as zeros and are
+// never stored.  In such a wide window (kWide: any ts but 32 and 64,
+// whose window is one unpadded block), every kPromote batches of a longer
+// run the accumulators are promoted into the run's block of the plane by
+// IEEE adds: the tensor cores' accumulation loses more than rounding
+// would, and its error grows with the adds it takes (see kPromote).
+// ts 32 and 64 keep the code they had, with no bounds tests and no
+// promotion.  Each chunk's slot data is loaded into shared memory once;
+// while batch b's wgmmas run, the same threads write batch b + 1's split
+// operands (double buffered), one barrier per batch.  The JAX kernel's
+// one-hot selection and lane shift become an indexed table load with a
+// bounds test.  Each thread stores its own elements of the run's block,
+// pairs of floats (8-byte aligned for every ts: 2ts and so the plane's
+// row stride are even), at the end of the run and at each promotion: no
+// atomics, so the result does not depend on scheduling.
 //
 // Why not the alternatives (measured, PERF.md): mma.sync m16n8k8 runs TF32
 // at a quarter of wgmma's rate; with A in registers the issuing warp's own
@@ -163,21 +177,40 @@ __device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo,
          (static_cast<uint64_t>(sbo >> 4) << 32);
 }
 
-// The window of one anchor run, TS2 x TS2 complex, over TS2 / 64
-// warpgroups of 64 rows.  A staged batch holds kKB visibilities in eight
-// planes, A (re hi, re lo, im hi, im lo) then B (likewise), each in the
-// K-major core-matrix layout of smem_desc: row r (j for A, k for B), slot
-// m at float ((r / 8) (kKB / 4) + m / 4) 32 + (r % 8) 4 + m % 4.
-template <int TS2>
+// One CTA's block of the window, B x B complex, over B / 64 warpgroups
+// of 64 rows.  A staged batch holds kKB visibilities in eight planes, A
+// (re hi, re lo, im hi, im lo) then B (likewise), each in the K-major
+// core-matrix layout of smem_desc: row r (j - the block's first row for
+// A, k - its first column for B), slot m at float
+// ((r / 8) (kKB / 4) + m / 4) 32 + (r % 8) 4 + m % 4.
+template <int B>
 struct BandTile {
-  static constexpr int kThreads = 2 * TS2;    // one warpgroup per 64 rows
-  static constexpr int kPlane = kKB * TS2;    // floats
+  static constexpr int kThreads = 2 * B;      // one warpgroup per 64 rows
+  static constexpr int kPlane = kKB * B;      // floats
   static constexpr int kStage = 8 * kPlane;
   static constexpr int kSmemBytes =
       2 * kStage * static_cast<int>(sizeof(float));
-  static constexpr int kAcc = TS2 / 2;        // accumulators a thread, each
+  static constexpr int kAcc = B / 2;          // accumulators a thread, each
   static constexpr int kSteps = kKB / 8;      // wgmma k-steps a batch
 };
+
+// Batches the tensor cores accumulate before the sums are promoted into
+// the run's block of the colour plane.  A wgmma's FP32 accumulation
+// loses more than IEEE rounding would (it appears to truncate), and its
+// error grows with the number of adds (measured on an H100 against a
+// float64 reference:
+// 5.2e-5 of the peak at ts = 128, K = 128 and 1.7e-4 at ts = 256, K = 200
+// when a run's sums stayed in the accumulators, against 5e-7 for FP32
+// sums on the CUDA cores); the promoted totals take IEEE adds, so each
+// stretch of kPromote batches (6 kPromote adds a value) bounds it: with
+// kPromote = 32, 4.0e-6 and 3.7e-6 at those two.  A run of at most
+// kPromote batches is stored once.  The totals live in the plane, not
+// in shared memory: 128 KB more of it would leave the L1 cache that K1's
+// table loads go through too small.
+// Only wide windows promote (measured at ts 64: 16% slower at kPromote
+// 16, 8% at 32; unpromoted, its sums are 8e-6 of the peak from the
+// float64 reference on dense 1024 px inputs, within K1's 2e-5 gate).
+constexpr int kPromote = 32;
 
 // One chunk's slot data, loaded once per chunk into shared memory.
 struct __align__(16) ChunkSlots {
@@ -185,7 +218,7 @@ struct __align__(16) ChunkSlots {
   float sr[kMaxMc], si[kMaxMc];
 };
 
-template <int TS2>
+template <int B>
 __device__ __forceinline__ void load_chunk(
     ChunkSlots& cs, int c, int cnt, int p, const int* __restrict__ iu,
     const int* __restrict__ iv, const int* __restrict__ su,
@@ -193,7 +226,7 @@ __device__ __forceinline__ void load_chunk(
     const float* __restrict__ sim, int Mc, int P) {
   const size_t cm = static_cast<size_t>(c) * Mc;
   const size_t cp = (static_cast<size_t>(c) * P + p) * Mc;
-  for (int m = threadIdx.x; m < cnt; m += BandTile<TS2>::kThreads) {
+  for (int m = threadIdx.x; m < cnt; m += BandTile<B>::kThreads) {
     cs.iv[m] = iv[cm + m];
     cs.sv[m] = sv[cm + m];
     cs.iu[m] = iu[cm + m];
@@ -204,23 +237,28 @@ __device__ __forceinline__ void load_chunk(
 }
 
 // Visibilities m0 .. m0 + kKB - 1 of the chunk in `cs` (slots at or past
-// cnt give zeros) as split planes.
-// A thread takes one window position j and 4 consecutive slots, whose
+// cnt give zeros) as split planes, for window rows jr0 .. jr0 + B - 1 (A)
+// and columns jc0 .. jc0 + B - 1 (B); rows and columns at or past ts2
+// give zeros.
+// A thread takes one block position j and 4 consecutive slots, whose
 // slot data it reads as vectors and whose 4 values per plane are
 // contiguous in the core-matrix layout: one 16-byte store per plane,
 // free of bank conflicts.  A's products are split here; B's split comes
 // ready from `tabs`.  Ends with the async-proxy fence.
-template <int TS2>
+template <int B, bool kWide>
 __device__ __forceinline__ void stage_batch(float* S, const ChunkSlots& cs,
                                             int m0, int cnt,
                                             const float2* __restrict__ tab,
                                             const float4* __restrict__ tabs,
-                                            int K) {
-  using T = BandTile<TS2>;
+                                            int K, int ts2, int jr0,
+                                            int jc0) {
+  using T = BandTile<B>;
 #pragma unroll
-  for (int grp = threadIdx.x; grp < (kKB / 4) * TS2; grp += T::kThreads) {
-    const int j = grp % TS2;
-    const int k4 = grp / TS2;
+  for (int grp = threadIdx.x; grp < (kKB / 4) * B; grp += T::kThreads) {
+    const int j = grp % B;
+    const int k4 = grp / B;
+    const int jr = jr0 + j;
+    const int jc = jc0 + j;
     const int mq = m0 + 4 * k4;
     const int4 sv4 = *reinterpret_cast<const int4*>(cs.sv + mq);
     const int4 iv4 = *reinterpret_cast<const int4*>(cs.iv + mq);
@@ -239,8 +277,8 @@ __device__ __forceinline__ void stage_batch(float* S, const ChunkSlots& cs,
     for (int u = 0; u < 4; ++u) {
       const bool live = mq + u < cnt;
       float ar = 0.f, ai = 0.f;
-      const int dv = j - svs[u];
-      if (live && dv >= 0 && dv < K) {
+      const int dv = jr - svs[u];
+      if (live && (!kWide || jr < ts2) && dv >= 0 && dv < K) {
         const float2 t = tab[ivs[u] * K + dv];
         ar = t.x * srs[u] - t.y * sis[u];
         ai = t.x * sis[u] + t.y * srs[u];
@@ -252,8 +290,9 @@ __device__ __forceinline__ void stage_batch(float* S, const ChunkSlots& cs,
       v[2][u] = ih;
       v[3][u] = __uint_as_float(tf32_rna(ai - ih));
       float4 b = make_float4(0.f, 0.f, 0.f, 0.f);
-      const int du = j - sus[u];
-      if (live && du >= 0 && du < K) b = tabs[ius[u] * K + du];
+      const int du = jc - sus[u];
+      if (live && (!kWide || jc < ts2) && du >= 0 && du < K)
+        b = tabs[ius[u] * K + du];
       v[4][u] = b.x;
       v[5][u] = b.y;
       v[6][u] = b.z;
@@ -272,11 +311,11 @@ __device__ __forceinline__ void stage_batch(float* S, const ChunkSlots& cs,
 // k-step and each of the terms lo hi, hi lo, hi hi: re += Ar Br - Ai Bi,
 // im += Ar Bi + Ai Br.  Issues the wgmmas and commits them; the caller
 // waits.
-template <int TS2>
+template <int B>
 __device__ __forceinline__ void band_issue(
-    float (&acc_r)[BandTile<TS2>::kAcc], float (&acc_i)[BandTile<TS2>::kAcc],
+    float (&acc_r)[BandTile<B>::kAcc], float (&acc_i)[BandTile<B>::kAcc],
     const float* S, int wg) {
-  using T = BandTile<TS2>;
+  using T = BandTile<B>;
   fence_operands(acc_r);
   fence_operands(acc_i);
   wgmma_fence();
@@ -304,8 +343,8 @@ __device__ __forceinline__ void band_issue(
   wgmma_commit();
 }
 
-template <int TS2>
-__global__ void __launch_bounds__(BandTile<TS2>::kThreads, 1)
+template <int B, bool kWide>
+__global__ void __launch_bounds__(BandTile<B>::kThreads, 1)
 grid_planes_kernel(const int* __restrict__ slot, int n,
                    const int* __restrict__ count,
                    const int* __restrict__ iu, const int* __restrict__ iv,
@@ -315,10 +354,15 @@ grid_planes_kernel(const int* __restrict__ slot, int n,
                    const float2* __restrict__ tab,
                    const float4* __restrict__ tabs,
                    float* __restrict__ accr, float* __restrict__ acci,
-                   int Mc, int P, int K, int nt2) {
-  using T = BandTile<TS2>;
+                   int Mc, int P, int K, int ts2, int nb, int nt2) {
+  using T = BandTile<B>;
   const int c0 = blockIdx.x;
   const int p = blockIdx.y;
+  // The block's first row and column, and the window's extent: a window
+  // that is one unpadded block (ts 32 and 64) knows them at compile time.
+  const int jr0 = kWide ? (blockIdx.z / nb) * B : 0;
+  const int jc0 = kWide ? (blockIdx.z % nb) * B : 0;
+  const int w2 = kWide ? ts2 : B;
   if (c0 >= n) return;
   const int s = slot[c0];
   if (c0 > 0 && slot[c0 - 1] == s) return;  // not the first chunk of its run
@@ -357,13 +401,62 @@ grid_planes_kernel(const int* __restrict__ slot, int n,
   auto stage_at = [&](float* S, bool new_chunk) {
     if (new_chunk) {
       // The wgmmas in flight read only their own staged planes.
-      load_chunk<TS2>(cs, c, cnt, p, iu, iv, su, sv, sre, sim, Mc, P);
+      load_chunk<B>(cs, c, cnt, p, iu, iv, su, sv, sre, sim, Mc, P);
       __syncthreads();
     }
-    stage_batch<TS2>(S, cs, m0, cnt, tab, tabs, K);
+    stage_batch<B, kWide>(S, cs, m0, cnt, tab, tabs, K, w2, jr0, jc0);
+  };
+  // Decode the slot: colour (a, b) = tile parities, then the tile of the
+  // colour plane; the planes are (2, 2, P, ext2, ext2) images.
+  const int colour = s / (nt2 * nt2);
+  const int rem = s - colour * (nt2 * nt2);
+  const int tv2 = rem / nt2;
+  const int tu2 = rem - tv2 * nt2;
+  const size_t ext2 = static_cast<size_t>(nt2) * w2;
+  const size_t base =
+      ((static_cast<size_t>(colour) * P + p) * ext2 +
+       static_cast<size_t>(tv2) * w2) * ext2 +
+      static_cast<size_t>(tu2) * w2;
+  // Stores this thread's accumulators into the run's block, added onto
+  // what an earlier promotion stored there (the thread's own values).
+  // Accumulator i of n8 block nb8: block row g (+ 8 for i & 2), block
+  // column 8 nb8 + 2 t (+ 1 for i & 1); the window's padding past w2 is
+  // not stored (w2 is even, so a pair lies wholly inside or outside).
+  bool promoted = false;
+  auto flush = [&]() {
+#pragma unroll
+    for (int nb8 = 0; nb8 < B / 8; ++nb8) {
+      const int col = jc0 + 8 * nb8 + 2 * t;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = jr0 + r0 + g + 8 * h;
+        if (kWide && (row >= w2 || col >= w2)) continue;
+        const size_t off = base + row * ext2 + col;
+        const int i = 4 * nb8 + 2 * h;
+        float2 re = make_float2(acc_r[i], acc_r[i + 1]);
+        float2 im = make_float2(acc_i[i], acc_i[i + 1]);
+        if (kWide && promoted) {
+          const float2 tr = *reinterpret_cast<const float2*>(accr + off);
+          const float2 ti = *reinterpret_cast<const float2*>(acci + off);
+          re = make_float2(tr.x + re.x, tr.y + re.y);
+          im = make_float2(ti.x + im.x, ti.y + im.y);
+        }
+        *reinterpret_cast<float2*>(accr + off) = re;
+        *reinterpret_cast<float2*>(acci + off) = im;
+      }
+    }
+  };
+  auto promote = [&]() {
+    flush();
+    promoted = true;
+#pragma unroll
+    for (int i = 0; i < T::kAcc; ++i) {
+      acc_r[i] = 0.f;
+      acc_i[i] = 0.f;
+    }
   };
   bool have = settle();
-  int buf = 0;
+  int buf = 0, batches = 0;
   if (have) stage_at(stage, true);
   __syncthreads();
   while (have) {
@@ -371,59 +464,38 @@ grid_planes_kernel(const int* __restrict__ slot, int n,
     const int c_now = c;
     m0 += kKB;
     const bool next = settle();
-    band_issue<TS2>(acc_r, acc_i, S, threadIdx.x / 128);
+    band_issue<B>(acc_r, acc_i, S, threadIdx.x / 128);
     if (next) stage_at(stage + (buf ^ 1) * T::kStage, c != c_now);
     wgmma_wait_all();
     fence_operands(acc_r);
     fence_operands(acc_i);
+    if (kWide && ++batches % kPromote == 0 && next) promote();
     __syncthreads();
     buf ^= 1;
     have = next;
   }
 
-  // Decode the slot: colour (a, b) = tile parities, then the tile of the
-  // colour plane; the planes are (2, 2, P, ext2, ext2) images.
-  const int colour = s / (nt2 * nt2);
-  const int rem = s - colour * (nt2 * nt2);
-  const int tv2 = rem / nt2;
-  const int tu2 = rem - tv2 * nt2;
-  const size_t ext2 = static_cast<size_t>(nt2) * TS2;
-  const size_t base =
-      ((static_cast<size_t>(colour) * P + p) * ext2 +
-       static_cast<size_t>(tv2) * TS2) * ext2 +
-      static_cast<size_t>(tu2) * TS2;
-  // Accumulator i of n8 block nb: row g (+ 8 for i & 2), column 8 nb + 2 t
-  // (+ 1 for i & 1).
-#pragma unroll
-  for (int nb = 0; nb < TS2 / 8; ++nb) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const size_t off = base + (r0 + g + 8 * h) * ext2 + 8 * nb + 2 * t;
-      *reinterpret_cast<float2*>(accr + off) =
-          make_float2(acc_r[4 * nb + 2 * h], acc_r[4 * nb + 2 * h + 1]);
-      *reinterpret_cast<float2*>(acci + off) =
-          make_float2(acc_i[4 * nb + 2 * h], acc_i[4 * nb + 2 * h + 1]);
-    }
-  }
+  flush();
 }
 
-template <int TS2>
+template <int B, bool kWide>
 cudaError_t launch_grid_planes(const int* slot, int n, const int* count,
                                const int* iu, const int* iv, const int* su,
                                const int* sv, const float* sre,
                                const float* sim, const float2* tab,
                                const float4* tabs, float* accr, float* acci,
-                               int NC, int Mc, int P, int K, int nt2,
-                               cudaStream_t stream) {
-  using T = BandTile<TS2>;
+                               int NC, int Mc, int P, int K, int ts2, int nb,
+                               int nt2, cudaStream_t stream) {
+  using T = BandTile<B>;
   cudaError_t err = cudaFuncSetAttribute(
-      grid_planes_kernel<TS2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      grid_planes_kernel<B, kWide>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       T::kSmemBytes);
   if (err != cudaSuccess) return err;
-  grid_planes_kernel<TS2><<<dim3(NC, P), T::kThreads, T::kSmemBytes,
-                            stream>>>(slot, n, count, iu, iv, su, sv, sre,
-                                      sim, tab, tabs, accr, acci, Mc, P, K,
-                                      nt2);
+  grid_planes_kernel<B, kWide><<<dim3(NC, P, nb * nb), T::kThreads,
+                                 T::kSmemBytes, stream>>>(
+      slot, n, count, iu, iv, su, sv, sre, sim, tab, tabs, accr, acci, Mc, P,
+      K, ts2, nb, nt2);
   return cudaGetLastError();
 }
 
@@ -493,6 +565,11 @@ __global__ void combine_planes_kernel(const float* __restrict__ accr,
 
 }  // namespace
 
+// K1 takes every tile size ts in [1, kMaxTile] with K <= ts + 1: the
+// window (2ts, padded to Wp = 64 ceil(2ts / 64)) in blocks of 128 where
+// Wp is a multiple of 128, else of 64.
+constexpr int kMaxTile = 256;
+
 extern "C" int ktt_grid_planes(const void* slot, int n, const void* count,
                                const void* iu, const void* iv,
                                const void* su, const void* sv,
@@ -500,7 +577,8 @@ extern "C" int ktt_grid_planes(const void* slot, int n, const void* count,
                                const void* tab, const void* tabs, void* accr,
                                void* acci, int NC, int Mc, int P, int K,
                                int ts, int nt2, void* stream) {
-  if (n <= 0 || NC <= 0 || P <= 0 || Mc <= 0 || Mc > kMaxMc)
+  if (n <= 0 || NC <= 0 || P <= 0 || P > 65535 || Mc <= 0 || Mc > kMaxMc ||
+      ts <= 0 || ts > kMaxTile || K <= 0 || K > ts + 1)
     return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   auto s = static_cast<const int*>(slot);
@@ -515,16 +593,23 @@ extern "C" int ktt_grid_planes(const void* slot, int n, const void* count,
   auto ts4 = static_cast<const float4*>(tabs);
   auto ar = static_cast<float*>(accr);
   auto ai = static_cast<float*>(acci);
-  switch (ts) {
-    case 64:
-      return launch_grid_planes<128>(s, n, cn, u, v, du, dv, r, i, t, ts4, ar,
-                                     ai, NC, Mc, P, K, nt2, st);
-    case 32:
-      return launch_grid_planes<64>(s, n, cn, u, v, du, dv, r, i, t, ts4, ar,
-                                    ai, NC, Mc, P, K, nt2, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  const int ts2 = 2 * ts;
+  const int wp = 64 * ((ts2 + 63) / 64);
+  if (ts2 == 128)
+    return launch_grid_planes<128, false>(s, n, cn, u, v, du, dv, r, i, t,
+                                          ts4, ar, ai, NC, Mc, P, K, ts2, 1,
+                                          nt2, st);
+  if (ts2 == 64)
+    return launch_grid_planes<64, false>(s, n, cn, u, v, du, dv, r, i, t,
+                                         ts4, ar, ai, NC, Mc, P, K, ts2, 1,
+                                         nt2, st);
+  if (wp % 128 == 0)
+    return launch_grid_planes<128, true>(s, n, cn, u, v, du, dv, r, i, t,
+                                         ts4, ar, ai, NC, Mc, P, K, ts2,
+                                         wp / 128, nt2, st);
+  return launch_grid_planes<64, true>(s, n, cn, u, v, du, dv, r, i, t, ts4,
+                                      ar, ai, NC, Mc, P, K, ts2, wp / 64, nt2,
+                                      st);
 }
 
 extern "C" int ktt_combine_planes(const void* accr, const void* acci,

@@ -42,7 +42,7 @@ import torch
 from . import device as device_mod
 from . import frontend, native, parameters, polarization, sky_model
 from .ops import clean as clean_ops
-from .ops import fused_gridder, mxu_gridder, predict, wkernel
+from .ops import mxu_gridder, predict, wkernel
 from .parallel import cube
 from .parallel.multichannel import ChannelBatch, ChunkOverflowError
 
@@ -264,23 +264,18 @@ def _sky_batch(cfg, subtract_model, dataset, image_ps, grid_ps, wave_channels,
                            for a in (sky_lmn, sky_flux, scales)))
 
 
-def _check_args(args, device, plain: bool) -> None:
+def _check_args(args) -> None:
     """Raise on what the port's cube does not run."""
     if args.precision == "double":
         raise NotImplementedError(
-            "--precision double is not ported: the port's kernels are "
-            "float32 only (ROADMAP, Queue 1)")
+            "--cube --precision double is not ported: the wave runs its "
+            "float32 parts path only, not the JAX wave's complex path "
+            "(katsdpimager_tpu/parallel/cube.py:146-148; ROADMAP, Queue 1)")
     vis_shards = getattr(args, "vis_shards", 1)
     if vis_shards != 1:
         raise NotImplementedError(
             f"--vis-shards {vis_shards}: the port's cube runs on one GPU; "
             "several GPUs are not ported (ROADMAP, Queue 1)")
-    ts = _tile_for(args.kernel_width)
-    if device.type == "cuda" and not plain and ts not in fused_gridder.TILES:
-        raise NotImplementedError(
-            f"--cube at kernel width {args.kernel_width} needs tiles of "
-            f"{ts}; K1 is built for tiles of {fused_gridder.TILES} only "
-            "(ROADMAP, Queue 2, item 7)")
 
 
 def run_cube(args, dataset, writer, *, device=None,
@@ -291,7 +286,7 @@ def run_cube(args, dataset, writer, *, device=None,
     (``host_s``: preprocess and pack in the worker; ``blocked_s``: the
     wait for it; ``device_write_s``: the device stages and the writes)."""
     device = device_mod.resolve(device)
-    _check_args(args, device, plain)
+    _check_args(args)
     pin = device.type == "cuda"
     input_polarizations = dataset.polarizations()
     mueller = (polarization.polarization_matrix(args.stokes,

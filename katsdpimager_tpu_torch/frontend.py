@@ -531,10 +531,6 @@ def run(args, dataset, writer, *, device=None, plain: bool = False):
     """Run the whole pipeline on ``device`` (default: by ``--host``, see
     :func:`.device.select`); ``plain`` runs every kernel's plain version
     whatever the device."""
-    if args.precision == "double":
-        raise NotImplementedError(
-            "--precision double is not ported: the port's kernels are "
-            "float32 only (ROADMAP, Queue 1)")
     if device is None:
         device = device_mod.select(getattr(args, "host", False))
     input_polarizations = dataset.polarizations()

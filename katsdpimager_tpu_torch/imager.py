@@ -10,8 +10,9 @@ and debug product dumps (``--write-weights``, ``--write-psf``, ...)::
 card, where every kernel of the path runs, and raises if there is none;
 ``--host`` images on the CPU with the kernels' plain versions.  Without
 ``h5py`` (``--tmp-file``, the default, spills to HDF5) pass
-``--no-tmp-file``.  Not ported: ``--precision double`` (raises) and the
-profile dumps ``--write-profile`` / ``--write-device-profile``.
+``--no-tmp-file``.  ``--write-profile`` writes the host stages' times and
+``--write-device-profile`` each device kernel's time (``torch.profiler``),
+both in flamegraph.pl format.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import numpy as np
 from . import arguments, io, loader
 
 from . import device as device_mod
-from . import frontend
+from . import frontend, profiling
 
 logger = logging.getLogger(__name__)
 
@@ -105,6 +106,13 @@ def get_parser() -> argparse.ArgumentParser:
         group.add_argument(f"--write-{name.replace('_', '-')}",
                            metavar="FILE",
                            help=f"Write {name} to FITS file")
+    group.add_argument("--write-profile", metavar="FILE",
+                       help="Write a flamegraph-format profile of the host "
+                            "stages")
+    group.add_argument("--write-device-profile", metavar="FILE",
+                       help="Trace the run with torch.profiler and write "
+                            "per-kernel device times (flamegraph format); "
+                            "the raw trace is kept in FILE.trace/")
     parser.add_argument("--host", action="store_true",
                         help="Image on the CPU with the kernels' plain "
                              "PyTorch versions instead of on the CUDA card")
@@ -119,14 +127,38 @@ def setup_logging(level: str):
         format="%(levelname)s:%(name)s: %(message)s")
 
 
+def run(args, dataset, writer, *, device=None) -> list:
+    """``frontend.run`` with the profile dumps that ``args`` asks for:
+    ``--write-profile`` (the host stages, flamegraph format) and
+    ``--write-device-profile`` (a ``torch.profiler`` trace kept in
+    ``FILE.trace/``, summed per device kernel into FILE)."""
+    Profiler = profiling.Profiler
+    old = Profiler.get_profiler()
+    if args.write_profile:
+        Profiler.set_profiler(profiling.FlamegraphProfiler())
+    try:
+        if not args.write_device_profile:
+            return frontend.run(args, dataset, writer, device=device)
+        trace_dir = args.write_device_profile + ".trace"
+        with profiling.device_trace(trace_dir):
+            results = frontend.run(args, dataset, writer, device=device)
+        totals = profiling.parse_device_profile(trace_dir)
+        with open(args.write_device_profile, "w") as f:
+            profiling.write_device_profile(totals, f)
+        logger.info("Wrote device profile (%d ops) to %s; raw trace in %s",
+                    len(totals), args.write_device_profile, trace_dir)
+        return results
+    finally:
+        if args.write_profile:
+            with open(args.write_profile, "w") as f:
+                Profiler.get_profiler().write_flamegraph(f)
+            Profiler.set_profiler(old)
+
+
 def main(argv=None) -> int:
     parser = get_parser()
     args = parser.parse_args(argv, namespace=arguments.SmartNamespace())
     setup_logging(args.log_level)
-    if args.precision == "double":
-        raise NotImplementedError(
-            "--precision double is not ported: the port's kernels are "
-            "float32 only (ROADMAP, Queue 1)")
     device = device_mod.select(args.host)
     if args.subtract and args.subtract != "auto":
         from . import sky_model
@@ -141,7 +173,7 @@ def main(argv=None) -> int:
     except (FileNotFoundError, OSError) as exc:
         parser.error(f"cannot open {args.input_file}: {exc}")
     try:
-        frontend.run(args, dataset, FileWriter(args), device=device)
+        run(args, dataset, FileWriter(args), device=device)
     except ValueError as exc:
         parser.error(str(exc))
     finally:

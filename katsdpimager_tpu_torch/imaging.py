@@ -4,8 +4,8 @@ Counterpart of :class:`katsdpimager_tpu.imaging.Imaging`, with the method
 surface that the frontend calls.  The state lives on one device:
 
 - ``grid``: the running W-slice grid as a ``(gr, gi)`` pair of (P, N, N)
-  f32 planes (the gridder kernels' layout; no complex grid is built);
-- ``dirty``, ``model``, ``psf``: (P, N, N) f32 images;
+  real planes (the gridder kernels' layout; no complex grid is built);
+- ``dirty``, ``model``, ``psf``: (P, N, N) real images;
 - the density-weight grid (:class:`.ops.weights.Weights`) and the CLEAN
   state (:mod:`.ops.clean`, every index a shape-(1,) tensor, so no minor
   cycle syncs with the host).
@@ -15,10 +15,18 @@ grid), K3 + K4 (grid -> dirty image) and, for the degridding major cycle,
 K6 + K7 (model -> grid) and K5 (degrid); ``plain`` runs every kernel's
 plain version whatever the device.  Chunk plans are cached per (w_slice,
 block): coordinates are fixed across major cycles, only vis change.
+
+``--precision double`` follows the JAX package's route on its chip: the
+grid, the images, the taper, CLEAN and the beam at float64; K1 still
+fills its float32 colour planes, added onto the float64 grid in plain
+torch (not K2), and K5 reads float32 planes cut from the float64 model
+grid; the transforms leave the kernels for ``torch.fft`` at complex128
+(:func:`.ops.fourier.use_fused_fft`); the weights grid stays float32.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 from typing import Optional
 
@@ -33,6 +41,10 @@ from .ops import clean as clean_ops
 from .ops import fourier, gridder, mxu_gridder, predict
 from .ops import weights as weight_ops
 
+logger = logging.getLogger(__name__)
+
+_logged_double = False
+
 
 class Imaging:
     """Imaging state and operations for one channel on ``device`` (None:
@@ -40,10 +52,14 @@ class Imaging:
 
     def __init__(self, image_p, grid_p, weight_p, clean_p, *, device=None,
                  plain: bool = False):
-        if image_p.fixed.real_dtype != np.float32:
-            raise NotImplementedError(
-                "--precision double is not ported: the port's kernels are "
-                "float32 only (ROADMAP, Queue 1)")
+        global _logged_double
+        double = image_p.fixed.real_dtype == np.float64
+        self._rdtype = rdtype = torch.float64 if double else torch.float32
+        if double and not _logged_double:
+            _logged_double = True
+            logger.info("--precision double: grid, images and CLEAN in "
+                        "float64; K1 and K5 at float32 with the grid "
+                        "planes added in torch; transforms in torch.fft")
         self.image_p = image_p
         self.grid_p = grid_p
         self.weight_p = weight_p
@@ -63,13 +79,13 @@ class Imaging:
         beta = wkernel.default_beta(fixed.antialias_width)
         self.taper1d = torch.from_numpy(wkernel.taper(
             N, fixed.antialias_width, fixed.oversample, beta).astype(
-                np.float32)).to(dev)
+                image_p.fixed.real_dtype)).to(dev)
         self.mid_w = wkernel.mid_w_values(image_p, grid_p)
         self._uv_scale, self._w_scale, self._w_bias = predict.uvw_scale_bias(
             image_p, grid_p)
 
         def zeros():
-            return torch.zeros((P, N, N), dtype=torch.float32, device=dev)
+            return torch.zeros((P, N, N), dtype=rdtype, device=dev)
 
         self.grid = (zeros(), zeros())
         self.dirty = zeros()
@@ -84,6 +100,7 @@ class Imaging:
         self._psf_patch_arr: Optional[torch.Tensor] = None
         self._sky_lmn = self._sky_flux = None
         self._model_lmn = self._model_flux = None
+        self._model_xi = self._model_yi = None
 
         self._mxu = mxu_gridder.MxuGridder(
             pixels=N, kernel_width=fixed.kernel_width, device=dev,
@@ -243,11 +260,16 @@ class Imaging:
 
     def model_to_predict(self):
         """Extract the CLEAN components of the model image for direct
-        prediction (a host round trip, as in the reference)."""
-        lmn, flux = predict.extract_sky_image(
-            self.image_p, self.grid_p, self.model.cpu().numpy())
+        prediction (a host round trip, as in the reference).  Components
+        sit on image pixels, so their pixel indices are kept for the
+        exact predict (:meth:`model_predict`)."""
+        lmn, flux, xi, yi = predict.extract_sky_image(
+            self.image_p, self.grid_p, self.model.cpu().numpy(),
+            return_pixels=True)
         self._model_lmn = self._tensor(lmn, torch.float32)
         self._model_flux = self._tensor(flux, torch.float32)
+        self._model_xi = self._tensor(xi, torch.int32)
+        self._model_yi = self._tensor(yi, torch.int32)
 
     def model_to_grid(self, w: float):
         """The model image's grid at W ``w`` as (gr, gi) planes, for
@@ -261,12 +283,26 @@ class Imaging:
                                   self._sky_flux)
 
     def model_predict(self, chunk, vis, w_slice: int):
-        if os.environ.get("KTPU_PREDICT_EXACT", "0") == "1":
-            raise NotImplementedError(
-                "KTPU_PREDICT_EXACT=1 (predict_subtract_exact) is not ported "
-                "(ROADMAP, Queue 1)")
-        return self.predict_chunk(chunk, vis, w_slice, self._model_lmn,
-                                  self._model_flux)
+        """``vis`` less the direct prediction of the model's components:
+        the DFT (:meth:`predict_chunk`), or with ``KTPU_PREDICT_EXACT=1``
+        the trig-free predict (:func:`.ops.predict.predict_subtract_exact`),
+        as in the JAX class."""
+        if os.environ.get("KTPU_PREDICT_EXACT", "0") != "1":
+            return self.predict_chunk(chunk, vis, w_slice, self._model_lmn,
+                                      self._model_flux)
+        if self._model_lmn.shape[0] == 0:
+            return vis
+        return predict.predict_subtract_exact(
+            self._model_xi, self._model_yi, self._model_lmn[:, 2],
+            self._model_flux, self._tensor(chunk.uv, torch.int32),
+            self._tensor(chunk.sub_uv, torch.int32),
+            self._tensor(vis, torch.complex64),
+            self._tensor(chunk.weights, torch.float32),
+            self._tensor(chunk.w_plane, torch.int32),
+            float(np.float32(self._w_scale)),
+            float(np.float32(self._w_bias + self.mid_w[w_slice])),
+            pixels=self.pixels, oversample=self.grid_p.fixed.oversample,
+            w_planes=self.grid_p.w_planes)
 
     # ------------------------------------------------------------------
     # FFT
@@ -286,7 +322,7 @@ class Imaging:
 
     def scale_dirty(self, scale: np.ndarray):
         self.dirty = fourier.scale_image(
-            self.dirty, self._tensor(scale, torch.float32))
+            self.dirty, self._tensor(scale, self._rdtype))
 
     def dirty_to_psf(self):
         """Buffer swap."""
@@ -300,7 +336,7 @@ class Imaging:
         y0 = N // 2 - box[1] // 2
         x0 = N // 2 - box[2] // 2
         self._psf_patch_arr = self._tensor(
-            psf[:, y0:y0 + box[1], x0:x0 + box[2]], torch.float32)
+            psf[:, y0:y0 + box[1], x0:x0 + box[2]], self._rdtype)
         return box
 
     def extract_psf_core(self, patch) -> np.ndarray:
@@ -348,7 +384,7 @@ class Imaging:
     # finishing
 
     def set_beam_power(self, beam_power: np.ndarray):
-        self.beam_power = self._tensor(beam_power, torch.float32)
+        self.beam_power = self._tensor(beam_power, self._rdtype)
 
     def apply_primary_beam(self, cutoff: float):
         self.dirty = fourier.apply_primary_beam(

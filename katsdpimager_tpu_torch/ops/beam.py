@@ -114,7 +114,8 @@ def convolve_gaussian(model, M):
     dev = model.device
     M = np.asarray(M, dtype=np.float64)
     amplitude = float(np.float32(2 * np.pi * abs(np.linalg.det(M))))
-    M = torch.as_tensor(M, dtype=model.dtype, device=dev)
+    # M rounded to f32 whatever the model's dtype, as the JAX package does
+    M = torch.as_tensor(M.astype(np.float32), device=dev).to(model.dtype)
     model_ft = torch.fft.rfft2(model)
     u = torch.fft.fftfreq(pixels, device=dev, dtype=model.dtype)    # axis -2
     v = torch.fft.rfftfreq(pixels, device=dev, dtype=model.dtype)   # axis -1

@@ -46,8 +46,8 @@ _PLAIN_GROUP = 256
 #: Slots per chunk K1 takes (it holds a chunk's slot data in shared memory).
 MAX_CHUNK = 256
 
-#: The tile sizes K1 is built for.
-TILES = (32, 64)
+#: The largest tile size K1 takes (every ts up to it with K <= ts + 1).
+MAX_TILE = 256
 
 
 # ---------------------------------------------------------------------------
@@ -74,7 +74,9 @@ def grid_planes_plain(slot, n: int, count, iu, iv, su, sv, sre, sim, table,
     with ``index_add_``; each run's sum written into its colour-plane
     block.  Unwritten blocks are left as they were.  ``count`` is not
     read: the reference does not share K1's assumption that the valid
-    slots are a prefix, so a plan that breaks it shows as a difference."""
+    slots are a prefix, so a plan that breaks it shows as a difference.
+    It sums in the samples' dtype (float64 samples, a complex128 table
+    and float64 planes give a float64 reference)."""
     if n == 0:
         return
     P = sre.shape[1]
@@ -88,7 +90,7 @@ def grid_planes_plain(slot, n: int, count, iu, iv, su, sv, sre, sim, table,
     first[1:] = slot_n[1:] != slot_n[:-1]
     run = torch.cumsum(first.long(), 0) - 1
     nruns = int(first.sum())
-    runs = torch.zeros((nruns, P, TS2, TS2, 2), dtype=torch.float32,
+    runs = torch.zeros((nruns, P, TS2, TS2, 2), dtype=sre.dtype,
                        device=accr.device)
     for g0 in range(0, n, _PLAIN_GROUP):
         g1 = min(n, g0 + _PLAIN_GROUP)
@@ -126,12 +128,14 @@ def grid_planes(slot, n: int, count, iu, iv, su, sv, sre, sim, table, accr,
 
     Replaces ``katsdpimager_tpu/ops/pallas_gridder.py:_make_kernel``.
     Bound by the band products (a dense 2ts x 2ts window per valid
-    visibility).  One CTA per anchor run loops over the valid slots only,
-    8 at a time, and forms the band on the tensor cores in 3xTF32
-    (``wgmma`` m64n(2ts)k8, each operand split into TF32 hi and lo), FP32
-    accurate; the window stays in accumulator registers and is written
-    once, with no atomics (details in the CUDA source).  Chunks hold at
-    most :data:`MAX_CHUNK` slots.
+    visibility).  The window, padded to a multiple of 64, is cut into
+    blocks of 128 or 64 square; one CTA per anchor run and block loops
+    over the valid slots only, 8 at a time, and forms its block on the
+    tensor cores in 3xTF32 (``wgmma`` m64nBk8, each operand split into
+    TF32 hi and lo), FP32 accurate; the block stays in accumulator
+    registers and is written once, with no atomics (details in the CUDA
+    source).  Takes every ``ts`` up to :data:`MAX_TILE` with
+    ``K <= ts + 1``; chunks hold at most :data:`MAX_CHUNK` slots.
     """
     if accr.device.type == "cpu":
         grid_planes_plain(slot, n, count, iu, iv, su, sv, sre, sim, table,
@@ -141,8 +145,8 @@ def grid_planes(slot, n: int, count, iu, iv, su, sv, sre, sim, table, accr,
     NC, Mc = iu.shape
     P = sre.shape[1]
     WO, K = table.shape
-    if ts not in TILES:
-        raise NotImplementedError(f"K1 is built for ts in {TILES}, not {ts}")
+    if not 1 <= ts <= MAX_TILE:
+        raise NotImplementedError(f"K1 takes ts in [1, {MAX_TILE}], not {ts}")
     if K + ts - 1 > 2 * ts:
         raise NotImplementedError(f"K1: kernel width {K} > ts + 1")
     if Mc > MAX_CHUNK:

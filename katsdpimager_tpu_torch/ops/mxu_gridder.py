@@ -309,12 +309,14 @@ def grid_chunks_onto(grid, kernel, weights_grid, plan_uv, plan_sub, plan_wp,
                      n_chunks=None, *, pixels: int, ts: int,
                      max_acc_gb: float = MAX_ACC_GB, plain: bool = False):
     """Grid one slice's chunks ONTO a running grid, in place: ``grid`` is
-    the ``(gr, gi)`` pair of (P, N, N) f32 planes; returns it.
+    the ``(gr, gi)`` pair of (P, N, N) f32 or f64 planes; returns it.
 
     Counterpart of the JAX ``grid_chunks_fused`` (the fused gridder onto
-    the padded complex working grid): K1 fills the colour planes, then
-    K2's accumulating form adds them onto the grid in the JAX order
-    ``(((g + p00) + p01) + p10) + p11``, select-masked.  Polarizations
+    the padded complex working grid): K1 fills the f32 colour planes,
+    then K2's accumulating form adds them onto the grid in the JAX order
+    ``(((g + p00) + p01) + p10) + p11``, select-masked.  Onto an f64
+    grid (``--precision double``) that add is K2's plain version, as it
+    is XLA in the JAX package, each plane upcast exactly.  Polarizations
     run in groups that fit the accumulator cap (:func:`pol_groups`).
     ``plain`` runs both kernels' plain versions whatever the device."""
     from .fused_gridder import (combine_planes, combine_planes_plain,
@@ -328,7 +330,8 @@ def grid_chunks_onto(grid, kernel, weights_grid, plan_uv, plan_sub, plan_wp,
     if n_chunks is None:
         n_chunks = occupied_chunks(plan_valid)
     gr, gi = grid
-    k2 = combine_planes_plain if plain else combine_planes
+    k2 = (combine_planes_plain if plain or gr.dtype != torch.float32
+          else combine_planes)
     for p0, p1 in pol_groups(plan_vis.shape[-1], pixels, ts, max_acc_gb):
         accr, acci, occ = grid_chunks_planes(
             kernel, None if weights_grid is None else weights_grid[p0:p1],
@@ -343,7 +346,8 @@ def tile_size(pixels: int, kernel_width: int) -> int:
     """The per-channel path's square tile size: ``max(min(64, max(8,
     N // 8)), K)`` (the JAX ``Imaging`` window, raised to cover the
     kernel as its dense mode does).  64 at 4096 px with K = 60, 32 at
-    256 px with K = 16; K1 takes 32 and 64, K5 any with K <= ts + 1."""
+    256 px with K = 16, 50 at 400 px, 8-31 below 256 px and K for every
+    K > 64; K1 and K5 take every ts up to 256 with K <= ts + 1."""
     return max(min(64, max(8, pixels // 8)), kernel_width)
 
 

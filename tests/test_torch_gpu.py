@@ -52,10 +52,21 @@ def _planes(dev, kernel, wg, plan, *, pixels, ts, plain):
         *t, None, n, pixels=pixels, ts=ts, plain=plain)
 
 
-@pytest.mark.parametrize("ts,K,P", [(64, 60, 1), (64, 16, 2), (32, 16, 1)])
+#: K1's tile sizes beyond 32 and 64, each with K = ts + 1 (K <= 256) and
+#: a smaller K (the ``tiles`` phase of ``chip_smoke.py``): 8-31 below
+#: 256 px, 33-63 at 264-504 px, ts = K above 64 per channel, 128 and 256
+#: in the cube.
+TILE_CASES = [(8, 9), (8, 5), (16, 17), (16, 12), (33, 34), (33, 20),
+              (50, 51), (50, 30), (96, 97), (96, 60), (128, 129),
+              (128, 100), (256, 256), (256, 200)]
+
+
+@pytest.mark.parametrize("ts,K,P", [(64, 60, 1), (64, 16, 2), (32, 16, 1)]
+                         + [(ts, min(K, ts), 1) for ts, K in TILE_CASES])
 def test_k1_k2_match_plain(cuda, ts, K, P):
     """K1's written blocks within 2e-5 of peak of the plain version (f32
-    summation order); K2 bitwise on the same planes."""
+    summation order); K2 bitwise on the same planes.  Planner inputs
+    (the planner takes K <= ts)."""
     pixels = 1024
     kernel, wg, plan = _plan_case(1, pixels=pixels, K=K, ts=ts, P=P,
                                   n=20000)
@@ -77,6 +88,62 @@ def test_k1_k2_match_plain(cuda, ts, K, P):
                                               ts=ts)
     for k, p in zip(gk, same):
         assert torch.equal(k, p)
+
+
+def test_cli_at_ts_50_matches_host(cuda):
+    """The per-channel CLI at 400 px, K = 16 (tile size 50, which K1 took
+    no time before) on the card against the same run on the CPU
+    (``--host``, the plain versions): images within 1e-4 of the dirty
+    peak inside the anti-aliased field, the same components there; K1
+    and K5 launched."""
+    import chip_smoke
+    from katsdpimager_tpu_torch import arguments, frontend, imager
+    from katsdpimager_tpu_torch.ops import wkernel
+
+    pixels = 400
+    assert mxu_gridder.tile_size(pixels, 16) == 50
+    dataset, _ = chip_smoke.sim_dataset(16, 128, 1, noise_jy=0.5)
+    argv = ["simulated", "unused_%c.fits", "--pixels", str(pixels),
+            "--kernel-width", "16", "--major", "2", "--degrid",
+            "--no-tmp-file", "--vis-block", "1024"]
+
+    def run(device):
+        args = imager.get_parser().parse_args(
+            argv, namespace=arguments.SmartNamespace())
+        cap = {}
+
+        class Capture(frontend.Writer):
+            def needs_fits_image(self, name):
+                return name in ("dirty", "model", "clean")
+
+            def needs_fits_grid(self, name):
+                return False
+
+            def write_fits_image(self, name, desc, ds, image, ip, ch,
+                                 beam=None, bunit=None):
+                cap[name] = np.array(image)
+
+            def write_fits_grid(self, *a, **k):
+                pass
+
+        frontend.run(args, dataset, Capture(), device=device)
+        return cap
+
+    fused_gridder.grid_planes.launches = 0
+    fused_degrid.degrid_planes.launches = 0
+    got = run(cuda)
+    assert fused_gridder.grid_planes.launches > 0
+    assert fused_degrid.degrid_planes.launches > 0
+    ref = run(torch.device("cpu"))
+    taper = wkernel.taper(pixels, 7.0, 8, wkernel.default_beta(7.0))
+    t2 = np.outer(taper, taper)
+    inside = t2 >= 0.002 * t2.max()
+    peak = np.abs(ref["dirty"]).max()
+    for name in ("dirty", "model", "clean"):
+        assert np.isfinite(got[name]).all()
+        assert np.abs(got[name] - ref[name])[:, inside].max() <= 1e-4 * peak
+    np.testing.assert_array_equal((got["model"] != 0)[:, inside],
+                                  (ref["model"] != 0)[:, inside])
 
 
 def test_k2_masks_nan(cuda):
@@ -548,12 +615,15 @@ def _k1_inputs(dev, seed, *, ts, P, K, runs, counts, Mc=256, WO=64):
     return t, nt2
 
 
-@pytest.mark.parametrize("ts,K", [(64, 60), (32, 30)])
+@pytest.mark.parametrize("ts,K", [(64, 60), (32, 30)] + TILE_CASES)
 @pytest.mark.parametrize("P", [1, 4])
 def test_k1_valid_counts_match_plain(cuda, ts, K, P):
     """K1 loops to each chunk's valid count: runs of 1-4 chunks with 0, 1,
     31 and 256 valid slots (and a run whose only chunk is empty), against
-    its plain version within 2e-5 of the largest written value."""
+    its plain version within 2e-5 of the largest written value.  Planes
+    start as NaN: K1 writes exactly the blocks its plain version writes,
+    and never the padding of its window past 2ts (at odd ts the planes'
+    row stride is no multiple of 4 floats)."""
     runs = [1, 2, 3, 4, 1]
     counts = [256, 0, 1, 31, 256, 7, 0, 255, 128, 31, 0]
     (slot, count, iu, iv, su, sv, sre, sim, table), nt2 = _k1_inputs(

@@ -179,3 +179,62 @@ def test_wide_kernel_raises():
     with pytest.raises(NotImplementedError):
         mxu_gridder.grid_chunks_parts(torch.from_numpy(wide), None, *t,
                                       pixels=PIXELS, ts=TS)
+
+
+def _tile_case(seed, pixels, ts, n=600, w_planes=4, oversample=8):
+    rng = np.random.default_rng(seed)
+    kernel = (rng.normal(size=(w_planes, oversample, K))
+              + 1j * rng.normal(size=(w_planes, oversample, K))
+              ).astype(np.complex64)
+    lim = pixels // 2 - K - 1
+    uv = np.clip(rng.normal(scale=lim / 3, size=(n, 2)), -lim, lim
+                 ).astype(np.int16)
+    sub = rng.integers(0, oversample, size=(n, 2)).astype(np.int16)
+    wp = rng.integers(0, w_planes, size=n).astype(np.int16)
+    vis = (rng.normal(size=(n, 1))
+           + 1j * rng.normal(size=(n, 1))).astype(np.complex64)
+    wg = rng.uniform(0.5, 2.0, size=(1, pixels, pixels)).astype(np.float32)
+    plan = mxu_gridder.plan_chunks_tiled(
+        uv, sub, wp, vis, np.ones_like(vis, np.float32), pixels=pixels,
+        kernel_width=K, ts=ts, mc=MC)
+    return kernel, wg, plan
+
+
+@pytest.mark.parametrize("pixels", [128, 264, 400])
+def test_tile_sizes_match_jax_fused(pixels):
+    """K1 at the per-channel planner's tile sizes other than 32 and 64
+    (ts = N / 8: 16 at 128 px, 33 at 264 px, 50 at 400 px; K = 16): the
+    port's plain K1 colour planes (written blocks) and its
+    ``grid_chunks_parts`` (plain K1 + K2) against the JAX Pallas gridder
+    in interpret mode, within 2e-5 of the largest value."""
+    ts = mxu_gridder.tile_size(pixels, K)
+    assert ts == pixels // 8
+    kernel, wg, plan = _tile_case(pixels, pixels, ts)
+    arrays = (plan.uv, plan.sub_uv, plan.w_plane, plan.vis, plan.anchor,
+              plan.valid)
+    nc = int(plan.valid.any(axis=1).sum())
+    jargs = [jnp.asarray(a) for a in arrays]
+    accr, acci, occ = pallas_gridder._grid_chunks_planes(
+        jnp.asarray(kernel), jnp.asarray(wg), *jargs, None, None,
+        pixels=pixels, ts=ts, num_pols=1, interpret=True)
+    jr, ji = jax_mxu.grid_chunks_parts_impl(
+        jnp.asarray(kernel), jnp.asarray(wg), *jargs, None,
+        jnp.asarray(nc, jnp.int32), pixels=pixels, ts=ts, assembly="pallas")
+    t = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+    kr, ki, kocc = fused_gridder.grid_chunks_planes(
+        torch.from_numpy(kernel), torch.from_numpy(wg), *t, None, nc,
+        pixels=pixels, ts=ts)
+    np.testing.assert_array_equal(kocc.numpy(), np.asarray(occ))
+    written = np.repeat(np.repeat(np.asarray(occ), 2 * ts, -2), 2 * ts,
+                        -1)[:, :, None]
+    for got, want in ((kr, accr), (ki, acci)):
+        # unwritten blocks hold garbage in both: compare the written ones
+        want = np.where(written, np.asarray(want), 0)
+        got = np.where(written, got.numpy(), 0)
+        assert np.abs(got - want).max() <= 2e-5 * np.abs(want).max()
+    gr, gi = mxu_gridder.grid_chunks_parts(
+        torch.from_numpy(kernel), torch.from_numpy(wg), *t, None, nc,
+        pixels=pixels, ts=ts)
+    scale = max(np.abs(jr).max(), np.abs(ji).max())
+    np.testing.assert_allclose(gr.numpy(), np.asarray(jr), atol=2e-5 * scale)
+    np.testing.assert_allclose(gi.numpy(), np.asarray(ji), atol=2e-5 * scale)

@@ -35,7 +35,7 @@ from katsdpimager_tpu import simulate as jax_simulate
 from katsdpimager_tpu.parallel import make_mesh
 from katsdpimager_tpu_torch import cube_frontend, io, pipeline, report
 from katsdpimager_tpu_torch import native
-from katsdpimager_tpu_torch.ops import wkernel
+from katsdpimager_tpu_torch.ops import fused_gridder, wkernel
 
 torch.set_num_threads(2)
 N = 256
@@ -350,11 +350,23 @@ def test_thumbnails_and_report(sim, tmp_path, monkeypatch, caplog):
 @pytest.mark.parametrize("extra,match", [
     (["--cube", "--vis-shards", "2"], "ROADMAP, Queue 1"),
     (["--cube", "--precision", "double"], "ROADMAP, Queue 1"),
-    (["--precision", "double"], "ROADMAP, Queue 1"),
 ])
 def test_unported_options_raise(sim, tmp_path, extra, match):
     with pytest.raises(NotImplementedError, match=match):
         pipeline.main(argv_of(sim, tmp_path / "x", extra), device="cpu")
+
+
+def test_per_channel_double_runs(sim, tmp_path):
+    """``--precision double`` per channel (the per-channel CLI's float64
+    route) completes every channel, and the restored image is finite."""
+    out = tmp_path / "dbl"
+    assert pipeline.main(argv_of(sim, out, ["--precision", "double"]),
+                         device="cpu") == 0
+    st = state(out)
+    done = [k for k in st if k.startswith("status/")]
+    assert done and all(st[k] == "complete" for k in done)
+    _, data = io.read_fits(str(out / "image_00000_clean.fits"))
+    assert np.isfinite(data).all() and np.abs(data).max() > 0.5
 
 
 def test_main_needs_cuda_unless_asked_for_the_cpu(sim, tmp_path,
@@ -370,18 +382,15 @@ def test_main_needs_cuda_unless_asked_for_the_cpu(sim, tmp_path,
 
 
 def test_cube_k1_tile_limit_raises_on_cuda():
-    """K > 64 needs tiles of 128, which K1 does not take: the cube raises
-    naming the ROADMAP item on CUDA, and not with ``plain`` or on the
-    CPU."""
+    """K > 64 needs tiles of 128, which K1 now takes: the cube's argument
+    check accepts it (it once raised on CUDA)."""
     from katsdpimager_tpu_torch import arguments
 
     args = pipeline.get_parser().parse_args(
         ["in", "out", "--cube", "--kernel-width", "96"],
         namespace=arguments.SmartNamespace())
-    with pytest.raises(NotImplementedError, match="Queue 2, item 7"):
-        cube_frontend._check_args(args, torch.device("cuda"), plain=False)
-    cube_frontend._check_args(args, torch.device("cuda"), plain=True)
-    cube_frontend._check_args(args, torch.device("cpu"), plain=False)
+    cube_frontend._check_args(args)
+    assert fused_gridder.MAX_TILE >= cube_frontend._tile_for(96)
     assert cube_frontend._tile_for(60) == 64
     assert cube_frontend._tile_for(96) == 128
     assert cube_frontend._patch_bucket(20, 256) == 33
