@@ -1,13 +1,18 @@
 """Drive the PyTorch/CUDA port on one GPU: its kernels, the dirty-image
 step, the cube wave, the numerics probes, the per-channel CLI, the batch
-pipeline, K1 at every tile size, the exact predict, the float64 route and
-the profile dumps.
+pipeline, K1 at every tile size and on long anchor runs, the exact
+predict, the float64 routes, the profile dumps and the mesh (ranks
+sharing the card).
 
 Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels (K1-K8 and the probes P1/P2) from
+(``chip_smoke.py --rank-worker ...`` is one rank of the ``distributed``
+phase, which starts it through ``torchrun``.)
+
+It builds the port's CUDA kernels (K1 with its run split, K2-K8 and the
+probes P1/P2) from
 ``katsdpimager_tpu_torch/csrc`` and the production batch (8 channels,
 4096 px, K=60, oversample 8, 32 W planes, 4 W slices, 2^19 visibilities
 per slice, natural weights), then:
@@ -77,7 +82,20 @@ per slice, natural weights), then:
   field with the same components, K1 and K5 launched;
 - ``profile``: channel 0 through ``imager.run`` with ``--write-profile``
   and ``--write-device-profile``: the frontend's stages named, K1-K4 with
-  nonzero device time, the five largest device ops.
+  nonzero device time, the five largest device ops;
+- ``k1_long_runs`` (right after K1's row): K1 at ts 64, K 60 and ts 32,
+  K 30 on anchor runs of 4, 32 and 128 full chunks, within 5e-6 of the
+  peak of a float64 run of its plain version, its run split against the
+  plain split; K1's production time, and on 128-chunk runs, in turns
+  against the parent's kernel where an uncommitted copy of it lies at
+  :data:`PARENT_K1_SOURCE`;
+- ``cube_double``: ``pipeline --cube --precision double`` on channel 0 at
+  4096 px, K 60, 2 majors against its float32 run (the dirty image within
+  1e-4 of the dirty peak inside the field, the same components);
+- ``distributed``: ``pipeline --cube`` on 2 ranks sharing the card
+  (``torchrun``, gloo) at (chan 2, vis 1) and (chan 1, vis 2) against the
+  1-rank run, and the bench-shape step at vis 2 against the unsharded
+  step; seconds a channel and all-reduce seconds.
 
 Each phase prints one JSON line; the card's name and power limit, the
 kernel table and, last, the ``ok`` line follow.  Any failure raises: the
@@ -206,13 +224,11 @@ def main() -> None:
           "python": sys.version.split()[0]})
 
     t0 = time.perf_counter()
+    parent_build = start_parent_k1_build()
     _build.load()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": _build.lib_path()})
-    cfg = mc.MultiChannelConfig(
-        pixels=4096, num_pols=1, kernel_width=60, oversample=8,
-        w_planes=32, w_slices=4, chunks_per_slice=8192, chunk_size=256,
-        rv=64, ru=64, minor_cycles=0, weight_type="natural")
+    cfg = bench_config()
     # K5 is built for 1-16 taps per lane (ceil(K / 16)); the production K
     # runs one instance.
     k5_instance = "degrid_planes_kernelILi%dE" % (
@@ -312,6 +328,11 @@ def main() -> None:
            "katsdpimager_tpu/ops/pallas_gridder.py:118", err, 2e-5 * scale,
            ms, plain_ms, k1_bound)
     redesign_line("K1", ms)
+    emit({"phase": "kernel_detail", "name": "K1 runs",
+          **run_lengths(slot, n, count)})
+    k1_long_runs_phase(dev, card, ((slot, n, count, iu, iv, su, sv, sre,
+                                    sim, table), kr, ki, ts),
+                       parent_k1(parent_build))
 
     out = {}
 
@@ -557,6 +578,8 @@ def main() -> None:
     exact_phase(dev, card, dataset, IMAGER_VIS_BLOCK)
     double_phase(dev, card, dataset, IMAGER_VIS_BLOCK, runs[1])
     profile_phase(dev, card, dataset, IMAGER_VIS_BLOCK)
+    cube_double_phase(dev, card, dataset, IMAGER_VIS_BLOCK)
+    distributed_phase(dev, card, dataset, IMAGER_VIS_BLOCK)
 
     print(card, flush=True)
     emit({"kernels": rows})
@@ -1584,11 +1607,12 @@ TILE_CASES = [(8, 9), (8, 5), (16, 17), (16, 12), (33, 34), (33, 20),
 
 
 def k1_inputs(dev, seed, *, ts, K, pixels, P=1, max_runs=600, Mc=256,
-              WO=256):
+              WO=256, run_chunks=None):
     """Direct K1 inputs at tile size ``ts``: up to ``max_runs`` runs of
-    1-4 chunks on distinct colour-plane slots of a ``pixels`` grid, every
-    chunk full but each run's last (0-256 valid slots), taps and shifts
-    anywhere in range, random samples and kernel rows."""
+    1-4 chunks (or of ``run_chunks`` each) on distinct colour-plane slots
+    of a ``pixels`` grid, every chunk full but each run's last (0-256
+    valid slots), taps and shifts anywhere in range, random samples and
+    kernel rows."""
     import numpy as np
 
     from katsdpimager_tpu_torch.ops import mxu_gridder
@@ -1596,7 +1620,8 @@ def k1_inputs(dev, seed, *, ts, K, pixels, P=1, max_runs=600, Mc=256,
     rng = np.random.default_rng(seed)
     nt2 = mxu_gridder.colour_tiles(pixels, ts)
     runs = min(max_runs, 4 * nt2 * nt2)
-    lengths = rng.integers(1, 5, size=runs)
+    lengths = (rng.integers(1, 5, size=runs) if run_chunks is None
+               else np.full(runs, run_chunks))
     slot = np.repeat(rng.choice(4 * nt2 * nt2, size=runs, replace=False),
                      lengths).astype(np.int32)
     NC = len(slot)
@@ -1690,6 +1715,172 @@ def tiles_phase(dev, card) -> None:
         if not ok:
             raise AssertionError(f"tiles: K1/K2 at ts {ts}, K {K} failed")
         del kr, ki, pr, pi, out
+
+
+#: An uncommitted copy of the parent's ``csrc/gridder.cu``, built and
+#: timed beside K1 in turns by :func:`k1_long_runs_phase` where it exists
+#: (a design comparison: the path lies in a git-ignored directory).
+PARENT_K1_SOURCE = "_archive/k1_parent/gridder.cu"
+
+
+def start_parent_k1_build():
+    """Start ``nvcc`` on :data:`PARENT_K1_SOURCE` into a shared library
+    beside it, with the port's flags; returns ``(process, library)``, or
+    None where the copy is absent."""
+    import os
+
+    from katsdpimager_tpu_torch.ops import _build
+
+    if not os.path.exists(PARENT_K1_SOURCE):
+        return None
+    lib = os.path.join(os.path.dirname(PARENT_K1_SOURCE), "libparent_k1.so")
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *_build.COMPILE_FLAGS,
+           "-shared", "-o", lib, PARENT_K1_SOURCE]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True), lib
+
+
+def parent_k1(build):
+    """The parent copy's ``ktt_grid_planes`` (the same argument list) as
+    ``fn(slot, n, count, iu, iv, su, sv, sre, sim, table, accr, acci,
+    ts)``, or None without the copy; prints its ptxas report."""
+    import ctypes
+    import os
+
+    from katsdpimager_tpu_torch.ops import _build, fused_gridder
+
+    if build is None:
+        return None
+    proc, lib_path = build
+    _, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {PARENT_K1_SOURCE}:\n{err}")
+    emit({"phase": "ptxas_parent_k1", "kernels": [
+        k for k in _build.ptxas_report(err)
+        if "18grid_planes_kernelI" in k["function"]]})
+    lib = ctypes.CDLL(os.path.abspath(lib_path))
+    fn = lib.ktt_grid_planes
+    P_, I_ = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [P_, I_] + [P_] * 11 + [I_] * 6 + [P_]
+    fn.restype = ctypes.c_int
+
+    def run(slot, n, count, iu, iv, su, sv, sre, sim, table, accr, acci, ts):
+        NC, Mc = iu.shape
+        tabs = fused_gridder.split_table(table)
+        _build.check(fn(slot.data_ptr(), n, count.data_ptr(), iu.data_ptr(),
+                        iv.data_ptr(), su.data_ptr(), sv.data_ptr(),
+                        sre.data_ptr(), sim.data_ptr(), table.data_ptr(),
+                        tabs.data_ptr(), accr.data_ptr(), acci.data_ptr(), NC,
+                        Mc, sre.shape[1], table.shape[1], ts,
+                        accr.shape[-1] // (2 * ts), _build.stream_of(accr)),
+                     "parent ktt_grid_planes")
+    return run
+
+
+#: Chunks per anchor run in :func:`k1_long_runs_phase`, and how many runs
+#: of each length it grids (full chunks of 256 valid slots are 32 batches
+#: each, so every run of two chunks or more is a long run).
+LONG_RUN_CASES = ((4, 600), (32, 128), (128, 48))
+
+
+def k1_long_runs_phase(dev, card, production, parent) -> None:
+    """K1 at ts 64, K 60 and ts 32, K 30 on direct inputs whose anchor
+    runs hold 4, 32 and 128 full chunks (2048 px): within 5e-6 of the
+    peak of a float64 run of its plain version over the written blocks
+    (the plain version's own float32 error printed beside it).  Then
+    K1's time at the production slice (``production``: its arguments),
+    and on the 128-chunk runs at ts 64, in turns against the parent's
+    kernel where its copy was built (``parent``), parent, change, change,
+    parent."""
+    from katsdpimager_tpu_torch.ops import fused_gridder
+
+    N, P = 2048, 1
+    worst = 0.0
+    for ts, K in ((64, 60), (32, 30)):
+        for run_chunks, max_runs in LONG_RUN_CASES:
+            (slot, count, iu, iv, su, sv, sre, sim, table), nt2 = k1_inputs(
+                dev, 7000 + ts + run_chunks, ts=ts, K=K, pixels=N, P=P,
+                max_runs=max_runs, run_chunks=run_chunks)
+            n = slot.shape[0]
+            ext2 = nt2 * 2 * ts
+            shape = (2, 2, P, ext2, ext2)
+            kr, ki, pr, pi = (torch.zeros(shape, device=dev)
+                              for _ in range(4))
+            args = (slot, n, count, iu, iv, su, sv, sre, sim, table)
+            fused_gridder.grid_planes(*args, kr, ki, ts=ts)
+            fused_gridder.grid_planes_plain(*args, pr, pi, ts=ts)
+            r64, i64 = (torch.zeros(shape, dtype=torch.float64, device=dev)
+                        for _ in range(2))
+            fused_gridder.grid_planes_plain(
+                slot, n, count, iu, iv, su, sv, sre.double(), sim.double(),
+                table.to(torch.complex128), r64, i64, ts=ts)
+            occ = fused_gridder.occupancy(slot, n, nt2)
+            written = occ.repeat_interleave(2 * ts, -2).repeat_interleave(
+                2 * ts, -1)[:, :, None]
+            scale64 = max(r64.abs().max().item(), i64.abs().max().item())
+            vs64 = {name: max((a.double() - r64).abs().where(written, 0.0)
+                              .max(), (b.double() - i64).abs()
+                              .where(written, 0.0).max()).item() / scale64
+                    for name, (a, b) in (("kernel", (kr, ki)),
+                                         ("plain", (pr, pi)))}
+            line = {"phase": "k1_long_runs", "card": card, "ts": ts, "K": K,
+                    "pixels": N, "chunks_per_run": run_chunks,
+                    "runs": int(occ.sum()), "chunks": n,
+                    **run_lengths(slot, n, count),
+                    "err_vs_float64_over_peak": vs64, "tolerance": 5e-6}
+            if ts == 64 and run_chunks == LONG_RUN_CASES[-1][0]:
+                line.update(k1_turns(parent, args, kr, ki, ts))
+            line["ok"] = vs64["kernel"] <= 5e-6
+            emit(line)
+            worst = max(worst, vs64["kernel"])
+            if not line["ok"]:
+                raise AssertionError(f"k1_long_runs at ts {ts}, runs of "
+                                     f"{run_chunks} chunks failed")
+            del kr, ki, pr, pi, r64, i64
+    args, kr, ki, ts = production
+    emit({"phase": "k1_long_runs", "card": card,
+          "case": "production slice (channel 0, slice 0)",
+          **k1_turns(parent, args, kr, ki, ts),
+          "worst_err_vs_float64_over_peak": worst})
+
+
+def run_lengths(slot, n: int, count) -> dict:
+    """The first ``n`` chunks' anchor runs by length in K1's batches
+    (``ceil(count / BATCH)`` summed over a run's chunks): how many take
+    its short body (at most ``PROMOTE`` batches) and how many its
+    promoting one, at ts 32 and 64."""
+    from katsdpimager_tpu_torch.ops import fused_gridder
+
+    s = slot[:n].long()
+    first = torch.ones(n, dtype=torch.bool, device=s.device)
+    first[1:] = s[1:] != s[:-1]
+    run = torch.cumsum(first.long(), 0) - 1
+    batches = torch.zeros(int(first.sum()), dtype=torch.long,
+                          device=s.device).index_add_(
+        0, run, -(-count[:n].long() // fused_gridder.BATCH))
+    long_runs = int((batches > fused_gridder.PROMOTE).sum())
+    return {"short_runs": batches.numel() - long_runs,
+            "long_runs": long_runs}
+
+
+def k1_turns(parent, args, kr, ki, ts) -> dict:
+    """K1's milliseconds on ``args`` and, with ``parent``, the parent
+    copy's, in turns (parent, change, change, parent; 20 launches each)."""
+    from katsdpimager_tpu_torch.ops import fused_gridder
+
+    def change():
+        fused_gridder.grid_planes(*args, kr, ki, ts=ts)
+
+    if parent is None:
+        change()
+        torch.cuda.synchronize()
+        return {"k1_ms": cuda_ms(change, 20), "parent_k1_ms": None,
+                "parent": "no copy at " + PARENT_K1_SOURCE}
+    pr, pi = torch.empty_like(kr), torch.empty_like(ki)
+    ms, parent_ms = timed_pair(lambda: parent(*args, pr, pi, ts), change,
+                               reps=20)
+    return {"k1_ms": ms, "parent_k1_ms": parent_ms,
+            "change_over_parent": ms / parent_ms}
 
 
 #: ``--w-step`` of the K = 96 runs: with K = 96 a W slice spans more W,
@@ -1944,6 +2135,389 @@ def profile_phase(dev, card, dataset, vis_block: int) -> None:
 
 
 
+def pipeline_args(argv):
+    """``pipeline``'s arguments for the simulated observation
+    (``"simulated"``: the dataset is in memory)."""
+    from katsdpimager_tpu_torch import arguments, pipeline
+
+    return pipeline.get_parser().parse_args(
+        ["simulated"] + argv, namespace=arguments.SmartNamespace())
+
+
+def cube_argv(out, vis_block: int, channels=(0, 1), extra=()):
+    """``pipeline --cube`` at full width on the simulated observation: 4096
+    px, K = 60, 2 majors, a fixed CLEAN patch of 65 (a 2-rank wave then
+    compares with waves of one channel at any patch need)."""
+    return [out, "--cube", "--pixels", "4096", "--kernel-width", "60",
+            "--stokes", "I", "--major", "2", "--no-tmp-file", "--vis-block",
+            str(vis_block), "--no-thumbnails", "--cube-psf-patch", "65",
+            "-c", str(channels[0]), "-C", str(channels[1]), *extra]
+
+
+def cube_double_phase(dev, card, dataset, vis_block: int) -> None:
+    """``pipeline --cube --precision double`` on channel 0 of the CLI's
+    observation (4096 px, K = 60, 2 majors; cut to one channel) against
+    the same run at float32 on the card: the dirty image (CLEAN's first
+    input) within 1e-4 of the float32 run's dirty peak inside the field,
+    the same CLEAN components there, float64 images, K1 and K5 launched;
+    the restored images' and models' differences printed, not gated
+    (CLEAN's components drift between float32 and float64 runs, in the
+    JAX package as much: tests/test_torch_imager.py), and both runs'
+    seconds."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from katsdpimager_tpu_torch import io, pipeline
+    from katsdpimager_tpu_torch.ops import wkernel
+    from katsdpimager_tpu_torch.parallel import cube
+
+    counters = kernel_counters()
+
+    def run(tmp, name, extra):
+        out = os.path.join(tmp, name)
+        args = pipeline_args(cube_argv(out, vis_block, (0, 1), extra))
+        cap = {"inputs": [], "models": []}
+        clean_stage = cube._clean_stage
+
+        def capture(cfg, residual, *a):
+            cap["inputs"].append(residual.cpu().numpy())
+            result = clean_stage(cfg, residual, *a)
+            cap["models"].append(result[1].cpu().numpy())
+            return result
+
+        cube._clean_stage = capture
+        torch.cuda.synchronize()
+        for fn in counters:
+            fn.launches = 0
+        t = time.perf_counter()
+        try:
+            pipeline.run(args, dataset,
+                         pipeline.PipelineWriter(out, thumbnails=False),
+                         device=dev)
+            torch.cuda.synchronize()
+        finally:
+            cube._clean_stage = clean_stage
+        cap["seconds"] = time.perf_counter() - t
+        cap["launches"] = dict(zip(KERNEL_NAMES,
+                                   [fn.launches for fn in counters]))
+        header, data = io.read_fits(os.path.join(
+            out, "image_00000_clean.fits"))
+        cap["restored"], cap["bitpix"] = np.asarray(data)[0, 0], \
+            header["BITPIX"]
+        with open(os.path.join(out, "state.json")) as f:
+            cap["state"] = json.load(f)
+        return cap
+
+    with tempfile.TemporaryDirectory() as tmp:
+        single = run(tmp, "single", [])
+        double = run(tmp, "double", ["--precision", "double"])
+    N = single["restored"].shape[-1]
+    taper = wkernel.taper(N, 7.0, 8, wkernel.default_beta(7.0))
+    t2 = np.outer(taper, taper)
+    inside = t2 >= 0.002 * t2.max()
+    dirty_s, dirty_d = single["inputs"][0], double["inputs"][0]
+    peak = float(np.abs(dirty_s).max())
+    dirty_err = float(np.abs(dirty_d - dirty_s)[:, inside].max()) / peak
+    model_s, model_d = single["models"][-1], double["models"][-1]
+    same = bool(np.array_equal((model_s != 0)[:, inside],
+                               (model_d != 0)[:, inside]))
+    restored_err = float(np.abs(double["restored"] - single["restored"])[
+        inside].max()) / peak
+    model_err = float(np.abs(model_d - model_s)[:, inside].max()) / peak
+    minor = [double["state"]["stats/0"]["minor"],
+             single["state"]["stats/0"]["minor"]]
+    f64 = (dirty_d.dtype == model_d.dtype == np.float64
+           and double["bitpix"] == -64)
+    finite = bool(np.isfinite(double["restored"][inside]).all()
+                  and np.isfinite(dirty_d).all())
+    ran = double["launches"]["K1"] > 0 and double["launches"]["K5"] > 0
+    ok = dirty_err <= 1e-4 and same and f64 and finite and ran
+    emit({"phase": "cube_double", "card": card, "pixels": N,
+          "kernel_width": 60, "majors": 2, "channels": 1,
+          "dirty_max_err_inside_over_dirty_peak": dirty_err,
+          "tolerance": 1e-4, "dirty_peak": peak,
+          "same_component_positions_inside": same,
+          "components_inside": int((model_d != 0)[:, inside].sum()),
+          "minor_double_single": minor,
+          "restored_max_err_inside_over_dirty_peak_not_gated": restored_err,
+          "model_max_err_inside_over_dirty_peak_not_gated": model_err,
+          "float64": f64, "finite": finite, "seconds": double["seconds"],
+          "single_seconds": single["seconds"],
+          "launches": double["launches"],
+          "single_launches": single["launches"], "ok": ok})
+    if not ok:
+        raise AssertionError("cube_double failed")
+
+
+#: Seconds a torchrun launch of the distributed phase may take.
+TORCHRUN_TIMEOUT_S = 600
+
+
+def torchrun(nproc: int, argv, timeout: float = TORCHRUN_TIMEOUT_S) -> float:
+    """Run ``chip_smoke.py --rank-worker *argv`` on ``nproc`` ranks through
+    ``python -m torch.distributed.run`` (gloo: the ranks share the card),
+    in a session of its own that is killed whole if it outlives
+    ``timeout``; raise unless every rank exits 0.  Returns the seconds."""
+    import os
+    import signal
+
+    from katsdpimager_tpu_torch.parallel import launch
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+           str(nproc), "--master-addr", "localhost", "--master-port",
+           str(launch.free_port()), os.path.abspath(__file__),
+           "--rank-worker", *argv]
+    t = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"torchrun {argv} outlived {timeout} s")
+    if proc.returncode != 0:
+        raise AssertionError(f"torchrun {argv} exited {proc.returncode}:\n"
+                             f"{out[-6000:]}")
+    return time.perf_counter() - t
+
+
+def rank_worker(argv) -> None:
+    """One rank of :func:`distributed_phase`, started by ``torchrun``:
+    ``pipeline OUT VIS_SHARDS`` runs ``pipeline.run --cube`` on the
+    simulated observation's 2 channels, ``step OUT`` the bench-shape step
+    (2 channels) at vis 2.  Each rank joins with the backend
+    ``initialize_distributed`` picks (gloo: the ranks outnumber the card)
+    and writes to ``OUT/rank<r>.json`` its backend, seconds, all-reduce
+    counts and seconds, and the launches of K1-K7 in the timed run (the
+    counters set to 0 just before it); rank 0 of the step also the dirty
+    images (``OUT/dirty.npy``).  The step's ranks then time 3 all-reduces
+    of a 4096 px plane pair on idle ranks (synchronised, after a
+    barrier): the transfer alone."""
+    import os
+
+    import numpy as np
+
+    from katsdpimager_tpu_torch import pipeline
+    from katsdpimager_tpu_torch.parallel import mesh
+    from katsdpimager_tpu_torch.parallel import multichannel as mc
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh.initialize_distributed()
+    kind, out = argv[0], argv[1]
+    rank = mesh.rank()
+    line = {"rank": rank, "backend": torch.distributed.get_backend()}
+    counters = kernel_counters()
+
+    def zero_counts():
+        torch.cuda.synchronize()
+        for fn in counters:
+            fn.launches = 0
+
+    if kind == "pipeline":
+        vis_shards = int(argv[2])
+        dataset, _ = sim_dataset(64, 1024, 2, noise_jy=1.0)
+        args = pipeline_args(cube_argv(os.path.join(out, "images"),
+                                       IMAGER_VIS_BLOCK, (0, 2),
+                                       ["--vis-shards", str(vis_shards)]))
+        zero_counts()
+        t = time.perf_counter()
+        timings = pipeline.run(args, dataset, pipeline.PipelineWriter(
+            os.path.join(out, "images"), thumbnails=False))
+        torch.cuda.synchronize()
+        line.update(seconds=time.perf_counter() - t, waves=timings)
+        line["launches"] = dict(zip(KERNEL_NAMES,
+                                    [fn.launches for fn in counters]))
+    else:
+        m = mesh.make_mesh(2)
+        batch = mc.make_example_batch(bench_config(), 2, vis_per_slice=1 << 19,
+                                      device="cpu")
+        local = mc.local_batch(m, batch)
+        step = mc.make_imaging_step(m, bench_config())
+        step(local)
+        torch.cuda.synchronize()
+        calls, seconds = mesh.psum.calls, mesh.psum.seconds
+        zero_counts()
+        t = time.perf_counter()
+        dirty = step(local)[0]
+        torch.cuda.synchronize()
+        line.update(seconds=time.perf_counter() - t,
+                    num_vis=int(local.valid.sum()))
+        line["launches"] = dict(zip(KERNEL_NAMES,
+                                    [fn.launches for fn in counters]))
+        if rank == 0:
+            np.save(os.path.join(out, "dirty.npy"), dirty.cpu().numpy())
+        mesh.psum.calls, mesh.psum.seconds = (mesh.psum.calls - calls,
+                                              mesh.psum.seconds - seconds)
+        N = bench_config().pixels
+        pair = [torch.ones((1, N, N), device=m.device) for _ in range(2)]
+        idle = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            torch.distributed.barrier()
+            t = time.perf_counter()
+            for x in pair:
+                torch.distributed.all_reduce(x, group=m.vis_group)
+            torch.cuda.synchronize()
+            idle.append(time.perf_counter() - t)
+        line["idle_pair_all_reduce_s"] = idle
+    line.update(psum_calls=mesh.psum.calls, psum_s=mesh.psum.seconds)
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(line, f)
+    torch.distributed.destroy_process_group()
+
+
+def bench_config():
+    """The dirty step's shape, ``bench.py``'s (``bench.py:215-228``): 4096
+    px, K = 60, oversample 8, 32 W planes, 4 W slices, 8192 chunks of 256,
+    natural weights, no CLEAN."""
+    from katsdpimager_tpu_torch.parallel import multichannel as mc
+
+    return mc.MultiChannelConfig(
+        pixels=4096, num_pols=1, kernel_width=60, oversample=8,
+        w_planes=32, w_slices=4, chunks_per_slice=8192, chunk_size=256,
+        rv=64, ru=64, minor_cycles=0, weight_type="natural")
+
+
+def distributed_phase(dev, card, dataset, vis_block: int) -> None:
+    """The mesh on the one card: ranks of one ``torchrun`` sharing it over
+    gloo.  ``pipeline --cube`` on the CLI's observation (2 channels, 4096
+    px, K = 60, 2 majors, fixed patch 65) at (chan 2, vis 1) and (chan 1,
+    vis 2) against the 1-rank run in this process: the restored images
+    within 1e-6 of its peak (the chan split) and within 1e-4 inside the
+    field (the vis split); each rank's seconds a channel, its seconds
+    blocked in all-reduce (its own kernels synchronised first) and its
+    launches of K1-K7, which must show K1, K2 and K5 on every rank: K1 and
+    K2 summed over the chan split's ranks as in the 1-rank run, and at
+    most its K1 on a vis rank (a slice whose chunks all lie on the other
+    rank launches no K1 here).  Then the bench-shape step (2 channels) at
+    vis 2 against the unsharded step, within 1e-4 of the peak inside the
+    field, K1 and K2 launched on both ranks, and an all-reduce of a plane
+    pair on idle ranks.  Every rank must have joined over gloo."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from katsdpimager_tpu_torch import io, pipeline
+    from katsdpimager_tpu_torch.ops import wkernel
+    from katsdpimager_tpu_torch.parallel import mesh
+    from katsdpimager_tpu_torch.parallel import multichannel as mc
+
+    def images(out):
+        return [np.asarray(io.read_fits(os.path.join(
+            out, f"image_{c:05d}_clean.fits"))[1])[0, 0] for c in range(2)]
+
+    def ranks(out, n):
+        lines = []
+        for r in range(n):
+            with open(os.path.join(out, f"rank{r}.json")) as f:
+                lines.append(json.load(f))
+        return lines
+
+    counters = kernel_counters()
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_out = os.path.join(tmp, "one")
+        torch.cuda.synchronize()
+        for fn in counters:
+            fn.launches = 0
+        t = time.perf_counter()
+        pipeline.run(pipeline_args(cube_argv(ref_out, vis_block, (0, 2))),
+                     dataset, pipeline.PipelineWriter(ref_out,
+                                                      thumbnails=False),
+                     device=dev)
+        torch.cuda.synchronize()
+        one_seconds = time.perf_counter() - t
+        one_launches = dict(zip(KERNEL_NAMES,
+                                [fn.launches for fn in counters]))
+        ref = images(ref_out)
+        peak = max(float(np.abs(r).max()) for r in ref)
+        N = ref[0].shape[-1]
+        taper = wkernel.taper(N, 7.0, 8, wkernel.default_beta(7.0))
+        t2 = np.outer(taper, taper)
+        inside = t2 >= 0.002 * t2.max()
+        results, ok = {}, True
+        for name, vis_shards, tol, where in (
+                ("chan 2, vis 1", 1, 1e-6, None),
+                ("chan 1, vis 2", 2, 1e-4, inside)):
+            out = os.path.join(tmp, name.replace(", ", "_").replace(" ", ""))
+            os.makedirs(out)
+            wall = torchrun(2, ["pipeline", out, str(vis_shards)])
+            got = images(os.path.join(out, "images"))
+            err = max(float(np.abs(g - r)[where if where is not None
+                                          else slice(None)].max())
+                      for g, r in zip(got, ref)) / peak
+            lines = ranks(out, 2)
+            launches = [ln["launches"] for ln in lines]
+            every = all(ln[k] > 0 for ln in launches
+                        for k in ("K1", "K2", "K5"))
+            if vis_shards == 1:
+                counted = all(sum(ln[k] for ln in launches)
+                              == one_launches[k] for k in ("K1", "K2"))
+            else:
+                counted = all(ln["K1"] <= one_launches["K1"]
+                              for ln in launches)
+            results[name] = {
+                "max_err_over_peak": err, "tolerance": tol,
+                "compared": "everywhere" if where is None
+                else "inside the field",
+                "torchrun_seconds": wall,
+                "rank_seconds": [ln["seconds"] for ln in lines],
+                "s_per_channel": max(ln["seconds"] for ln in lines) / 2,
+                "all_reduce_calls": [ln["psum_calls"] for ln in lines],
+                "blocked_in_all_reduce_s": [ln["psum_s"] for ln in lines],
+                "launches": launches, "launches_ok": every and counted,
+                "backends": [ln["backend"] for ln in lines],
+                "waves": lines[0]["waves"]}
+            ok = (ok and err <= tol and every and counted
+                  and all(ln["backend"] == "gloo" for ln in lines)
+                  and all(np.isfinite(g[inside]).all() for g in got))
+
+        out = os.path.join(tmp, "step")
+        os.makedirs(out)
+        wall = torchrun(2, ["step", out])
+        got = np.load(os.path.join(out, "dirty.npy"))
+        batch = mc.make_example_batch(bench_config(), 2, vis_per_slice=1 << 19,
+                                      device="cpu")
+        one = mesh.make_mesh(1, device=dev)
+        want = mc.make_imaging_step(one, bench_config())(
+            mc.local_batch(one, batch))[0].cpu().numpy()
+        tap = batch.taper1d[0].double().numpy()
+        t2s = np.outer(tap, tap)
+        step_inside = t2s >= 0.002 * t2s.max()
+        step_err = float(np.abs(got - want)[..., step_inside].max()) \
+            / float(np.abs(want).max())
+        lines = ranks(out, 2)
+        launches = [ln["launches"] for ln in lines]
+        every = all(ln[k] > 0 for ln in launches for k in ("K1", "K2"))
+        results["step chan 1, vis 2"] = {
+            "max_err_inside_over_peak": step_err, "tolerance": 1e-4,
+            "torchrun_seconds": wall,
+            "rank_step_seconds": [ln["seconds"] for ln in lines],
+            "all_reduce_calls": [ln["psum_calls"] for ln in lines],
+            "blocked_in_all_reduce_s": [ln["psum_s"] for ln in lines],
+            "idle_pair_all_reduce_s": [ln["idle_pair_all_reduce_s"]
+                                       for ln in lines],
+            "launches": launches, "launches_ok": every,
+            "backends": [ln["backend"] for ln in lines]}
+        ok = (ok and step_err <= 1e-4 and every
+              and all(ln["backend"] == "gloo" for ln in lines))
+    emit({"phase": "distributed", "card": card, "backend": "gloo",
+          "ranks": 2, "cards": torch.cuda.device_count(), "pixels": N,
+          "kernel_width": 60, "channels": 2,
+          "one_rank_seconds": one_seconds, "one_rank_launches": one_launches,
+          "runs": results, "ok": ok})
+    if not ok:
+        raise AssertionError("distributed phase failed")
+
+
+
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--rank-worker"]:
+        rank_worker(sys.argv[2:])
+    else:
+        main()

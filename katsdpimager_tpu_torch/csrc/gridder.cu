@@ -49,13 +49,18 @@ namespace {
 // rows in accumulator registers across the run; A and B come from shared
 // memory through descriptors, -Bi by the instruction's B scale of -1.
 // Rows and columns at or past 2ts (the padding) stage as zeros and are
-// never stored.  In such a wide window (kWide: any ts but 32 and 64,
-// whose window is one unpadded block), every kPromote batches of a longer
-// run the accumulators are promoted into the run's block of the plane by
-// IEEE adds: the tensor cores' accumulation loses more than rounding
-// would, and its error grows with the adds it takes (see kPromote).
-// ts 32 and 64 keep the code they had, with no bounds tests and no
-// promotion.  Each chunk's slot data is loaded into shared memory once;
+// never stored.  Every kPromote batches of a longer run the accumulators
+// are promoted into the run's block of the plane by IEEE adds: the tensor
+// cores' accumulation loses more than rounding would, and its error grows
+// with the adds it takes (see kPromote).  A wide window (kWide: any ts but
+// 32 and 64, whose window is one unpadded block) does so in the one
+// kernel.  At ts 32 and 64 (the production tile), where most runs hold
+// one or two chunks, the promotion's code in the band loop would cost
+// every run: there each CTA first counts its run's batches (run_batches)
+// and then takes one of two bodies, the code without promotion or bounds
+// tests for a short run (at most kPromote batches) and the promoting code
+// for a long one.
+// Each chunk's slot data is loaded into shared memory once;
 // while batch b's wgmmas run, the same threads write batch b + 1's split
 // operands (double buffered), one barrier per batch.  The JAX kernel's
 // one-hot selection and lane shift become an indexed table load with a
@@ -206,10 +211,9 @@ struct BandTile {
 // kPromote = 32, 4.0e-6 and 3.7e-6 at those two.  A run of at most
 // kPromote batches is stored once.  The totals live in the plane, not
 // in shared memory: 128 KB more of it would leave the L1 cache that K1's
-// table loads go through too small.
-// Only wide windows promote (measured at ts 64: 16% slower at kPromote
-// 16, 8% at 32; unpromoted, its sums are 8e-6 of the peak from the
-// float64 reference on dense 1024 px inputs, within K1's 2e-5 gate).
+// table loads go through too small.  At ts 64, promoting in the one band
+// loop cost every run 8% (kPromote 32) to 16% (16) of K1's time, though
+// most runs there are short: hence the two bodies at ts 32 and 64.
 constexpr int kPromote = 32;
 
 // One chunk's slot data, loaded once per chunk into shared memory.
@@ -343,32 +347,27 @@ __device__ __forceinline__ void band_issue(
   wgmma_commit();
 }
 
-template <int B, bool kWide>
-__global__ void __launch_bounds__(BandTile<B>::kThreads, 1)
-grid_planes_kernel(const int* __restrict__ slot, int n,
-                   const int* __restrict__ count,
-                   const int* __restrict__ iu, const int* __restrict__ iv,
-                   const int* __restrict__ su, const int* __restrict__ sv,
-                   const float* __restrict__ sre,
-                   const float* __restrict__ sim,
-                   const float2* __restrict__ tab,
-                   const float4* __restrict__ tabs,
-                   float* __restrict__ accr, float* __restrict__ acci,
-                   int Mc, int P, int K, int ts2, int nb, int nt2) {
+// The band of the anchor run that starts at chunk c0, polarization p, for
+// the block of window rows jr0 .. and columns jc0 .. (both 0 but in a wide
+// window), written into the run's block of the colour plane.  With
+// kPromoteSums the accumulators are promoted into the plane every
+// kPromote batches.  Every thread of the CTA enters; the shared memory is
+// the caller's.
+template <int B, bool kWide, bool kPromoteSums>
+__device__ __forceinline__ void grid_run(
+    int c0, int p, int jr0, int jc0, float* stage, ChunkSlots& cs,
+    const int* __restrict__ slot, int n, const int* __restrict__ count,
+    const int* __restrict__ iu, const int* __restrict__ iv,
+    const int* __restrict__ su, const int* __restrict__ sv,
+    const float* __restrict__ sre, const float* __restrict__ sim,
+    const float2* __restrict__ tab, const float4* __restrict__ tabs,
+    float* __restrict__ accr, float* __restrict__ acci, int Mc, int P, int K,
+    int ts2, int nt2) {
   using T = BandTile<B>;
-  const int c0 = blockIdx.x;
-  const int p = blockIdx.y;
-  // The block's first row and column, and the window's extent: a window
-  // that is one unpadded block (ts 32 and 64) knows them at compile time.
-  const int jr0 = kWide ? (blockIdx.z / nb) * B : 0;
-  const int jc0 = kWide ? (blockIdx.z % nb) * B : 0;
+  // The window's extent: a window that is one unpadded block (ts 32 and
+  // 64) knows it at compile time.
   const int w2 = kWide ? ts2 : B;
-  if (c0 >= n) return;
   const int s = slot[c0];
-  if (c0 > 0 && slot[c0 - 1] == s) return;  // not the first chunk of its run
-
-  extern __shared__ __align__(128) float stage[];  // [2][kStage]
-  __shared__ ChunkSlots cs;                    // the current chunk's slots
 
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;
@@ -435,7 +434,7 @@ grid_planes_kernel(const int* __restrict__ slot, int n,
         const int i = 4 * nb8 + 2 * h;
         float2 re = make_float2(acc_r[i], acc_r[i + 1]);
         float2 im = make_float2(acc_i[i], acc_i[i + 1]);
-        if (kWide && promoted) {
+        if (kPromoteSums && promoted) {
           const float2 tr = *reinterpret_cast<const float2*>(accr + off);
           const float2 ti = *reinterpret_cast<const float2*>(acci + off);
           re = make_float2(tr.x + re.x, tr.y + re.y);
@@ -446,20 +445,10 @@ grid_planes_kernel(const int* __restrict__ slot, int n,
       }
     }
   };
-  auto promote = [&]() {
-    flush();
-    promoted = true;
-#pragma unroll
-    for (int i = 0; i < T::kAcc; ++i) {
-      acc_r[i] = 0.f;
-      acc_i[i] = 0.f;
-    }
-  };
-  bool have = settle();
-  int buf = 0, batches = 0;
-  if (have) stage_at(stage, true);
-  __syncthreads();
-  while (have) {
+  // One batch: its wgmmas, the next batch staged while they run, the
+  // wait; returns whether the run has a next batch.
+  int buf = 0;
+  auto band_step = [&]() {
     const float* S = stage + buf * T::kStage;
     const int c_now = c;
     m0 += kKB;
@@ -469,13 +458,100 @@ grid_planes_kernel(const int* __restrict__ slot, int n,
     wgmma_wait_all();
     fence_operands(acc_r);
     fence_operands(acc_i);
-    if (kWide && ++batches % kPromote == 0 && next) promote();
     __syncthreads();
     buf ^= 1;
-    have = next;
+    return next;
+  };
+  bool have = settle();
+  if (have) stage_at(stage, true);
+  __syncthreads();
+  if constexpr (!kPromoteSums) {
+    while (have) have = band_step();
+  } else {
+    // Stretches of at most kPromote batches, each promoted into the
+    // plane before the next: the promotion stays out of the batch loop.
+    while (have) {
+      for (int b = 0; have && b < kPromote; ++b) have = band_step();
+      if (have) {
+        flush();
+        promoted = true;
+#pragma unroll
+        for (int i = 0; i < T::kAcc; ++i) {
+          acc_r[i] = 0.f;
+          acc_i[i] = 0.f;
+        }
+      }
+    }
   }
 
   flush();
+}
+
+// The batches of the anchor run that starts at chunk c0 (ceil(count /
+// kKB) summed over its chunks, as the band loop takes them), or a number
+// past kPromote once the count is past it.  Each warp counts on its own,
+// 32 chunks at a time, so every thread of the CTA gets the same number
+// with no barrier; most runs end within the first 32 chunks.
+__device__ __forceinline__ int run_batches(const int* __restrict__ slot,
+                                           int n,
+                                           const int* __restrict__ count,
+                                           int c0) {
+  const int lane = threadIdx.x % 32;
+  const int s = slot[c0];
+  int batches = 0;
+  for (int base = c0; base < n && batches <= kPromote; base += 32) {
+    const int d = base + lane;
+    // Both loads issue before either is used: one memory latency a step.
+    const int sd = d < n ? slot[d] : -1;
+    const int cd = d < n ? count[d] : 0;
+    const unsigned in = __ballot_sync(~0u, sd == s);
+    const int len = in == ~0u ? 32 : __ffs(~in) - 1;  // the run's chunks here
+    int b = lane < len ? (cd + kKB - 1) / kKB : 0;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) b += __shfl_xor_sync(~0u, b, o);
+    batches += b;
+    if (len < 32) break;
+  }
+  return batches;
+}
+
+// One CTA per chunk c0 (grid x), polarization (y) and block of the
+// window (z); the CTA whose chunk starts a run grids it.  A wide window
+// promotes its sums.  At ts 32 and 64 (kWide false) the run's length in
+// batches picks one of two bodies once per CTA: a short run takes the
+// code with neither bounds tests nor promotion, a long run the promoting
+// one.  The kernel takes the larger body's registers (222 at ts 64, where
+// the short body alone took 202; one CTA an SM either way).
+template <int B, bool kWide>
+__global__ void __launch_bounds__(BandTile<B>::kThreads, 1)
+grid_planes_kernel(const int* __restrict__ slot, int n,
+                   const int* __restrict__ count,
+                   const int* __restrict__ iu, const int* __restrict__ iv,
+                   const int* __restrict__ su, const int* __restrict__ sv,
+                   const float* __restrict__ sre,
+                   const float* __restrict__ sim,
+                   const float2* __restrict__ tab,
+                   const float4* __restrict__ tabs,
+                   float* __restrict__ accr, float* __restrict__ acci,
+                   int Mc, int P, int K, int ts2, int nb, int nt2) {
+  const int c0 = blockIdx.x;
+  if (c0 >= n) return;
+  if (c0 > 0 && slot[c0 - 1] == slot[c0]) return;  // not a run's first chunk
+  extern __shared__ __align__(128) float stage[];  // [2][kStage]
+  __shared__ ChunkSlots cs;                    // the current chunk's slots
+  if (kWide)
+    grid_run<B, true, true>(c0, blockIdx.y, (blockIdx.z / nb) * B,
+                            (blockIdx.z % nb) * B, stage, cs, slot, n, count,
+                            iu, iv, su, sv, sre, sim, tab, tabs, accr, acci,
+                            Mc, P, K, ts2, nt2);
+  else if (run_batches(slot, n, count, c0) <= kPromote)
+    grid_run<B, false, false>(c0, blockIdx.y, 0, 0, stage, cs, slot, n,
+                              count, iu, iv, su, sv, sre, sim, tab, tabs,
+                              accr, acci, Mc, P, K, B, nt2);
+  else
+    grid_run<B, false, true>(c0, blockIdx.y, 0, 0, stage, cs, slot, n, count,
+                             iu, iv, su, sv, sre, sim, tab, tabs, accr, acci,
+                             Mc, P, K, B, nt2);
 }
 
 template <int B, bool kWide>
@@ -498,6 +574,7 @@ cudaError_t launch_grid_planes(const int* slot, int n, const int* count,
       K, ts2, nb, nt2);
   return cudaGetLastError();
 }
+
 
 // ---------------------------------------------------------------------------
 // K2 -- replaces katsdpimager_tpu/ops/pallas_gridder.py:_make_combine_kernel

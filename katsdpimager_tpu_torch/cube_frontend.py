@@ -6,11 +6,25 @@ control between stages; this module runs each wave of channels through
 the whole Cotton-Schwab pipeline of :mod:`.parallel.cube` on one device,
 with beam fitting as the only host work between its device stages.
 
+A wave holds ``mesh.shape["chan"]`` channels, as in the JAX module: each
+process (rank) of a ``torch.distributed`` group drives one card, and
+the ranks form the ``("chan", "vis")`` mesh of :mod:`.parallel.mesh`
+(``--vis-shards`` ranks per channel).  Chan group ``i`` images channel
+``wave_start + i``; a partial last wave pads with its last channel, and
+the padded results are dropped.  Each rank's prefetch worker
+preprocesses and packs its own channel only; a vis rank packs the whole
+channel and keeps its contiguous block of chunks.  What the ranks must
+agree on takes one collective over all of them: the chunk capacity (the
+largest any rank measured, and a ``ChunkOverflowError`` on any rank
+makes every rank grow it and repack), the auto PSF patch (the largest
+need over the wave), and which waves a rerun skips (decided on rank 0).
+Rank 0 writes everything, as the JAX single controller does: the other
+chan groups' restored images, beams and statistics are gathered to it
+per wave.  Without a process group the mesh is 1 x 1: one channel per
+wave on one card.
+
 Differences from the JAX module:
 
-- a wave is one channel.  The JAX package puts one channel on each device
-  of its mesh (``make_mesh``); the port drives one card, and
-  ``--vis-shards`` other than 1 raises (several GPUs are ROADMAP Queue 1);
 - the packed wave arrays are pinned host tensors.  Each upload is an
   asynchronous copy followed by a CUDA event, and the prefetch worker
   waits on that arena's event before it refills the arena two waves
@@ -41,16 +55,13 @@ import torch
 
 from . import device as device_mod
 from . import frontend, native, parameters, polarization, sky_model
+from .parallel import mesh as mesh_mod
 from .ops import clean as clean_ops
 from .ops import mxu_gridder, predict, wkernel
 from .parallel import cube
 from .parallel.multichannel import ChannelBatch, ChunkOverflowError
 
 logger = logging.getLogger(__name__)
-
-#: Channels per wave: one device, one channel.
-WAVE_SIZE = 1
-
 
 def _plan_layout(reader, num_channels: int, cfg_template: dict) -> dict:
     """Measure the chunk requirements over the wave and size NC with 25%
@@ -96,9 +107,18 @@ def _patch_bucket(need: int, pixels: int) -> int:
     return min(cap, _PATCH_BUCKETS[-1])
 
 
+#: The packed arrays' real and complex dtypes by ``--precision``: the
+#: taper, pixel size and mid-w values take the real one, the
+#: visibilities the complex one; the kernel tables (K1's and K5's
+#: complex64 rows) and the weights stay single at both.
+PRECISION_DTYPES = {"single": (torch.float32, torch.complex64),
+                    "double": (torch.float64, torch.complex128)}
+
+
 def _wave_buffers(arena: dict, cfg: cube.CubeConfig, C: int,
-                  pin: bool = False) -> tuple:
-    """Zeroed batch arrays for one wave, reused across waves.
+                  pin: bool = False, precision: str = "single") -> tuple:
+    """Zeroed batch arrays for one wave, reused across waves, in the
+    dtypes of ``precision`` (:data:`PRECISION_DTYPES`).
 
     The arrays are numpy views of host tensors, pinned with ``pin`` (the
     CUDA device's asynchronous uploads need pinned memory).  Before the
@@ -110,24 +130,25 @@ def _wave_buffers(arena: dict, cfg: cube.CubeConfig, C: int,
         event.synchronize()
     S, N = cfg.w_slices, cfg.pixels
     NC, Mc, Pp = cfg.chunks_per_slice, cfg.chunk_size, cfg.num_pols
+    real, cplx = PRECISION_DTYPES[precision]
     key = (C, S, N, NC, Mc, Pp, cfg.w_planes, cfg.oversample,
-           cfg.kernel_width, pin)
+           cfg.kernel_width, pin, precision)
     if arena.get("key") != key:
         arena.clear()
         arena["key"] = key
         shapes = (
             ((C, cfg.w_planes, cfg.oversample, cfg.kernel_width),
              torch.complex64),                                 # kernels
-            ((C, N), torch.float32),                           # tapers
-            ((C,), torch.float32),                             # psizes
-            ((C, S), torch.float32),                           # midws
+            ((C, N), real),                                    # tapers
+            ((C,), real),                                      # psizes
+            ((C, S), real),                                    # midws
             ((C, S, NC, Mc, 2), torch.int32),                  # uv
             ((C, S, NC, Mc, 2), torch.int32),                  # sub
             ((C, S, NC, Mc), torch.int32),                     # wp
             ((C, S, NC, 2), torch.int32),                      # anc
             ((C, S, NC, Mc), torch.bool),                      # val
             ((C, S, NC, Mc, Pp), torch.float32),               # wts
-            ((C, S, NC, Mc, Pp), torch.complex64),             # vis
+            ((C, S, NC, Mc, Pp), cplx),                        # vis
         )
         arena["tensors"] = tuple(
             torch.zeros(shape, dtype=dtype, pin_memory=pin)
@@ -142,8 +163,10 @@ def _wave_buffers(arena: dict, cfg: cube.CubeConfig, C: int,
 
 def pack_wave_arrays(cfg: cube.CubeConfig, reader, image_ps, grid_ps,
                      wave_channels: List[int], start: int,
-                     arena: dict = None, pin: bool = False) -> tuple:
-    """Pack a wave of channels into the static chunked batch layout.
+                     arena: dict = None, pin: bool = False,
+                     precision: str = "single") -> tuple:
+    """Pack a wave of channels into the static chunked batch layout, in
+    the dtypes of ``precision``.
 
     Host work only (no device transfer), so the prefetch worker runs it
     for wave N+1 while the device runs wave N.  Returns the 11 batch
@@ -155,7 +178,7 @@ def pack_wave_arrays(cfg: cube.CubeConfig, reader, image_ps, grid_ps,
     NC, Mc = cfg.chunks_per_slice, cfg.chunk_size
     (kernels, tapers, psizes, midws, uv, sub, wp, anc, val, wts, vis,
      n_chunks) = _wave_buffers(arena if arena is not None else {}, cfg, C,
-                               pin)
+                               pin, precision)
 
     for i, ch in enumerate(wave_channels):
         rel = ch - start
@@ -163,9 +186,9 @@ def pack_wave_arrays(cfg: cube.CubeConfig, reader, image_ps, grid_ps,
         kernels[i] = wkernel.make_convolution_kernel(ip, gp)
         tapers[i] = wkernel.taper(
             N, gp.fixed.antialias_width, gp.fixed.oversample
-        ).astype(np.float32)
+        ).astype(tapers.dtype)
         psizes[i] = ip.pixel_size
-        midws[i] = wkernel.mid_w_values(ip, gp).astype(np.float32)
+        midws[i] = wkernel.mid_w_values(ip, gp).astype(midws.dtype)
         for s in range(min(S, reader.num_w_slices(rel))):
             # Coordinates first (the plan), then the payloads streamed in
             # bounded blocks.
@@ -201,10 +224,13 @@ def pack_wave_arrays(cfg: cube.CubeConfig, reader, image_ps, grid_ps,
                 val[i, s, :nc] = asg["valid"][:nc]
                 rc, rs = asg["row_chunk"], asg["row_slot"]
             row = 0
+            # The native placement writes complex64 visibilities; at
+            # double numpy places (and widens) them.
+            native_payload = use_native and vis.dtype == np.complex64
             for blk in reader.iter_slice(rel, s, 1 << 20):
                 m = len(blk)
                 rr = slice(row, row + m)
-                if use_native:
+                if native_payload:
                     native.place_payload(rc[rr], rs[rr], blk.weights,
                                          blk.vis, wts[i, s], vis[i, s])
                 else:
@@ -215,6 +241,22 @@ def pack_wave_arrays(cfg: cube.CubeConfig, reader, image_ps, grid_ps,
             n_chunks)
 
 
+def vis_block(arrs: tuple, mesh) -> tuple:
+    """The packed arrays of a vis rank: every chunk field cut to the
+    rank's contiguous block of the NC chunks (views), the occupied-chunk
+    counts to those inside it (:func:`.parallel.multichannel.local_batch`
+    cuts a batch the same way).  The arrays themselves where
+    ``vis_size`` is 1."""
+    if mesh.vis_size == 1:
+        return arrs
+    NC = arrs[4].shape[2]
+    ncl = NC // mesh.vis_size
+    nc0 = mesh.vis_index * ncl
+    block = tuple(a[:, :, nc0:nc0 + ncl] for a in arrs[4:11])
+    n_chunks = np.clip(arrs[11] - nc0, 0, ncl)
+    return tuple(arrs[:4]) + block + (n_chunks,)
+
+
 def batch_from_arrays(arrs: tuple, device=None,
                       arena: dict = None) -> ChannelBatch:
     """The :class:`ChannelBatch` of packed wave arrays on ``device``
@@ -223,9 +265,10 @@ def batch_from_arrays(arrs: tuple, device=None,
     On CUDA each array is copied asynchronously (from pinned memory when
     the arena pinned it), and an event recorded after the copies goes
     into ``arena``: :func:`_wave_buffers` waits on it before the arena is
-    refilled.  On the CPU the batch shares the arena's memory: a wave's
-    batch is used up before its arena is packed again, two waves later.
-    The occupied-chunk counts stay on the host."""
+    refilled.  On the CPU the batch shares the arena's memory (a vis
+    block is copied): a wave's batch is used up before its arena is
+    packed again, two waves later.  The occupied-chunk counts stay on the
+    host."""
     device = device_mod.resolve(device)
     *arrays, n_chunks = arrs
     if device.type == "cuda":
@@ -236,7 +279,8 @@ def batch_from_arrays(arrs: tuple, device=None,
             event.record()
             arena["event"] = event
     else:
-        tensors = [torch.from_numpy(a).to(device) for a in arrays]
+        tensors = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                   for a in arrays]
     return ChannelBatch(*tensors, n_chunks=torch.from_numpy(n_chunks.copy()))
 
 
@@ -264,29 +308,53 @@ def _sky_batch(cfg, subtract_model, dataset, image_ps, grid_ps, wave_channels,
                            for a in (sky_lmn, sky_flux, scales)))
 
 
-def _check_args(args) -> None:
-    """Raise on what the port's cube does not run."""
-    if args.precision == "double":
-        raise NotImplementedError(
-            "--cube --precision double is not ported: the wave runs its "
-            "float32 parts path only, not the JAX wave's complex path "
-            "(katsdpimager_tpu/parallel/cube.py:146-148; ROADMAP, Queue 1)")
+def _check_args(args, world: int = None) -> None:
+    """Raise where ``--vis-shards`` does not divide the number of ranks
+    (``world``, default: the process group's size, 1 without one)."""
     vis_shards = getattr(args, "vis_shards", 1)
-    if vis_shards != 1:
-        raise NotImplementedError(
-            f"--vis-shards {vis_shards}: the port's cube runs on one GPU; "
-            "several GPUs are not ported (ROADMAP, Queue 1)")
+    if world is None:
+        world = mesh_mod.world_size()
+    if vis_shards < 1 or world % vis_shards:
+        raise ValueError(f"--vis-shards {vis_shards} does not divide the "
+                         f"{world} process(es) of the run")
+
+
+def pack_agreed(pack, cfg, mesh) -> tuple:
+    """``(arrays, cfg, overflowed)``: ``pack(cfg)`` packs this rank's
+    wave at the chunk capacity of ``cfg`` or raises
+    :class:`ChunkOverflowError`.  An overflow on any rank (one
+    ``all_reduce`` over all of them) makes every rank double the capacity
+    and pack again, so the ranks keep one layout; ``overflowed`` says
+    whether this rank's own packing overflowed."""
+    overflowed = False
+    while True:
+        try:
+            arrs, overflow = pack(cfg), False
+        except ChunkOverflowError:
+            arrs, overflow = None, True
+        overflowed = overflowed or overflow
+        if not mesh_mod.all_max_int(overflow, mesh):
+            return arrs, cfg, overflowed
+        cfg = dataclasses.replace(
+            cfg, chunks_per_slice=cfg.chunks_per_slice * 2)
+        logger.info("Growing chunk capacity to %d", cfg.chunks_per_slice)
 
 
 def run_cube(args, dataset, writer, *, device=None,
              plain: bool = False) -> list:
-    """Image the requested channel range in waves on ``device`` (None:
-    the CUDA device, which must exist); ``plain`` runs every kernel's
-    plain version.  Returns one dict of host seconds per wave run
-    (``host_s``: preprocess and pack in the worker; ``blocked_s``: the
-    wait for it; ``device_write_s``: the device stages and the writes)."""
-    device = device_mod.resolve(device)
+    """Image the requested channel range in waves of ``mesh.shape["chan"]``
+    channels on ``device`` (None: this rank's card under a process group,
+    else the CUDA device, which must exist); ``plain`` runs every
+    kernel's plain version.  Only rank 0 writes through ``writer``.
+    Returns one dict per wave run of this rank: its channel, its host
+    seconds (``host_s``: preprocess and pack in the worker;
+    ``blocked_s``: the wait for it; ``device_write_s``: the device
+    stages, the gather and the writes), the chunk capacity and whether
+    this rank's packing overflowed it."""
     _check_args(args)
+    mesh = mesh_mod.make_mesh(getattr(args, "vis_shards", 1), device=device)
+    device = mesh.device
+    wave_size = mesh.chan_size
     pin = device.type == "cuda"
     input_polarizations = dataset.polarizations()
     mueller = (polarization.polarization_matrix(args.stokes,
@@ -345,23 +413,31 @@ def run_cube(args, dataset, writer, *, device=None,
     w_slices = max(p.grid_p.w_slices for p in all_params)
     w_planes = max(p.grid_p.w_planes for p in all_params)
 
-    # Waves to run: fully written waves are dropped up front, so the
-    # prefetch never preprocesses a skipped wave.
+    # Waves to run: fully written waves are dropped up front (decided on
+    # rank 0, which writes), so the prefetch never preprocesses a skipped
+    # wave.  A partial last wave pads with its last channel; this rank
+    # images the channel of its chan group.
+    starts = list(range(0, len(channels), wave_size))
+    todo = None
+    if mesh.rank == 0:
+        todo = []
+        for wave_start in starts:
+            wave_channels = channels[wave_start:wave_start + wave_size]
+            if all(writer.channel_already_done(dataset, ch)
+                   for ch in wave_channels):
+                logger.info("Skipping wave %s: already done", wave_channels)
+            else:
+                todo.append(wave_start)
     waves = []
-    for wave_start in range(0, len(channels), WAVE_SIZE):
-        wave_channels = channels[wave_start:wave_start + WAVE_SIZE]
-        if all(writer.channel_already_done(dataset, ch)
-               for ch in wave_channels):
-            logger.info("Skipping wave %s: already done", wave_channels)
-            continue
-        start = wave_channels[0]
-        stop = wave_channels[-1] + 1
-        image_ps = [all_params[ch - channels[0]].image_p
-                    for ch in range(start, stop)]
+    for wave_start in mesh_mod.broadcast(todo, mesh):
+        wave_channels = channels[wave_start:wave_start + wave_size]
+        padded = wave_channels + [wave_channels[-1]] * (
+            wave_size - len(wave_channels))
+        mine = padded[mesh.chan_index]
+        image_ps = [all_params[mine - channels[0]].image_p]
         grid_ps = [parameters.GridParameters(fixed_grid_p, w_slices,
-                                             w_planes)
-                   for _ in range(start, stop)]
-        waves.append((wave_channels, start, stop, image_ps, grid_ps))
+                                             w_planes)]
+        waves.append((wave_channels, mine, image_ps, grid_ps))
 
     # The chunk capacity is set on the first wave and may grow on
     # overflow; the worker reads it from this box when its preprocessing
@@ -372,20 +448,22 @@ def run_cube(args, dataset, writer, *, device=None,
     arenas = ({}, {})
 
     def _prepare_wave(wave, wave_idx):
-        """Load, compress and pack a wave: all of its host data work, off
-        the main thread."""
-        wave_channels, start, stop, image_ps, grid_ps = wave
+        """Load, compress and pack this rank's channel of a wave: all of
+        its host data work, off the main thread."""
+        _, mine, image_ps, grid_ps = wave
         t0 = time.monotonic()
         collector = frontend.preprocess_visibilities(
-            dataset, args, start, stop, image_ps, grid_ps, mueller, device)
+            dataset, args, mine, mine + 1, image_ps, grid_ps, mueller,
+            device)
         reader = collector.reader()
         arrs = None
         pack_cfg = cfg_box[0]
         if pack_cfg is not None:
             try:
                 arrs = pack_wave_arrays(pack_cfg, reader, image_ps,
-                                        grid_ps, wave_channels, start,
-                                        arena=arenas[wave_idx % 2], pin=pin)
+                                        grid_ps, [mine], mine,
+                                        arena=arenas[wave_idx % 2], pin=pin,
+                                        precision=args.precision)
             except ChunkOverflowError:
                 arrs = None   # the main thread grows the layout, repacks
         return reader, arrs, pack_cfg, time.monotonic() - t0
@@ -398,7 +476,10 @@ def run_cube(args, dataset, writer, *, device=None,
         next_reader = (prefetch.submit(_prepare_wave, waves[0], 0)
                        if waves else None)
         for wave_idx, wave in enumerate(waves):
-            wave_channels, start, stop, image_ps, grid_ps = wave
+            wave_channels, mine, image_ps, grid_ps = wave
+            # Whether this rank's channel is the wave's own, not a pad
+            # (a pad's results are dropped).
+            real = mesh.chan_index < len(wave_channels)
 
             t_block0 = time.monotonic()
             reader, arrs, packed_cfg, t_host = next_reader.result()
@@ -433,48 +514,49 @@ def run_cube(args, dataset, writer, *, device=None,
                                                 0.1),
                 )
                 template = _plan_layout(reader, len(image_ps), template)
+                # Every rank takes the largest capacity any rank measured.
+                template["chunks_per_slice"] = mesh_mod.all_max_int(
+                    template["chunks_per_slice"], mesh)
                 cfg = cube.CubeConfig(**template)
                 cfg_box[0] = cfg
                 logger.info("Cube config: %s", cfg)
 
             arena = arenas[wave_idx % 2]
-            while True:
-                try:
-                    if arrs is None or packed_cfg != cfg:
-                        # Not packed by the worker: the first wave, an
-                        # overflow there, or a layout grown since.
-                        arrs = pack_wave_arrays(
-                            cfg, reader, image_ps, grid_ps, wave_channels,
-                            start, arena=arena, pin=pin)
-                        packed_cfg = cfg
-                    batch = batch_from_arrays(arrs, device, arena)
-                    break
-                except ChunkOverflowError:
-                    arrs = None
-                    cfg = dataclasses.replace(
-                        cfg, chunks_per_slice=cfg.chunks_per_slice * 2)
-                    cfg_box[0] = cfg
-                    logger.info("Growing chunk capacity to %d",
-                                cfg.chunks_per_slice)
+
+            worker_arrs, worker_cfg = arrs, packed_cfg
+
+            def pack(layout):
+                # The worker's arrays where it packed this layout;
+                # otherwise the first wave, an overflow there, or a
+                # layout grown since.
+                if worker_arrs is not None and worker_cfg == layout:
+                    return worker_arrs
+                return pack_wave_arrays(layout, reader, image_ps, grid_ps,
+                                        [mine], mine, arena=arena, pin=pin,
+                                        precision=args.precision)
+
+            arrs, cfg, overflowed = pack_agreed(pack, cfg, mesh)
+            cfg_box[0] = cfg
+            batch = batch_from_arrays(vis_block(arrs, mesh), device, arena)
 
             sky = None
             if subtract_model is not None:
                 sky = _sky_batch(cfg, subtract_model, dataset, image_ps,
-                                 grid_ps, wave_channels, start, pol_index,
-                                 device)
+                                 grid_ps, [mine], mine, pol_index, device)
 
             if auto_patch:
-                psf_res = cube.wave_psf(cfg, batch, plain=plain)
+                psf_res = cube.wave_psf(cfg, batch, plain=plain, mesh=mesh)
                 psf_np = psf_res.psf.cpu().numpy()
-                boxes = [clean_ops.psf_patch(psf_np[i], args.psf_cutoff,
-                                             args.psf_limit)
-                         for i in range(len(wave_channels))]
-                need = max(max(b[1], b[2]) for b in boxes)
+                box = clean_ops.psf_patch(psf_np[0], args.psf_cutoff,
+                                          args.psf_limit)
+                # The patch is sized over the wave's own channels.
+                need = mesh_mod.all_max_int(
+                    max(box[1], box[2]) if real else 0, mesh)
                 patch = _patch_bucket(need, cfg.pixels)
                 logger.info("Wave %s: PSF patch %dx%d (need %d)",
                             wave_channels, patch, patch, need)
                 residual, model, noise_t, minor_t = cube.wave_clean(
-                    cfg, batch, psf_res, patch, sky, plain=plain)
+                    cfg, batch, psf_res, patch, sky, plain=plain, mesh=mesh)
                 half = cfg.pixels // 2
                 c0 = half - cfg.psf_core // 2
                 cores = psf_np[:, :, c0:c0 + cfg.psf_core,
@@ -486,71 +568,63 @@ def run_cube(args, dataset, writer, *, device=None,
                     psf_res.normalized_noise)
                 patch_used = patch
             else:
-                result = cube.wave_image(cfg, batch, sky, plain=plain)
+                result = cube.wave_image(cfg, batch, sky, plain=plain,
+                                         mesh=mesh)
                 ms, fitted_beams = cube.fit_wave_beams(result.psf_core)
                 patch_used = cfg.patch
-            pbeams = None
+            image_p = image_ps[0]
+            pbeam = None
             if beams is not None:
                 from .units import C_M_PER_S
 
                 N = cfg.pixels
-                pbeams = np.empty((len(wave_channels), N, N), np.float32)
-                for i, ch in enumerate(wave_channels):
-                    ip = image_ps[ch - start]
-                    coords = (np.arange(N) - N / 2) * ip.pixel_size
-                    pbeams[i] = beams.sample_grid(
-                        coords, coords, C_M_PER_S / ip.wavelength)
-                pbeams = torch.from_numpy(pbeams).to(device)
-            final = cube.wave_restore(cfg, result.model, result.residual, ms,
-                                      pbeams).cpu().numpy()
-            noise = result.noise.cpu().numpy()
-            psf_peaks = result.psf_peak.cpu().numpy()
-            minors = result.minor.cpu().numpy()
-            w_noise = result.weights_noise.cpu().numpy()
-            # Thermal noise from the weights takes the dataset's weight
-            # calibration, as the per-channel path does.
-            wscale = dataset.weight_scale()
-            if wscale is not None:
-                w_noise = np.where(w_noise < 0, w_noise, w_noise * wscale)
-            norm_noise = result.normalized_noise.cpu().numpy()
-            if pbeams is not None:
-                pbeams = pbeams.cpu().numpy()
-            for i, ch in enumerate(wave_channels):
-                rel = ch - start
-                image_p = image_ps[rel]
-                if np.any(psf_peaks[i] == 0):
-                    logger.info("Skipping channel %d which has no usable "
-                                "data", ch)
-                    writer.skip_channel(dataset, image_p, ch)
-                    continue
-                writer.write_fits_image("clean", "clean image", dataset,
-                                        final[i], image_p, ch,
-                                        fitted_beams[i])
-                pbeam = (pbeams[i] if pbeams is not None
-                         else np.ones(final[i].shape[-2:], final.dtype))
-                peak = frontend.find_peak(final[i], pbeam, float(noise[i]))
-                totals = frontend.get_totals(image_p, final[i],
-                                             fitted_beams[i])
-                wn = w_noise[i]
-                writer.statistics(
-                    dataset, ch, major=cfg.majors, minor=int(minors[i]),
-                    peak=peak, totals=totals, noise=float(noise[i]),
-                    weights_noise=(None if wn < 0 else float(wn)),
-                    normalized_noise=float(norm_noise[i]),
-                    psf_patch_size=(patch_used, patch_used),
-                    compressed_vis=sum(
-                        reader.len(rel, s) for s in range(w_slices)),
-                    image_parameters=image_p, grid_parameters=grid_ps[rel],
-                    clean_parameters=clean_p,
-                    restoring_beam=fitted_beams[i])
+                coords = (np.arange(N) - N / 2) * image_p.pixel_size
+                pbeam = beams.sample_grid(
+                    coords, coords, C_M_PER_S / image_p.wavelength
+                ).astype(np.float32)
+            final = cube.wave_restore(
+                cfg, result.model, result.residual, ms,
+                None if pbeam is None
+                else torch.from_numpy(pbeam[None]).to(device))[0]
+            out = None
+            if real and mesh.vis_index == 0:
+                # Thermal noise from the weights takes the dataset's
+                # weight calibration, as the per-channel path does.
+                w_noise = result.weights_noise.cpu().numpy()
+                wscale = dataset.weight_scale()
+                if wscale is not None:
+                    w_noise = np.where(w_noise < 0, w_noise,
+                                       w_noise * wscale)
+                out = dict(
+                    channel=mine, final=final.cpu().numpy(), pbeam=pbeam,
+                    beam=fitted_beams[0],
+                    noise=float(result.noise.cpu().numpy()[0]),
+                    psf_peak=result.psf_peak[0].cpu().numpy(),
+                    minor=int(result.minor[0]),
+                    weights_noise=float(w_noise[0]),
+                    normalized_noise=float(
+                        result.normalized_noise.cpu().numpy()[0]),
+                    compressed_vis=sum(reader.len(0, s)
+                                       for s in range(w_slices)))
             reader.close()
+            gathered = mesh_mod.gather_to_rank0(out, mesh)
+            if mesh.rank == 0:
+                for res in sorted((r for r in gathered if r is not None),
+                                  key=lambda r: r["channel"]):
+                    _write_channel(
+                        writer, dataset, res,
+                        all_params[res["channel"] - channels[0]].image_p,
+                        grid_ps[0], cfg, patch_used, clean_p)
             # Host data-plane seconds (preprocess and pack in the worker)
             # against the seconds the pipeline waited for them, and the
-            # device stages with the writes.
+            # device stages with the gather and the writes.
             t_rest = time.monotonic() - t_wave0
             timings.append({"channels": list(wave_channels),
-                            "host_s": t_host, "blocked_s": t_blocked,
-                            "device_write_s": t_rest})
+                            "channel": mine, "host_s": t_host,
+                            "blocked_s": t_blocked,
+                            "device_write_s": t_rest,
+                            "chunks_per_slice": cfg.chunks_per_slice,
+                            "overflowed": overflowed})
             logger.info(
                 "Wave %s timing: host preprocess+pack %.1fs (pipeline "
                 "blocked %.1fs), device+write %.1fs -> %.2f s/channel",
@@ -559,3 +633,31 @@ def run_cube(args, dataset, writer, *, device=None,
     finally:
         prefetch.shutdown(wait=True)
     return timings
+
+
+def _write_channel(writer, dataset, res: dict, image_p, grid_p, cfg,
+                   patch_used: int, clean_p) -> None:
+    """Write one channel's restored image and statistics (rank 0), or
+    mark it as having no usable data."""
+    ch, final = res["channel"], res["final"]
+    if np.any(res["psf_peak"] == 0):
+        logger.info("Skipping channel %d which has no usable data", ch)
+        writer.skip_channel(dataset, image_p, ch)
+        return
+    beam = res["beam"]
+    writer.write_fits_image("clean", "clean image", dataset, final, image_p,
+                            ch, beam)
+    pbeam = (res["pbeam"] if res["pbeam"] is not None
+             else np.ones(final.shape[-2:], final.dtype))
+    peak = frontend.find_peak(final, pbeam, res["noise"])
+    totals = frontend.get_totals(image_p, final, beam)
+    wn = res["weights_noise"]
+    writer.statistics(
+        dataset, ch, major=cfg.majors, minor=res["minor"], peak=peak,
+        totals=totals, noise=res["noise"],
+        weights_noise=(None if wn < 0 else wn),
+        normalized_noise=res["normalized_noise"],
+        psf_patch_size=(patch_used, patch_used),
+        compressed_vis=res["compressed_vis"], image_parameters=image_p,
+        grid_parameters=grid_p, clean_parameters=clean_p,
+        restoring_beam=beam)

@@ -157,13 +157,15 @@ def build() -> str:
     return out
 
 
-def ptxas_report() -> list[dict]:
-    """Per kernel of the built library, what ``ptxas -v`` reported:
-    ``source``, ``function`` (mangled), ``registers``, ``spill_stores``,
+def ptxas_report(text=None) -> list[dict]:
+    """Per kernel of the built library (or of ``text``, an ``nvcc``'s
+    ``ptxas -v`` output), what ``ptxas -v`` reported: ``source``,
+    ``function`` (mangled), ``registers``, ``spill_stores``,
     ``spill_loads``, ``stack_bytes`` and ``static_smem_bytes`` (dynamic
     shared memory is set at launch and not included)."""
-    with open(os.path.join(os.path.dirname(lib_path()), _REPORT)) as f:
-        text = f.read()
+    if text is None:
+        with open(os.path.join(os.path.dirname(lib_path()), _REPORT)) as f:
+            text = f.read()
     out, source, cur = [], None, None
     for line in text.splitlines():
         m = re.match(r"// source (\S+)", line)

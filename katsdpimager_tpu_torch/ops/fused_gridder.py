@@ -49,6 +49,13 @@ MAX_CHUNK = 256
 #: The largest tile size K1 takes (every ts up to it with K <= ts + 1).
 MAX_TILE = 256
 
+#: Visibilities per K1 batch (its MMA depth) and the batches its tensor
+#: cores sum before the sums are promoted into the plane (``kKB`` and
+#: ``kPromote`` in ``csrc/gridder.cu``): an anchor run of more than
+#: ``PROMOTE`` batches is a long run.
+BATCH = 8
+PROMOTE = 32
+
 
 # ---------------------------------------------------------------------------
 # K1: per-anchor band accumulation into the colour planes
@@ -135,7 +142,10 @@ def grid_planes(slot, n: int, count, iu, iv, su, sv, sre, sim, table, accr,
     TF32 hi and lo), FP32 accurate; the block stays in accumulator
     registers and is written once, with no atomics (details in the CUDA
     source).  Takes every ``ts`` up to :data:`MAX_TILE` with
-    ``K <= ts + 1``; chunks hold at most :data:`MAX_CHUNK` slots.
+    ``K <= ts + 1``; chunks hold at most :data:`MAX_CHUNK` slots.  The
+    tensor cores' sums are promoted into the plane every :data:`PROMOTE`
+    batches of a run; at ts 32 and 64 each CTA counts its run's batches
+    first, and only a long run takes the kernel's promoting body.
     """
     if accr.device.type == "cpu":
         grid_planes_plain(slot, n, count, iu, iv, su, sv, sre, sim, table,

@@ -18,13 +18,28 @@ wave of channels runs, channel after channel:
    (:func:`fit_wave_beams`); then :func:`wave_restore` convolves each
    model with its beam and adds the residual.
 
-The JAX package shards the channels over a mesh and vmaps them; here
-each ``shard_map``/``vmap`` over channels is a loop over channels, and
-the ``vis``-axis psum drops out at one device.  Each slice's
-occupied-chunk count is a host int (:attr:`ChannelBatch.n_chunks`), so
-empty slices are skipped without a device sync.  ``plain`` runs every
-kernel's plain version whatever the device: the reference the kernels
-are held to on the card.
+The JAX package shards the channels over a mesh and vmaps them; here a
+rank's ``vmap`` over its channels is a loop over them, and under a
+``mesh`` (:mod:`.mesh`) with ``vis_size > 1`` this rank holds a block of
+each channel's chunks: the weight grid and every slice's grid planes are
+summed over its vis group (:func:`.mesh.psum`, where the JAX package
+has ``psum``), so every rank of the group holds the same dirty images
+and runs the same CLEAN, as each JAX vis shard does.  Degridding,
+prediction and CLEAN need no collective.  Each slice's occupied-chunk
+count is a host int (:attr:`ChannelBatch.n_chunks`), so empty slices are
+skipped without a device sync; the skip follows the group's maximum of
+the counts (:func:`.mesh.pmax_ints`).  ``plain`` runs every kernel's
+plain version whatever the device: the reference the kernels are held
+to on the card.
+
+The precision follows the batch's dtypes
+(:func:`.multichannel.precision_of`): complex64 visibilities and a
+float32 taper run every kernel; complex128 and float64 (``--precision
+double``) take the JAX wave's complex path, on the per-channel CLI's
+double route: K1's float32 colour planes added onto float64 grids,
+``torch.fft`` at complex128, CLEAN, the beam and the restore at float64,
+and K5 on float32 planes cut from the float64 model's grid.  The weight
+grid and the density stay float32 at both.
 """
 
 from __future__ import annotations
@@ -39,6 +54,7 @@ from ..ops import beam as beam_ops
 from ..ops import clean as clean_ops
 from ..ops import fourier, mxu_gridder, predict
 from . import multichannel
+from .mesh import pmax_ints, psum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,7 +130,7 @@ class PsfWaveResult(NamedTuple):
 
 
 def _check_supported(cfg: CubeConfig, vis, taper1d) -> None:
-    multichannel.check_float32(vis, taper1d)
+    multichannel.precision_of(vis, taper1d)
 
 
 def _wave_sky(cfg: CubeConfig, sky):
@@ -129,15 +145,16 @@ def _wave_sky(cfg: CubeConfig, sky):
 
 def _grid_slices(cfg: CubeConfig, kernel, density, uv, sub_uv, w_plane,
                  anchor, valid, vis, taper1d, pixel_size, mid_w, nc_slices,
-                 plain: bool = False):
+                 plain: bool = False, mesh=None, take=None):
     """W-stacked image of chunked visibilities (K1, K2 and the routed
-    grid -> image transform per slice: :func:`multichannel.image_slices`)."""
+    grid -> image transform per slice, each slice's grid summed over the
+    vis group: :func:`multichannel.image_slices`)."""
     if cfg.weight_type == "natural":
         density = None   # density == 1: skip the per-vis window lookups
     return multichannel.image_slices(
         kernel, density, taper1d, pixel_size, mid_w, uv, sub_uv, w_plane,
         anchor, valid, vis, nc_slices, pixels=cfg.pixels, ts=cfg.rv,
-        plain=plain)
+        plain=plain, mesh=mesh, take=take)
 
 
 def _degrid_slices(cfg: CubeConfig, kernel, model, uv, sub_uv, w_plane,
@@ -225,16 +242,22 @@ def _clean_stage(cfg: CubeConfig, residual, model, psf_patch_arr):
 
 def _channel_density_psf(cfg: CubeConfig, kernel, taper1d, pixel_size,
                          mid_w, uv, sub_uv, w_plane, anchor, valid, weights,
-                         nc_slices, plain: bool = False):
-    """Imaging weights and the normalized PSF of one channel."""
+                         nc_slices, plain: bool = False, mesh=None,
+                         take=None):
+    """Imaging weights and the normalized PSF of one channel (this rank's
+    chunks of it under a ``mesh``: the weight grid and the PSF's grids
+    are summed over the vis group)."""
     N, Pp = cfg.pixels, cfg.num_pols
     half = N // 2
     dev = weights.device
+    cdtype = (torch.complex128 if taper1d.dtype == torch.float64
+              else torch.complex64)
 
     # ---- imaging weights (natural / uniform / robust; Briggs formulas,
     # including the robust mean-weight pass)
     if cfg.weight_type in ("uniform", "robust"):
-        wgrid = multichannel.weight_grid(Pp, N, uv, valid, weights)
+        wgrid = psum(multichannel.weight_grid(Pp, N, uv, valid, weights),
+                     mesh)
         if cfg.weight_type == "robust":
             w0 = wgrid[0]
             mean_w = (w0 * w0).sum() / w0.sum()
@@ -263,8 +286,9 @@ def _channel_density_psf(cfg: CubeConfig, kernel, taper1d, pixel_size,
 
     # ---- PSF: grid the weights as visibilities
     psf = _grid_slices(cfg, kernel, density, uv, sub_uv, w_plane, anchor,
-                       valid, weights.to(torch.complex64) * valid[..., None],
-                       taper1d, pixel_size, mid_w, nc_slices, plain=plain)
+                       valid, weights.to(cdtype) * valid[..., None],
+                       taper1d, pixel_size, mid_w, nc_slices, plain=plain,
+                       mesh=mesh, take=take)
     psf_peak = psf[:, half, half]
     scale = torch.where(psf_peak != 0,
                         1.0 / torch.where(psf_peak != 0, psf_peak, 1.0), 0.0)
@@ -275,19 +299,21 @@ def _channel_density_psf(cfg: CubeConfig, kernel, taper1d, pixel_size,
 def _channel_majors(cfg: CubeConfig, kernel, taper1d, pixel_size, mid_w,
                     uv, sub_uv, w_plane, anchor, valid, weights, vis,
                     density, scale, patch, nc_slices, sky=None,
-                    plain: bool = False):
+                    plain: bool = False, mesh=None, take=None):
     """Major cycles of one channel given its density weights and PSF
     patch; with ``sky`` (this channel's ``(lmn, flux, uvw_scales)``) the
     sky model is subtracted first, once: every major cycle degrids
-    against the subtracted visibilities.  Returns (residual, model,
-    noise, minor cycles in all)."""
+    against the subtracted visibilities.  Under a ``mesh`` this rank
+    subtracts and degrids its own chunks, and each dirty image's grids
+    are summed over the vis group.  Returns (residual, model, noise,
+    minor cycles in all)."""
     N, Pp = cfg.pixels, cfg.num_pols
     dev = vis.device
     if sky is not None:
         vis = _predict_subtract_slices(cfg, *sky[:2], uv, sub_uv, w_plane,
                                        valid, weights, vis, sky[2], mid_w,
                                        nc_slices)
-    model = torch.zeros((Pp, N, N), dtype=torch.float32, device=dev)
+    model = torch.zeros((Pp, N, N), dtype=taper1d.dtype, device=dev)
     cur_vis = vis
     minor_total = torch.zeros((), dtype=torch.int32, device=dev)
     for major in range(cfg.majors):
@@ -298,7 +324,8 @@ def _channel_majors(cfg: CubeConfig, kernel, taper1d, pixel_size, mid_w,
                                      plain=plain)
         dirty = _grid_slices(cfg, kernel, density, uv, sub_uv, w_plane,
                              anchor, valid, cur_vis, taper1d, pixel_size,
-                             mid_w, nc_slices, plain=plain)
+                             mid_w, nc_slices, plain=plain, mesh=mesh,
+                             take=take)
         dirty = fourier.scale_image(dirty, scale)
         residual, model, noise, cycles = _clean_stage(cfg, dirty, model,
                                                       patch)
@@ -321,16 +348,19 @@ def _channel(batch: multichannel.ChannelBatch, c: int):
 
 
 def wave_psf(cfg: CubeConfig, batch: multichannel.ChannelBatch, *,
-             plain: bool = False) -> PsfWaveResult:
+             plain: bool = False, mesh=None) -> PsfWaveResult:
     """Phase A of the auto-patch route: density weights and the full
-    normalized PSF of every channel of the wave."""
+    normalized PSF of every channel of the wave (of this rank's chunks
+    under a ``mesh``, summed over its vis group)."""
     _check_supported(cfg, batch.vis, batch.taper1d)
     outs = []
     for c in range(batch.kernel.shape[0]):
         (kern, tap, ps, midw, uv, sub, wp, anc, val, wt, _), nc = _channel(
             batch, c)
         outs.append(_channel_density_psf(cfg, kern, tap, ps, midw, uv, sub,
-                                         wp, anc, val, wt, nc, plain=plain))
+                                         wp, anc, val, wt, nc, plain=plain,
+                                         mesh=mesh,
+                                         take=pmax_ints(nc, mesh)))
     return PsfWaveResult(*(torch.stack(x) for x in zip(*outs)))
 
 
@@ -342,12 +372,12 @@ def _sky_of(sky, c: int):
 
 def wave_clean(cfg: CubeConfig, batch: multichannel.ChannelBatch,
                psf_result: PsfWaveResult, patch: int,
-               sky: SkyBatch = None, *, plain: bool = False):
+               sky: SkyBatch = None, *, plain: bool = False, mesh=None):
     """Phase B of the auto-patch route: the major cycles with a CLEAN
     patch of ``patch`` pixels cut from phase A's PSFs, after the
-    continuum subtraction of ``sky`` where ``cfg.num_sources > 0``.
-    Returns (residual, model, noise, minor), each stacked over the
-    channels."""
+    continuum subtraction of ``sky`` where ``cfg.num_sources > 0`` (this
+    rank's chunks under a ``mesh``).  Returns (residual, model, noise,
+    minor), each stacked over the channels."""
     _check_supported(cfg, batch.vis, batch.taper1d)
     sky = _wave_sky(cfg, sky)
     cfgp = dataclasses.replace(cfg, patch=patch)
@@ -359,28 +389,32 @@ def wave_clean(cfg: CubeConfig, batch: multichannel.ChannelBatch,
             cfgp, kern, tap, ps, midw, uv, sub, wp, anc, val, wt, vis,
             psf_result.density[c], psf_result.scale[c],
             _centre(psf_result.psf[c], patch), nc, sky=_sky_of(sky, c),
-            plain=plain))
+            plain=plain, mesh=mesh, take=pmax_ints(nc, mesh)))
     return tuple(torch.stack(x) for x in zip(*outs))
 
 
 def wave_image(cfg: CubeConfig, batch: multichannel.ChannelBatch,
-               sky: SkyBatch = None, *, plain: bool = False) -> WaveResult:
+               sky: SkyBatch = None, *, plain: bool = False,
+               mesh=None) -> WaveResult:
     """A wave of channels through everything before the restore: weights,
     PSF, the continuum subtraction of ``sky`` where ``cfg.num_sources >
-    0``, the major cycles and their CLEAN stages."""
+    0``, the major cycles and their CLEAN stages.  Under a ``mesh``,
+    ``batch`` is this rank's shard (:func:`.multichannel.local_batch`)
+    and every rank of a vis group returns the same images."""
     _check_supported(cfg, batch.vis, batch.taper1d)
     sky = _wave_sky(cfg, sky)
     outs = []
     for c in range(batch.kernel.shape[0]):
         args, nc = _channel(batch, c)
+        take = pmax_ints(nc, mesh)
         kern, tap, ps, midw, uv, sub, wp, anc, val, wt, vis = args
         density, psf, psf_peak, scale, w_rms, w_norm = _channel_density_psf(
             cfg, kern, tap, ps, midw, uv, sub, wp, anc, val, wt, nc,
-            plain=plain)
+            plain=plain, mesh=mesh, take=take)
         residual, model, noise, minor = _channel_majors(
             cfg, kern, tap, ps, midw, uv, sub, wp, anc, val, wt, vis,
             density, scale, _centre(psf, cfg.patch), nc,
-            sky=_sky_of(sky, c), plain=plain)
+            sky=_sky_of(sky, c), plain=plain, mesh=mesh, take=take)
         outs.append((residual, model, _centre(psf, cfg.psf_core), noise,
                      psf_peak, minor, w_rms, w_norm))
     return WaveResult(*(torch.stack(x) for x in zip(*outs)))
@@ -458,10 +492,10 @@ def with_point_sources(cfg: CubeConfig, batch: multichannel.ChannelBatch,
         rms = (torch.sqrt(((vis.abs() ** 2) * live).sum() / 2)
                / (wt * live).sum()).item()
         fluxes[c] = ratios * rms
-        model = torch.zeros((cfg.num_pols, N, N), dtype=torch.float32,
+        model = torch.zeros((cfg.num_pols, N, N), dtype=tap.dtype,
                             device=vis.device)
         model[:, pos[:, 0], pos[:, 1]] = torch.as_tensor(
-            fluxes[c], dtype=torch.float32, device=vis.device)
+            fluxes[c], dtype=tap.dtype, device=vis.device)
         # vis - (-wt) * pred: the weighted prediction added
         new_vis.append(_degrid_slices(cfg, kern, model, uv, sub, wp, anc,
                                       val, -wt, vis, tap, ps, midw, nc))

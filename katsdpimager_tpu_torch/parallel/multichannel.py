@@ -21,6 +21,7 @@ import torch
 from .. import device as device_mod
 from ..ops import clean as clean_ops
 from ..ops import fourier, fused_fft, mxu_gridder
+from .mesh import pmax_ints, psum
 from .slices import scan_slices
 
 
@@ -97,84 +98,124 @@ def weight_grid(num_pols: int, pixels: int, uv, valid, weights):
     return wgrid
 
 
-def _density(cfg: MultiChannelConfig, uv, valid, weights):
+def _density(cfg: MultiChannelConfig, uv, valid, weights, mesh=None):
     """Uniform density weights ``1 / W`` per occupied cell of the
-    (P, N, N) weight grid."""
-    wgrid = weight_grid(cfg.num_pols, cfg.pixels, uv, valid, weights)
+    (P, N, N) weight grid, summed over the vis group under a mesh."""
+    wgrid = psum(weight_grid(cfg.num_pols, cfg.pixels, uv, valid, weights),
+                 mesh)
     return torch.where(wgrid > 0,
                        1.0 / torch.where(wgrid > 0, wgrid, 1.0), 0.0)
 
 
 def image_slices(kernel, density, taper1d, pixel_size, mid_w, uv, sub_uv,
                  w_plane, anchor, valid, vis, nc_slices, *, pixels: int,
-                 ts: int, plain: bool = False):
+                 ts: int, plain: bool = False, mesh=None, take=None):
     """The W-stacked (P, N, N) image of one channel's chunked ``vis``:
     per W slice the fused gridder (K1, K2) with the ``density`` weights
     (None: natural), then the grid -> image transform accumulating into
-    the image.  Slices whose host count in ``nc_slices`` is 0 skip the
+    the image.  ``nc_slices`` (S host ints) bounds each slice's gridder;
+    slices whose count in ``take`` (default ``nc_slices``) is 0 skip the
     gridder and the transform (a zero grid adds exactly zero).  ``plain``
     runs every kernel's plain version whatever the device.
 
-    The transform's route is chosen once, by the rule of
-    :func:`fourier.grid_to_image_parts`: where
+    Under a ``mesh`` with ``vis_size > 1`` each rank grids its own chunks
+    and the slice's grid planes are summed over the vis group
+    (:func:`.mesh.psum`) before the transform; ``take`` must then be the
+    group's maximum of the counts (:func:`.mesh.pmax_ints`), so that every
+    rank of the group takes the same slices and joins each sum.
+
+    The precision follows the dtypes (:func:`precision_of`): at float64
+    (``--precision double``) K1 still fills float32 colour planes, added
+    onto a float64 grid by K2's plain version
+    (:func:`..ops.mxu_gridder.grid_chunks_onto`), and the transform is
+    :func:`fourier.grid_to_image_plain` at complex128, the JAX package's
+    complex path.  At float32 the transform's route is chosen once, by
+    the rule of :func:`fourier.grid_to_image_parts`: where
     :func:`fourier.use_fused_fft` holds, K3 and K4 accumulate into the
     transposed image, transposed back once at the end; elsewhere each
     slice takes :func:`fourier.grid_to_image_plain` (``torch.fft``), the
     counterpart of the JAX package's XLA branch.  CPU tensors take K3's
     and K4's plain versions wherever the kernels take the size."""
     dev = vis.device
-    fused = (fused_fft.kernel_size_ok(pixels) if dev.type == "cpu"
-             else fourier.use_fused_fft(pixels, dev, vis.dtype,
-                                        taper1d.dtype))
+    rdtype = precision_of(vis, taper1d)
+    double = rdtype == torch.float64
+    fused = not double and (
+        fused_fft.kernel_size_ok(pixels) if dev.type == "cpu"
+        else fourier.use_fused_fft(pixels, dev, vis.dtype, taper1d.dtype))
+    Pp = vis.shape[-1]
 
     def slice_body(image, xs):
-        uv_s, sub_s, wp_s, anc_s, val_s, vis_s, w_mid, nc_s = xs
-        if nc_s == 0:
+        uv_s, sub_s, wp_s, anc_s, val_s, vis_s, w_mid, nc_s, take_s = xs
+        if take_s == 0:
             return image
-        gr, gi = mxu_gridder.grid_chunks_parts(
-            kernel, density, uv_s, sub_s, wp_s, vis_s, anc_s, val_s, None,
-            int(nc_s), pixels=pixels, ts=ts, plain=plain)
+        if double:
+            gr = torch.zeros((Pp, pixels, pixels), dtype=rdtype, device=dev)
+            gi = torch.zeros_like(gr)
+            mxu_gridder.grid_chunks_onto(
+                (gr, gi), kernel, density, uv_s, sub_s, wp_s, vis_s, anc_s,
+                val_s, None, int(nc_s), pixels=pixels, ts=ts, plain=plain)
+        else:
+            gr, gi = mxu_gridder.grid_chunks_parts(
+                kernel, density, uv_s, sub_s, wp_s, vis_s, anc_s, val_s,
+                None, int(nc_s), pixels=pixels, ts=ts, plain=plain)
+        gr, gi = psum(gr, mesh), psum(gi, mesh)
         if fused:
             return fused_fft.grid_to_image_fused_parts(
                 gr, gi, image, taper1d, w_mid, pixel_size, plain=plain)
         return fourier.grid_to_image_plain(torch.complex(gr, gi), image,
                                            taper1d, w_mid, pixel_size)
 
-    image = torch.zeros((vis.shape[-1], pixels, pixels),
-                        dtype=torch.float32, device=dev)
+    image = torch.zeros((Pp, pixels, pixels), dtype=rdtype, device=dev)
     image = scan_slices(slice_body, image,
                         (uv, sub_uv, w_plane, anchor, valid, vis, mid_w,
-                         list(nc_slices)))
+                         list(nc_slices),
+                         list(nc_slices if take is None else take)))
     return image.transpose(-1, -2).contiguous() if fused else image
 
 
-def check_float32(vis, taper1d) -> None:
-    """Raise unless ``vis`` is complex64 and ``taper1d`` float32: the
-    port's kernels are float32 only (the JAX package keeps a complex
-    path for --precision double)."""
-    if vis.dtype != torch.complex64 or taper1d.dtype != torch.float32:
-        raise TypeError("the port's step is float32 only: vis complex64 "
-                        f"and taper float32, not {vis.dtype} and "
-                        f"{taper1d.dtype}")
+#: The dtype pairs the step and the wave take: (vis, taper) -> the real
+#: dtype of their grids and images.  float32 runs every kernel; float64
+#: (``--precision double``) is the JAX package's complex path, with K1 and
+#: K5 at float32 and the rest in torch at float64.
+PRECISIONS = {(torch.complex64, torch.float32): torch.float32,
+              (torch.complex128, torch.float64): torch.float64}
+
+
+def precision_of(vis, taper1d) -> torch.dtype:
+    """The real dtype of a channel's grids and images from its ``vis``
+    and ``taper1d`` dtypes (:data:`PRECISIONS`); any other pair raises."""
+    try:
+        return PRECISIONS[(vis.dtype, taper1d.dtype)]
+    except KeyError:
+        raise TypeError(
+            "vis and taper must be complex64 and float32 (single) or "
+            f"complex128 and float64 (double), not {vis.dtype} and "
+            f"{taper1d.dtype}") from None
 
 
 def _channel_pipeline(cfg: MultiChannelConfig, kernel, taper1d, pixel_size,
                       mid_w, uv, sub_uv, w_plane, anchor, valid, weights,
-                      vis, nc_slices=None, plain: bool = False):
+                      vis, nc_slices=None, plain: bool = False, mesh=None,
+                      take=None):
     """One channel's ``(residual, model)``: the dirty image and a zero
     model, or with ``minor_cycles > 0`` the CLEANed residual and model.
 
     ``nc_slices`` (S host ints) gives each slice's occupied-chunk count;
     None counts them with one device sync.  Slices with no occupied
     chunk skip the gridder and the transform (a zero grid adds exactly
-    zero).  ``plain`` runs every kernel's plain version whatever the
-    device: the reference the kernels are held to on the card."""
-    check_float32(vis, taper1d)
+    zero).  Under a ``mesh`` this rank holds a block of the channel's
+    chunks: the weight grid and each slice's grid are summed over the vis
+    group, and ``take`` (the group's maximum of the counts) decides the
+    skip (:func:`image_slices`).  ``plain`` runs every kernel's plain
+    version whatever the device: the reference the kernels are held to
+    on the card.  The precision follows the dtypes of ``vis`` and
+    ``taper1d`` (:func:`precision_of`)."""
+    precision_of(vis, taper1d)
     N, Pp = cfg.pixels, cfg.num_pols
     if cfg.weight_type == "natural":
         density = None
     elif cfg.weight_type == "uniform":
-        density = _density(cfg, uv, valid, weights)
+        density = _density(cfg, uv, valid, weights, mesh)
     else:
         raise ValueError(f"unknown weight_type {cfg.weight_type!r}")
     if nc_slices is None:
@@ -183,7 +224,8 @@ def _channel_pipeline(cfg: MultiChannelConfig, kernel, taper1d, pixel_size,
     def image_of(vis_like):
         return image_slices(kernel, density, taper1d, pixel_size, mid_w, uv,
                             sub_uv, w_plane, anchor, valid, vis_like,
-                            nc_slices, pixels=N, ts=cfg.rv, plain=plain)
+                            nc_slices, pixels=N, ts=cfg.rv, plain=plain,
+                            mesh=mesh, take=take)
 
     dirty = image_of(vis)
     if cfg.minor_cycles == 0:
@@ -219,6 +261,59 @@ def single_channel_step(cfg: MultiChannelConfig, plain: bool = False):
                                  weights, vis, nc_slices, plain=plain)
 
     return fn
+
+
+def make_imaging_step(mesh, cfg: MultiChannelConfig, plain: bool = False):
+    """The sharded multi-channel imaging step of this rank.
+
+    Counterpart of the JAX ``make_imaging_step``.  Returns ``step(batch)
+    -> (residual, model)``, each stacked over the batch's channels, where
+    ``batch`` is this rank's shard of the global batch
+    (:func:`local_batch`): its chan group's channels and its vis block of
+    every slice's chunks.  Channels run one after another with no
+    collective; within a channel the weight grid and each slice's grid
+    planes are summed over the vis group, and each slice's occupied-chunk
+    count is maxed over the group (the JAX ``pmax``), so every rank of
+    the group skips the same empty slices and joins every sum.  ``plain``
+    runs every kernel's plain version whatever the device."""
+
+    def step(batch: ChannelBatch):
+        outs = []
+        for c in range(batch.kernel.shape[0]):
+            *args, nc = channel_args(batch, c)
+            outs.append(_channel_pipeline(
+                cfg, *args, nc, plain=plain, mesh=mesh,
+                take=pmax_ints(nc, mesh)))
+        return tuple(torch.stack(x) for x in zip(*outs))
+
+    return step
+
+
+def local_batch(mesh, batch: ChannelBatch) -> ChannelBatch:
+    """This rank's shard of a host-built global batch, on its device:
+    channels ``[chan_index C / chan_size, (chan_index + 1) C / chan_size)``
+    and, of every slice, the contiguous block ``vis_index`` of its NC
+    chunks cut in ``vis_size`` (the JAX ``PartitionSpec("chan", None,
+    "vis")``); its occupied-chunk counts are the occupied chunks inside
+    that block (the planner puts them first).
+
+    The block is contiguous as in the JAX layout, so the padded tail can
+    leave a shard few or no real chunks: the work of a group is as
+    unbalanced as the JAX package's.  C must divide by ``chan_size`` and
+    NC by ``vis_size``.  The counterpart of ``make_global_batch``: each
+    rank takes its own shard, and there is no global array."""
+    C, NC = batch.kernel.shape[0], batch.uv.shape[2]
+    if C % mesh.chan_size or NC % mesh.vis_size:
+        raise ValueError(f"{C} channels and {NC} chunks do not divide over "
+                         f"a {mesh.chan_size} x {mesh.vis_size} mesh")
+    cl, ncl = C // mesh.chan_size, NC // mesh.vis_size
+    cs = slice(mesh.chan_index * cl, (mesh.chan_index + 1) * cl)
+    nc0 = mesh.vis_index * ncl
+    out = [x[cs].to(mesh.device) for x in batch[:4]]
+    out += [x[cs, :, nc0:nc0 + ncl].contiguous().to(mesh.device)
+            for x in batch[4:11]]
+    n_chunks = (batch.n_chunks[cs] - nc0).clamp(0, ncl)
+    return ChannelBatch(*out, n_chunks=n_chunks)
 
 
 def channel_args(batch: ChannelBatch, c: int) -> tuple:

@@ -16,6 +16,18 @@ runs every kernel's plain version (the parity reference).  Tests pass
 ``device="cpu"``.  :func:`run` takes a loaded dataset, so an in-memory
 dataset needs no file format.
 
+``--cube`` runs on several processes, one card each, as the JAX package
+does on several hosts (:mod:`.parallel.mesh`): launched by ``torchrun``
+(``python -m torch.distributed.run --nproc-per-node N -m
+katsdpimager_tpu_torch.pipeline ...``; :func:`main` joins the group when
+``WORLD_SIZE`` is set) or with ``--coordinator HOST:PORT
+--num-processes N --process-id I`` per process.  A wave then holds one
+channel per chan group of ``--vis-shards`` ranks, and rank 0 writes.
+The backend is ``nccl`` where each rank has a card of its own, else
+``gloo`` (the CPU, or ranks sharing a card:
+:func:`.parallel.mesh.default_backend`).  The per-channel route stays on
+one process.
+
 The JAX module enables XLA's persistent compilation cache
 (``xfer.enable_compilation_cache``); the port compiles nothing per
 shape, so it has no counterpart.  Thumbnails need matplotlib: where it is
@@ -32,7 +44,6 @@ import tempfile
 
 import numpy as np
 
-from . import device as device_mod
 from . import frontend, io, metadata
 
 logger = logging.getLogger(__name__)
@@ -195,8 +206,15 @@ def get_parser():
                         help="Image channels in device waves "
                              "(the fast path for large cubes)")
     parser.add_argument("--vis-shards", type=int, default=1,
-                        help="Devices cooperating per channel in --cube "
-                             "mode; the port takes 1 [%(default)s]")
+                        help="Processes (one card each) cooperating per "
+                             "channel in --cube mode; it must divide their "
+                             "number [%(default)s]")
+    group = parser.add_argument_group("Several processes (--cube)")
+    group.add_argument("--coordinator", default=None,
+                       help="HOST:PORT of process 0 (without it, torchrun's "
+                            "environment, where WORLD_SIZE is set)")
+    group.add_argument("--num-processes", type=int, default=None)
+    group.add_argument("--process-id", type=int, default=None)
     parser.add_argument("--cube-psf-patch", type=int, default=0,
                         help="CLEAN PSF patch size in --cube mode; 0 "
                              "auto-sizes per wave from the measured PSF "
@@ -213,8 +231,15 @@ def run(args, dataset, writer, *, device=None, plain: bool = False):
     per-wave timings are returned), else channel by channel
     (:func:`.frontend.run`, whose per-channel statistics are returned);
     then the observation summary and ``metadata.json``.  ``plain`` runs
-    every kernel's plain version."""
-    device = device_mod.resolve(device)
+    every kernel's plain version.  Under a process group (``--cube``
+    only) ``device`` None is this rank's card, and only rank 0 writes."""
+    from .parallel import mesh as mesh_mod
+
+    device = mesh_mod.default_device(device)
+    if mesh_mod.world_size() > 1 and not args.cube:
+        raise NotImplementedError(
+            "the per-channel route runs on one process, as in the JAX "
+            "package; several processes image with --cube")
     if args.cube:
         from . import cube_frontend
 
@@ -225,7 +250,8 @@ def run(args, dataset, writer, *, device=None, plain: bool = False):
                               plain=plain)
     stop = (args.stop_channel if args.stop_channel is not None
             else dataset.num_channels())
-    writer.finalize(dataset, range(args.start_channel, stop))
+    if mesh_mod.rank() == 0:
+        writer.finalize(dataset, range(args.start_channel, stop))
     return result
 
 
@@ -236,10 +262,15 @@ def main(argv=None, *, device=None, plain: bool = False) -> int:
     from . import arguments, loader
     from .imager import setup_logging
 
+    from .parallel import mesh as mesh_mod
+
     parser = get_parser()
     args = parser.parse_args(argv, namespace=arguments.SmartNamespace())
     setup_logging(args.log_level)
-    device = device_mod.resolve(device)
+    if args.coordinator is not None or "WORLD_SIZE" in os.environ:
+        mesh_mod.initialize_distributed(
+            args.coordinator, args.num_processes, args.process_id)
+    device = mesh_mod.default_device(device)
 
     if args.cube_psf_patch and (args.cube_psf_patch % 2 == 0
                                 or args.cube_psf_patch < 9):

@@ -334,3 +334,80 @@ def test_zero_sky_rows_subtract_exactly_zero(batches):
         vis, scales, midw, nc)
     scale = float((bare - vis).abs().max())
     assert float((padded - bare).abs().max()) <= 1e-5 * scale
+
+
+#: test_torch_imager's gate for the double route: K1 fills float32 colour
+#: planes at double too, and its band alone puts an image 1e-6 to 1e-5 of
+#: the peak from a float64 oracle inside the field
+#: (test_torch_imager.py::test_k1_f32_band_sets_the_double_gate).
+DOUBLE_GATE = 1e-5
+
+
+def double_of(tb):
+    """A batch at ``--precision double``: the taper, pixel size and mid-w
+    values float64, the visibilities complex128 (the kernel table and the
+    weights stay single, as the cube's packer keeps them)."""
+    return tb._replace(taper1d=tb.taper1d.double(),
+                       pixel_size=tb.pixel_size.double(),
+                       mid_w=tb.mid_w.double(),
+                       vis=tb.vis.to(torch.complex128))
+
+
+def test_wave_at_double_matches_jax(batches):
+    """The wave at double (the JAX wave's complex path, on the per-channel
+    double route) against the JAX wave under ``jax_enable_x64``, fed the
+    same float64 taper, pixel size and mid-w values: float64 results,
+    the residual and the model within :data:`DOUBLE_GATE` of the dirty
+    peak inside the field, the same components and minor counts.  The JAX
+    wave takes complex64 visibilities only
+    (:func:`test_jax_wave_at_double_takes_no_complex128_visibilities`):
+    it is given the same values in complex64.  Measured on the CPU: the
+    residual 2.0e-6 and the model 3.5e-7 of the dirty peak."""
+    tb, _, _, _ = batches
+    db = double_of(tb)
+    got = cube.wave_image(CFG, db)
+    d = {k: v for k, v in convert.batch_to_numpy(db).items()
+         if k != "n_chunks"}
+    d["vis"] = d["vis"].astype(np.complex64)
+    try:
+        jax.config.update("jax_enable_x64", True)
+        ref = jax_cube.make_wave_image(mesh(), jax_cfg(CFG))(
+            jax_mc.ChannelBatch(**d))
+        ref = jax_cube.WaveResult(*(np.asarray(x) for x in ref))
+    finally:
+        jax.config.update("jax_enable_x64", False)
+    inside = field(tb)
+    peak = dirty_peak(db, got)
+    for name in ("residual", "model"):
+        a, b = getattr(got, name).numpy(), getattr(ref, name)
+        assert a.dtype == b.dtype == np.float64
+        assert np.isfinite(a).all()
+        assert np.abs(a - b)[..., inside].max() <= DOUBLE_GATE * peak, name
+    np.testing.assert_array_equal(got.model.numpy() != 0, ref.model != 0)
+    assert int(got.minor[0]) == int(ref.minor[0]) > 0
+    # The plain route is the same at double: K1 and K5 are float32 there.
+    plain = cube.wave_image(CFG, db, plain=True)
+    assert all(torch.equal(a, b) for a, b in zip(plain, got))
+
+
+def test_jax_wave_at_double_takes_no_complex128_visibilities(batches):
+    """A trap of the reference, not copied: under ``jax_enable_x64`` the
+    JAX wave's complex path grids into a complex64 grid
+    (``katsdpimager_tpu/parallel/cube.py:131``), which complex128
+    visibilities do not fit, so the wave raises.  (Its pipeline never
+    meets it: its packer writes complex64 visibilities and a float32
+    taper, and ``pipeline.main`` does not enable x64, so its
+    ``--cube --precision double`` runs the float32 wave.)  The port's
+    wave takes them."""
+    tb, _, _, _ = batches
+    db = double_of(tb)
+    d = {k: v for k, v in convert.batch_to_numpy(db).items()
+         if k != "n_chunks"}
+    try:
+        jax.config.update("jax_enable_x64", True)
+        with pytest.raises(TypeError, match="preferred_element_type"):
+            jax_cube.make_wave_image(mesh(), jax_cfg(CFG))(
+                jax_mc.ChannelBatch(**d))
+    finally:
+        jax.config.update("jax_enable_x64", False)
+    assert cube.wave_image(CFG, db).residual.dtype == torch.float64

@@ -761,3 +761,144 @@ def test_wave_arena_waits_for_its_upload(cuda):
 
     assert upload_then_refill(guarded=True)
     assert not upload_then_refill(guarded=False)
+
+
+@pytest.mark.parametrize("ts,K", [(64, 60), (32, 30)])
+@pytest.mark.parametrize("run_chunks", [4, 32, 128])
+def test_k1_long_runs_hold_float64(cuda, ts, K, run_chunks):
+    """K1 on anchor runs of 4, 32 and 128 full chunks (32 batches each, so
+    every run is long and promotes its tensor-core sums every 32
+    batches): within 5e-6 of the peak of a float64 run of its plain
+    version over the written blocks, where summing a whole run in the
+    accumulators was 1.3e-5 on 4-chunk runs."""
+    nruns = {4: 24, 32: 4, 128: 2}[run_chunks]
+    runs = [run_chunks] * nruns
+    counts = [256] * (run_chunks * nruns)
+    (slot, count, iu, iv, su, sv, sre, sim, table), nt2 = _k1_inputs(
+        cuda, 7 * ts + run_chunks, ts=ts, P=1, K=K, runs=runs,
+        counts=counts)
+    n = len(counts)
+    ext2 = nt2 * 2 * ts
+    shape = (2, 2, 1, ext2, ext2)
+    kr, ki = (torch.zeros(shape, device=cuda) for _ in range(2))
+    r64, i64 = (torch.zeros(shape, dtype=torch.float64, device=cuda)
+                for _ in range(2))
+    args = (slot, n, count, iu, iv, su, sv, sre, sim, table)
+    fused_gridder.grid_planes(*args, kr, ki, ts=ts)
+    fused_gridder.grid_planes_plain(
+        slot, n, count, iu, iv, su, sv, sre.double(), sim.double(),
+        table.to(torch.complex128), r64, i64, ts=ts)
+    occ = fused_gridder.occupancy(slot, n, nt2)
+    written = occ.repeat_interleave(2 * ts, -2).repeat_interleave(
+        2 * ts, -1)[:, :, None]
+    scale = max(r64.abs().max().item(), i64.abs().max().item())
+    err = max((kr.double() - r64).abs().where(written, 0.0).max().item(),
+              (ki.double() - i64).abs().where(written, 0.0).max().item())
+    assert err <= 5e-6 * scale, err / scale
+
+
+#: Runs at K1's promotion boundary (``tests/test_torch_gridder_tc.py``'s
+#: ``BOUNDARY_RUNS``): (chunks per run, valid slots per chunk), the middle
+#: run holding 32 or 33 batches of 8 valid slots.
+_EIGHTS = [8] * 16 + [0] + [8] * 16
+BOUNDARY_RUNS = {
+    "32 in 1 chunk": ([1, 1, 1], [100, 256, 7]),
+    "33 in 2 chunks": ([1, 2, 1], [100, 256, 1, 7]),
+    "32 in 33 chunks": ([1, 33, 1], [100] + _EIGHTS + [7]),
+    "33 in 34 chunks": ([1, 34, 1], [100] + _EIGHTS + [8, 7]),
+}
+
+
+@pytest.mark.parametrize("ts,K", [(64, 60), (32, 30)])
+@pytest.mark.parametrize("case", list(BOUNDARY_RUNS))
+def test_k1_runs_at_the_promotion_boundary(cuda, ts, K, case):
+    """K1's choice of body per run at ts 32 and 64: a run of 32 batches
+    takes the short body, of 33 the promoting one, however many chunks
+    (some empty) it spans; either way each run is written once, as its
+    plain version writes it (within 2e-5 of the largest written value),
+    and nothing else is written (planes start as NaN)."""
+    runs, counts = BOUNDARY_RUNS[case]
+    (slot, count, iu, iv, su, sv, sre, sim, table), nt2 = _k1_inputs(
+        cuda, 11 * ts + len(counts), ts=ts, P=1, K=K, runs=runs,
+        counts=counts)
+    n = len(counts)
+    ext2 = nt2 * 2 * ts
+    shape = (2, 2, 1, ext2, ext2)
+    kr, ki, pr, pi = (torch.full(shape, float("nan"), device=cuda)
+                      for _ in range(4))
+    args = (slot, n, count, iu, iv, su, sv, sre, sim, table)
+    fused_gridder.grid_planes(*args, kr, ki, ts=ts)
+    fused_gridder.grid_planes_plain(*args, pr, pi, ts=ts)
+    torch.cuda.synchronize()
+    written = ~torch.isnan(pr)
+    assert torch.equal(written, ~torch.isnan(kr))
+    assert torch.equal(written, ~torch.isnan(ki))
+    scale = max(pr[written].abs().max().item(), pi[written].abs().max().item())
+    for k, p in ((kr, pr), (ki, pi)):
+        assert (k[written] - p[written]).abs().max().item() <= 2e-5 * scale
+
+
+def test_wave_at_double_matches_plain(cuda):
+    """A cube wave at double (complex128 visibilities, float64 taper,
+    pixel size and mid-w) through K1 and K5 against its all-plain run:
+    float64, the same components, images within 1e-4 of the brightest
+    source's flux inside the field (the float32 wave's gate: K1 and K5
+    are float32 at double too)."""
+    small = dict(pixels=1024, num_pols=1, kernel_width=16, oversample=8,
+                 w_planes=8, w_slices=2, chunks_per_slice=512,
+                 chunk_size=128, rv=32, ru=32)
+    cfg = cube.CubeConfig(**small, majors=2, minor=500, patch=33,
+                          psf_core=32)
+    batch = multichannel.make_example_batch(
+        multichannel.MultiChannelConfig(**small, weight_type="natural"), 1,
+        seed=3, device=cuda)
+    batch, pos, flux = cube.with_point_sources(cfg, batch, seed=1)
+    batch = batch._replace(taper1d=batch.taper1d.double(),
+                           pixel_size=batch.pixel_size.double(),
+                           mid_w=batch.mid_w.double(),
+                           vis=batch.vis.to(torch.complex128))
+    launches = (fused_gridder.grid_planes.launches,
+                fused_degrid.degrid_planes.launches)
+    got = cube.wave_image(cfg, batch)
+    assert fused_gridder.grid_planes.launches > launches[0]
+    assert fused_degrid.degrid_planes.launches > launches[1]
+    ref = cube.wave_image(cfg, batch, plain=True)
+    assert got.residual.dtype == got.model.dtype == torch.float64
+    inside = _inside(batch.taper1d[0])
+    assert torch.equal((got.model != 0)[..., inside],
+                       (ref.model != 0)[..., inside])
+    for a, b in ((got.model, ref.model), (got.residual, ref.residual)):
+        assert torch.isfinite(a).all()
+        assert (a - b).abs()[..., inside].max().item() <= 1e-4 * flux.max()
+
+
+def test_two_ranks_share_the_card(cuda):
+    """The sharded step on 2 ranks (gloo) sharing the one card, at (chan
+    2, vis 1) and (chan 1, vis 2), against the 1-rank step: bitwise for
+    the chan split, within 1e-5 of the peak inside the field for the vis
+    split."""
+    from katsdpimager_tpu_torch.parallel import launch, mesh
+
+    small = dict(pixels=1024, num_pols=1, kernel_width=16, oversample=8,
+                 w_planes=8, w_slices=2, chunks_per_slice=512,
+                 chunk_size=128, rv=32, ru=32)
+    mcfg = multichannel.MultiChannelConfig(**small, weight_type="uniform")
+    batch = multichannel.make_example_batch(mcfg, 2, seed=3, device="cpu")
+    batch, _, _ = cube.with_point_sources(
+        cube.CubeConfig(**small, patch=33), batch, seed=1)
+    one = mesh.make_mesh(1)
+    ref = multichannel.make_imaging_step(one, mcfg)(
+        multichannel.local_batch(one, batch))[0].cpu().numpy()
+    ranks = launch.run_ranks(
+        2, "katsdpimager_tpu_torch.parallel.launch:image_shards",
+        [dict(kind="step", cfg=mcfg, batch=batch, vis_shards=1),
+         dict(kind="step", cfg=mcfg, batch=batch, vis_shards=2)])
+    for r in ranks:
+        np.testing.assert_array_equal(r[0]["outputs"][0][0],
+                                      ref[r[0]["chan_index"]])
+    inside = _inside(batch.taper1d[0]).cpu().numpy()
+    peak = np.abs(ref).max()
+    for r in ranks:
+        got = r[1]["outputs"][0]
+        assert np.abs(got - ref)[..., inside].max() <= 1e-5 * peak
+        assert r[1]["psum_calls"] > 0

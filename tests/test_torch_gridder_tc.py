@@ -11,6 +11,7 @@ largest written value of the f32 ``grid_planes_plain``, on real kernel
 rows; plain TF32 must not.
 """
 
+import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
@@ -194,3 +195,83 @@ def test_split_table_is_the_kernels_split():
         assert torch.equal(hi, tf32_rna(x))
         assert bool(((hi + lo - x).abs() <= 2.0 ** -22 * x.abs()).all())
     assert not tabs[0, :4].any()
+
+
+#: Anchor runs at K1's promotion boundary: (chunks per run, valid slots
+#: per chunk), the middle run holding PROMOTE (32) or PROMOTE + 1 batches
+#: of BATCH (8) valid slots between one-chunk runs: in one or two chunks,
+#: or over 33 and 34 chunks, one of them empty (no batch), so that the
+#: kernel's count crosses a warp's group of 32 chunks.
+_EIGHTS = [8] * 16 + [0] + [8] * 16
+BOUNDARY_RUNS = {
+    "32 in 1 chunk": ([1, 1, 1], [100, 256, 7]),
+    "33 in 2 chunks": ([1, 2, 1], [100, 256, 1, 7]),
+    "32 in 33 chunks": ([1, 33, 1], [100] + _EIGHTS + [7]),
+    "33 in 34 chunks": ([1, 34, 1], [100] + _EIGHTS + [8, 7]),
+}
+
+
+def boundary_inputs(case, *, ts, K, seed=5, Mc=256, WO=64):
+    """Direct K1 inputs (the arguments of ``grid_planes`` up to the
+    planes) whose runs are ``BOUNDARY_RUNS[case]``, valid slots a prefix
+    of each chunk, taps anywhere in range; and nt2."""
+    runs, counts = BOUNDARY_RUNS[case]
+    rng = np.random.default_rng(seed)
+    nt2 = 3
+    NC = sum(runs)
+    slots = rng.choice(4 * nt2 * nt2, size=len(runs), replace=False)
+    slot = np.repeat(slots, runs).astype(np.int32)
+    count = np.asarray(counts, np.int32)
+    iu, iv = (rng.integers(0, WO, size=(NC, Mc)).astype(np.int32)
+              for _ in range(2))
+    su, sv = (rng.integers(0, ts, size=(NC, Mc)).astype(np.int32)
+              for _ in range(2))
+    live = np.arange(Mc)[None, None, :] < count[:, None, None]
+    sre, sim = (np.where(live, rng.normal(size=(NC, 1, Mc)), 0.0).astype(
+        np.float32) for _ in range(2))
+    table = (rng.normal(size=(WO, K))
+             + 1j * rng.normal(size=(WO, K))).astype(np.complex64)
+    args = [torch.from_numpy(np.ascontiguousarray(x)) for x in
+            (slot, count, iu, iv, su, sv, sre, sim, table)]
+    return (args[0], NC, *args[1:]), nt2
+
+
+@pytest.mark.parametrize("case", list(BOUNDARY_RUNS))
+def test_k1_runs_at_the_promotion_boundary(case):
+    """K1 (its plain version on the CPU) on runs of exactly PROMOTE and
+    PROMOTE + 1 batches, where the kernel at ts 32 and 64 moves from the
+    short body to the promoting one: the middle run holds the case's
+    batches, every run's block is written once, as the float64 sum of
+    its chunks gridded one at a time, and nothing else is written.
+    ``tests/test_torch_gpu.py`` holds the kernel to this on the card."""
+    ts, K = 32, 30
+    args, nt2 = boundary_inputs(case, ts=ts, K=K)
+    slot, n, count = args[:3]
+    runs, _ = BOUNDARY_RUNS[case]
+    c0, c1 = runs[0], runs[0] + runs[1]
+    batches = sum(-(-int(k) // fused_gridder.BATCH) for k in count[c0:c1])
+    want_batches = fused_gridder.PROMOTE + case.startswith("33")
+    assert batches == want_batches
+    ext2 = nt2 * 2 * ts
+    shape = (2, 2, 1, ext2, ext2)
+    kr, ki = (torch.full(shape, float("nan")) for _ in range(2))
+    fused_gridder.grid_planes(*args, kr, ki, ts=ts)
+    r64, i64 = (torch.zeros(shape, dtype=torch.float64) for _ in range(2))
+    for c in range(n):
+        one = [a[c:c + 1] for a in args[3:9]]
+        pr, pi = (torch.zeros(shape, dtype=torch.float64) for _ in range(2))
+        fused_gridder.grid_planes_plain(
+            slot[c:c + 1], 1, count[c:c + 1], *one[:4], one[4].double(),
+            one[5].double(), args[9].to(torch.complex128), pr, pi, ts=ts)
+        r64 += pr
+        i64 += pi
+    occ = fused_gridder.occupancy(slot, n, nt2)
+    assert int(occ.sum()) == len(runs)
+    written = occ.repeat_interleave(2 * ts, -2).repeat_interleave(
+        2 * ts, -1)[:, :, None]
+    assert torch.equal(~torch.isnan(kr), written)
+    assert torch.equal(~torch.isnan(ki), written)
+    scale = max(r64.abs().max().item(), i64.abs().max().item())
+    for k, ref in ((kr, r64), (ki, i64)):
+        err = (k.double() - ref).abs().where(written, 0.0).max().item()
+        assert err <= 1e-6 * scale, err / scale

@@ -183,3 +183,45 @@ def test_double_precision_raises():
     args[10] = args[10].to(torch.complex128)
     with pytest.raises(TypeError):
         multichannel.single_channel_step(cfg)(*args)
+
+
+def test_step_at_double_matches_jax():
+    """The step at double (complex128 visibilities, float64 taper, pixel
+    size and mid-w) against the JAX step under ``jax_enable_x64``, which
+    grids in XLA at float64: float64 images, closer to it inside the
+    field than the float32 step is, and within the float32 gate (1e-4 of
+    the peak).  K1 fills float32 colour planes at both precisions
+    (test_torch_imager.py::test_k1_f32_band_sets_the_double_gate), so its
+    band stays in the double route's difference: measured on the CPU
+    1.0e-5 of the peak, the float32 step 2.5e-5.  On noise and 5 point
+    sources."""
+    from katsdpimager_tpu_torch.parallel import cube
+
+    cfg = multichannel.MultiChannelConfig(**SMALL, weight_type="uniform")
+    tb = multichannel.make_example_batch(cfg, 1, seed=5, device="cpu")
+    tb, _, _ = cube.with_point_sources(
+        cube.CubeConfig(**SMALL, patch=17), tb, seed=1)
+    db = tb._replace(taper1d=tb.taper1d.double(),
+                     pixel_size=tb.pixel_size.double(),
+                     mid_w=tb.mid_w.double(),
+                     vis=tb.vis.to(torch.complex128))
+    step = multichannel.single_channel_step(cfg)
+    got = step(*multichannel.channel_args(db, 0))[0].numpy()
+    single = step(*multichannel.channel_args(tb, 0))[0].numpy()
+    d = {k: v for k, v in convert.batch_to_numpy(db).items()
+         if k != "n_chunks"}
+    try:
+        jax.config.update("jax_enable_x64", True)
+        fn = jax.jit(jax_mc.single_channel_step(
+            jax_mc.MultiChannelConfig(**SMALL, weight_type="uniform")))
+        ref = np.asarray(fn(*(x[0] for x in jax_mc.ChannelBatch(**d)))[0])
+    finally:
+        jax.config.update("jax_enable_x64", False)
+    assert got.dtype == ref.dtype == np.float64 and np.isfinite(got).all()
+    t = tb.taper1d[0].double().numpy()
+    t2 = np.outer(t, t)
+    inside = t2 >= 0.002 * t2.max()
+    peak = np.abs(ref).max()
+    err = np.abs(got - ref)[:, inside].max() / peak
+    err_single = np.abs(single - ref)[:, inside].max() / peak
+    assert err < err_single and err <= 1e-4, (err, err_single)

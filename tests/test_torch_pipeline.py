@@ -348,12 +348,178 @@ def test_thumbnails_and_report(sim, tmp_path, monkeypatch, caplog):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--cube", "--vis-shards", "2"], "ROADMAP, Queue 1"),
-    (["--cube", "--precision", "double"], "ROADMAP, Queue 1"),
+    (["--cube", "--vis-shards", "2"], "does not divide the 1 process"),
+    (["--cube", "--vis-shards", "0"], "does not divide the 1 process"),
 ])
 def test_unported_options_raise(sim, tmp_path, extra, match):
-    with pytest.raises(NotImplementedError, match=match):
+    """``--vis-shards`` must divide the number of processes: one here,
+    with no process group."""
+    with pytest.raises(ValueError, match=match):
         pipeline.main(argv_of(sim, tmp_path / "x", extra), device="cpu")
+
+
+def test_check_args_takes_double_and_dividing_vis_shards():
+    """The cube's argument check takes ``--precision double`` and any
+    ``--vis-shards`` that divides the number of processes, and raises on
+    one that does not."""
+    from katsdpimager_tpu_torch import arguments
+
+    def args_of(extra):
+        return pipeline.get_parser().parse_args(
+            ["in", "out", "--cube"] + extra,
+            namespace=arguments.SmartNamespace())
+
+    cube_frontend._check_args(args_of(["--precision", "double"]))
+    for world, vis in ((4, 2), (4, 4), (2, 1), (6, 3)):
+        cube_frontend._check_args(args_of(["--vis-shards", str(vis)]), world)
+    for world, vis in ((3, 2), (4, 3), (1, 2)):
+        with pytest.raises(ValueError, match="does not divide"):
+            cube_frontend._check_args(args_of(["--vis-shards", str(vis)]),
+                                      world)
+
+
+def test_cube_double_runs_like_jax(sim, runs, tmp_path):
+    """``--cube --precision double`` completes every channel, writes
+    float64 images (BITPIX -64) and stays within the float32 gate (1e-4
+    of the peak inside the field) of the JAX pipeline's
+    ``--cube --precision double`` run, whose wave is float32: its packer
+    writes float32 arrays and ``pipeline.main`` leaves x64 off (a trap of
+    the reference; ``test_torch_cube.py`` holds the double wave itself to
+    the JAX wave under x64).  The state's integers equal."""
+    root = tmp_path / "dbl"
+    extra = ["--cube", "--cube-psf-patch", "33", "--precision", "double"]
+    assert jax_pipeline.main(argv_of(sim, root / "jax", extra)) == 0
+    assert pipeline.main(argv_of(sim, root / "port", extra),
+                         device="cpu") == 0
+    inside = field()
+    for ch in range(2):
+        name = f"image_{ch:05d}_clean.fits"
+        header, got = io.read_fits(str(root / "port" / name))
+        _, want = io.read_fits(str(root / "jax" / name))
+        assert header["BITPIX"] == -64
+        got, want = np.asarray(got)[0, 0], np.asarray(want)[0, 0]
+        assert np.isfinite(got).all()
+        assert np.abs(got - want)[inside].max() <= 1e-4 * np.abs(want).max()
+    js, ps = state(root / "jax"), state(root / "port")
+    for ch in range(2):
+        assert ps[f"status/{ch}"] == js[f"status/{ch}"] == "complete"
+        for key in ("minor", "compressed_vis", "psf_patch_size"):
+            assert ps[f"stats/{ch}"][key] == js[f"stats/{ch}"][key]
+
+
+@pytest.fixture(scope="module")
+def sim3(tmp_path_factory):
+    """A 3-channel simulated observation (a partial last wave on 2
+    ranks), its channels far enough apart in frequency that at a fixed
+    pixel size their PSFs ask for different CLEAN patches."""
+    root = tmp_path_factory.mktemp("pipeline3")
+    path = root / "sim3.h5"
+    freqs = np.array([900e6, 1100e6, 1350e6])
+    jax_simulate.make_sim_dataset(str(path), num_antennas=16, num_times=16,
+                                  num_channels=3, max_radius=800.0,
+                                  frequencies=freqs)
+    return root, str(path), str(root / "unused.txt")
+
+
+MAIN = "katsdpimager_tpu_torch.pipeline:main"
+
+
+@pytest.fixture(scope="module")
+def ranked(sim3):
+    """Each case's output directory: the 1-rank run in this process, the
+    others on 2 ranks (gloo)."""
+    from katsdpimager_tpu_torch.parallel import launch
+
+    done = {}
+
+    def get(name, extra, ranks):
+        if name not in done:
+            out = sim3[0] / name
+            argv = argv_of(sim3, out, ["--cube"] + extra)
+            if ranks == 1:
+                assert pipeline.main(argv, device="cpu") == 0
+            else:
+                assert launch.run_ranks(ranks, MAIN, argv,
+                                        device="cpu") == [0] * ranks
+            done[name] = out
+        return done[name]
+
+    return get
+
+
+FIXED = ["--cube-psf-patch", "33"]
+
+
+def read_images(out, channels=3):
+    return [np.asarray(io.read_fits(str(out / f"image_{ch:05d}_clean.fits"))[1])
+            for ch in range(channels)]
+
+
+def test_two_rank_chan_split_writes_the_one_rank_files(sim3, ranked):
+    """``--cube`` on 2 ranks (chan 2, vis 1) over 3 channels: waves of 2
+    channels, the last padded with its last channel and the pad dropped.
+    Rank 0 writes the 1-rank run's FITS files bitwise and the same
+    ``state.json`` channels and statistics; a rerun on 2 ranks skips
+    every wave and rewrites nothing."""
+    from katsdpimager_tpu_torch.parallel import launch
+
+    one = ranked("one", FIXED, 1)
+    two = ranked("two", FIXED, 2)
+    for a, b in zip(read_images(two), read_images(one)):
+        np.testing.assert_array_equal(a, b)
+    s1, s2 = state(one), state(two)
+
+    def channels(st):
+        return {k: v for k, v in st.items()
+                if k.startswith(("status/", "stats/"))}
+
+    assert channels(s2) == channels(s1)
+    assert sorted(k for k in s2 if k.startswith("status/")) == [
+        "status/0", "status/1", "status/2"]
+    assert (two / "metadata.json").exists()
+    fits = sorted(two.glob("*.fits"))
+    mtimes = [os.path.getmtime(f) for f in fits]
+    assert launch.run_ranks(2, MAIN, argv_of(sim3, two, ["--cube"] + FIXED),
+                            device="cpu") == [0, 0]
+    assert [os.path.getmtime(f) for f in fits] == mtimes
+    assert channels(state(two)) == channels(s2)
+
+
+def test_two_rank_vis_split_double_matches_one_rank(ranked):
+    """``--cube --precision double --vis-shards 2`` on 2 ranks (chan 1,
+    vis 2): each channel's chunks split over both ranks and their grids
+    summed; within 1e-4 of the 1-rank double run's peak inside the
+    field, the same minor counts."""
+    extra = FIXED + ["--precision", "double"]
+    one = ranked("one double", extra, 1)
+    two = ranked("two vis double", extra + ["--vis-shards", "2"], 2)
+    inside = field()
+    for a, b in zip(read_images(two), read_images(one)):
+        assert a.dtype == b.dtype and a.dtype.itemsize == 8
+        a, b = a[0, 0], b[0, 0]
+        assert np.abs(a - b)[inside].max() <= 1e-4 * np.abs(b).max()
+    s1, s2 = state(one), state(two)
+    for ch in range(3):
+        assert s2[f"stats/{ch}"]["minor"] == s1[f"stats/{ch}"]["minor"]
+
+
+def test_two_rank_auto_patch_takes_the_waves_largest(ranked):
+    """With the patch sized per wave, the ranks' channels ask for
+    different patches (on 1 rank, one wave a channel, each its own); on 2
+    ranks the wave of channels 0 and 1 takes the larger for both, as the
+    JAX wave sizes it over its channels, and the run finishes."""
+    # At a fixed pixel size the PSF narrows with frequency: its patch
+    # need at a 20% cutoff falls from 65 to 33 between channels 0 and 1.
+    extra = ["--pixel-size", "4arcsec", "--psf-cutoff", "0.2"]
+    one = state(ranked("one auto", extra, 1))
+    two = state(ranked("two auto", extra, 2))
+    patch = {ch: one[f"stats/{ch}"]["psf_patch_size"][0] for ch in range(3)}
+    assert patch[0] != patch[1]
+    for ch in (0, 1):
+        assert two[f"stats/{ch}"]["psf_patch_size"] == [
+            max(patch[0], patch[1])] * 2
+    assert two["stats/2"]["psf_patch_size"] == [patch[2]] * 2
+    assert all(two[f"status/{ch}"] == "complete" for ch in range(3))
 
 
 def test_per_channel_double_runs(sim, tmp_path):
