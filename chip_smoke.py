@@ -9,7 +9,7 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py
 
 (``chip_smoke.py --rank-worker ...`` is one rank of the ``distributed``
-phase, which starts it through ``torchrun``.)
+phase, which starts it through ``torchrun`` and with ``--coordinator``.)
 
 It builds the port's CUDA kernels (K1 with its run split, K2-K8 and the
 probes P1/P2) from
@@ -92,10 +92,16 @@ per slice, natural weights), then:
 - ``cube_double``: ``pipeline --cube --precision double`` on channel 0 at
   4096 px, K 60, 2 majors against its float32 run (the dirty image within
   1e-4 of the dirty peak inside the field, the same components);
+- ``device_plan`` (after ``route``): the device chunk planner at the
+  production slice, bitwise equal to the host planner's plan, K1 + K2
+  planes from both plans bitwise equal, the drop past ``nc``; the device
+  planner's, host planner's and plan upload's times;
 - ``distributed``: ``pipeline --cube`` on 2 ranks sharing the card
   (``torchrun``, gloo) at (chan 2, vis 1) and (chan 1, vis 2) against the
-  1-rank run, and the bench-shape step at vis 2 against the unsharded
-  step; seconds a channel and all-reduce seconds.
+  1-rank run, (chan 2, vis 1) again in the ``--coordinator`` form (the
+  host layout through the rendezvous store, bitwise the ``torchrun``
+  run), and the bench-shape step at vis 2 against the unsharded step;
+  seconds a channel and all-reduce seconds.
 
 Each phase prints one JSON line; the card's name and power limit, the
 kernel table and, last, the ``ok`` line follow.  Any failure raises: the
@@ -569,6 +575,7 @@ def main() -> None:
     wave_phases(cfg, batch, num_channels, rows, card, mc, cube, fourier,
                 fused_gridder, fused_fft, fused_degrid)
     route_phase(dev, mc, cube, fused_fft)
+    device_plan_phase(dev, card, cfg, batch, rows)
     del batch
     probe_phase(dev, rows)
     dataset, runs = imager_phase(dev, card, rows)
@@ -2285,18 +2292,73 @@ def torchrun(nproc: int, argv, timeout: float = TORCHRUN_TIMEOUT_S) -> float:
     return time.perf_counter() - t
 
 
+def coordinator_run(nproc: int, argv, out,
+                    timeout: float = TORCHRUN_TIMEOUT_S) -> float:
+    """Run ``chip_smoke.py --rank-worker *argv`` as ``nproc`` processes
+    joined by ``--coordinator localhost:PORT --num-processes nproc
+    --process-id i``, with no ``torchrun`` variables in their
+    environment; each writes its output to ``out/coord<i>.log``.  Every
+    process runs in a session of its own, all killed if one outlives
+    ``timeout``; raise unless each exits 0.  Returns the seconds."""
+    import os
+    import signal
+
+    from katsdpimager_tpu_torch.parallel import launch
+
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK",
+                        "LOCAL_WORLD_SIZE", "GROUP_WORLD_SIZE",
+                        "MASTER_ADDR", "MASTER_PORT")
+           and not k.startswith("TORCHELASTIC")}
+    coordinator = f"localhost:{launch.free_port()}"
+    t = time.perf_counter()
+    procs = []
+    try:
+        for i in range(nproc):
+            with open(os.path.join(out, f"coord{i}.log"), "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--rank-worker", *argv, "--coordinator", coordinator,
+                     "--num-processes", str(nproc), "--process-id", str(i)],
+                    stdout=log, stderr=subprocess.STDOUT, env=env,
+                    start_new_session=True))
+        codes = [p.wait(timeout=max(1.0, timeout - (time.perf_counter() - t)))
+                 for p in procs]
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"--coordinator {argv} outlived {timeout} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+    if any(codes):
+        tails = []
+        for i in range(nproc):
+            with open(os.path.join(out, f"coord{i}.log")) as f:
+                tails.append(f.read()[-3000:])
+        raise AssertionError(f"--coordinator {argv} exited {codes}:\n"
+                             + "\n".join(tails))
+    return time.perf_counter() - t
+
+
 def rank_worker(argv) -> None:
-    """One rank of :func:`distributed_phase`, started by ``torchrun``:
-    ``pipeline OUT VIS_SHARDS`` runs ``pipeline.run --cube`` on the
-    simulated observation's 2 channels, ``step OUT`` the bench-shape step
-    (2 channels) at vis 2.  Each rank joins with the backend
-    ``initialize_distributed`` picks (gloo: the ranks outnumber the card)
-    and writes to ``OUT/rank<r>.json`` its backend, seconds, all-reduce
-    counts and seconds, and the launches of K1-K7 in the timed run (the
+    """One rank of :func:`distributed_phase`, started by ``torchrun``
+    (or by :func:`coordinator_run`): ``pipeline OUT VIS_SHARDS [pipeline
+    options]`` runs ``pipeline.run --cube`` on the simulated
+    observation's 2 channels, joining the group as ``pipeline.main`` does
+    (``--coordinator``, ``--num-processes`` and ``--process-id`` among
+    the options, else ``torchrun``'s environment); ``step OUT`` the
+    bench-shape step (2 channels) at vis 2.  Each rank joins with the
+    backend ``initialize_distributed`` picks (gloo: the ranks outnumber
+    the card), logs the mesh's join line and writes to
+    ``OUT/rank<r>.json`` its backend, host layout, device, seconds,
+    all-reduce counts and seconds, and the launches of K1-K7 in the
+    timed run (the
     counters set to 0 just before it); rank 0 of the step also the dirty
     images (``OUT/dirty.npy``).  The step's ranks then time 3 all-reduces
     of a 4096 px plane pair on idle ranks (synchronised, after a
     barrier): the transfer alone."""
+    import logging
     import os
 
     import numpy as np
@@ -2306,10 +2368,21 @@ def rank_worker(argv) -> None:
     from katsdpimager_tpu_torch.parallel import multichannel as mc
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    mesh.initialize_distributed()
+    logging.basicConfig(level=logging.WARNING)
+    logging.getLogger(mesh.__name__).setLevel(logging.INFO)
     kind, out = argv[0], argv[1]
+    if kind == "pipeline":
+        args = pipeline_args(cube_argv(os.path.join(out, "images"),
+                                       IMAGER_VIS_BLOCK, (0, 2),
+                                       ["--vis-shards", argv[2], *argv[3:]]))
+        mesh.initialize_distributed(args.coordinator, args.num_processes,
+                                    args.process_id)
+    else:
+        mesh.initialize_distributed()
     rank = mesh.rank()
-    line = {"rank": rank, "backend": torch.distributed.get_backend()}
+    line = {"rank": rank, "backend": torch.distributed.get_backend(),
+            "layout": mesh.local_layout()._asdict(),
+            "device": str(mesh.default_device())}
     counters = kernel_counters()
 
     def zero_counts():
@@ -2318,11 +2391,7 @@ def rank_worker(argv) -> None:
             fn.launches = 0
 
     if kind == "pipeline":
-        vis_shards = int(argv[2])
         dataset, _ = sim_dataset(64, 1024, 2, noise_jy=1.0)
-        args = pipeline_args(cube_argv(os.path.join(out, "images"),
-                                       IMAGER_VIS_BLOCK, (0, 2),
-                                       ["--vis-shards", str(vis_shards)]))
         zero_counts()
         t = time.perf_counter()
         timings = pipeline.run(args, dataset, pipeline.PipelineWriter(
@@ -2370,6 +2439,164 @@ def rank_worker(argv) -> None:
     torch.distributed.destroy_process_group()
 
 
+def production_slice(cfg):
+    """Channel 0, slice 0 of the step's batch (:func:`bench_config`, 2^19
+    visibilities a slice) as drawn, before planning: the first draws of
+    ``make_example_batch`` (seed 0), as numpy (uv, sub_uv, w_plane, vis,
+    weights)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    n, P = 1 << 19, cfg.num_pols
+    lim = cfg.pixels // 2 - cfg.kernel_width - 1
+    uv = np.clip(rng.normal(scale=lim / 3, size=(n, 2)), -lim, lim
+                 ).astype(np.int16)
+    sub = rng.integers(0, cfg.oversample, size=(n, 2)).astype(np.int16)
+    wp = rng.integers(0, cfg.w_planes, size=n).astype(np.int16)
+    vis = (rng.normal(size=(n, P))
+           + 1j * rng.normal(size=(n, P))).astype(np.complex64)
+    wt = rng.uniform(0.5, 2.0, size=(n, P)).astype(np.float32)
+    return uv, sub, wp, vis, wt
+
+
+def device_plan_phase(dev, card, cfg, batch, rows) -> None:
+    """The device planner (``mxu_gridder.plan_chunks_tiled_device``) at
+    the production slice (channel 0, slice 0 of the step's batch): every
+    ``ChunkPlan`` field bitwise equal to the host planner's plan, which
+    is the batch's own slice; K1 + K2 grid both plans to bitwise equal
+    planes (the counters set to 0 just before gridding from the device
+    plan: K1 and K2 must launch); with ``nc`` below the chunk count,
+    ``n_chunks`` the true count and the kept chunks unchanged; the
+    planner makes no host sync (``set_sync_debug_mode("error")``).
+    Times: the device planner by CUDA events (median of 10) and one
+    profiled call (device busy time, largest ops, host enqueue seconds),
+    the host planner (median of 3) and ``MxuGridder.upload_plan`` of its
+    plan (median of 3, ending in a synchronize)."""
+    import statistics
+
+    import numpy as np
+
+    from katsdpimager_tpu_torch import native
+    from katsdpimager_tpu_torch.ops import fused_gridder, mxu_gridder
+
+    raw = production_slice(cfg)
+    kw = dict(pixels=cfg.pixels, kernel_width=cfg.kernel_width, ts=cfg.rv,
+              mc=cfg.chunk_size)
+    host_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        host = mxu_gridder.plan_chunks_tiled(*raw, **kw)
+        host_s.append(time.perf_counter() - t0)
+    nc = host.uv.shape[0]
+    n_chunks = int(host.valid.any(axis=1).sum())
+    checks = {"host_plan_is_the_batch_slice": n_chunks == int(
+        batch.n_chunks[0, 0]) and all(
+        np.array_equal(getattr(host, f)[:n_chunks],
+                       getattr(batch, f)[0, 0, :n_chunks].cpu().numpy())
+        for f in ("uv", "sub_uv", "w_plane", "vis", "weights", "anchor",
+                  "valid"))}
+
+    gridder = mxu_gridder.MxuGridder(pixels=cfg.pixels,
+                                     kernel_width=cfg.kernel_width,
+                                     device=dev)
+    upload_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gridder.upload_plan(host)
+        torch.cuda.synchronize()
+        upload_s.append(time.perf_counter() - t0)
+
+    inputs = [torch.from_numpy(a).to(dev) for a in raw]
+
+    def plan(nc_):
+        return mxu_gridder.plan_chunks_tiled_device(*inputs, **kw, nc=nc_,
+                                                    device=dev)
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = plan(nc)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    device_ms = []
+    for _ in range(10):
+        device_ms.append(cuda_ms(lambda: plan(nc), 1))
+    # Where its time goes: one planner call under torch.profiler (device
+    # busy time, the largest device ops) and the host's seconds to
+    # enqueue it.
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        plan(nc)
+        enqueue_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    busy_ms, by_op = device_busy_ms(prof)
+    checks["profiled_device_work"] = busy_ms > 0
+    checks["fields_bitwise_equal"] = all(
+        np.array_equal(got[f].cpu().numpy(), getattr(host, f))
+        for f in mxu_gridder.ChunkPlan._fields)
+    checks["n_chunks_equal"] = int(got["n_chunks"]) == n_chunks
+
+    # K1 + K2 from each plan, natural weights (no density), the occupied
+    # chunks only, as the step grids a slice.
+    kern = batch.kernel[0]
+    fields = ("uv", "sub_uv", "w_plane", "vis", "anchor", "valid")
+
+    def grid(p):
+        return mxu_gridder.grid_chunks_parts(
+            kern, None, *(p[f] for f in fields), None, n_chunks,
+            pixels=cfg.pixels, ts=cfg.rv)
+
+    want = grid({f: torch.from_numpy(getattr(host, f)).to(dev)
+                 for f in fields})
+    counters = (fused_gridder.grid_planes, fused_gridder.combine_planes)
+    torch.cuda.synchronize()
+    for fn in counters:
+        fn.launches = 0
+    planes = grid(got)
+    torch.cuda.synchronize()
+    launches = [fn.launches for fn in counters]
+    checks["planes_bitwise_equal"] = all(
+        torch.equal(a, b) for a, b in zip(planes, want))
+    checks["k1_k2_launched"] = min(launches) > 0
+    checks["planes_finite_nonzero"] = bool(
+        torch.isfinite(planes[0]).all() and planes[0].abs().max() > 0)
+    for row, count in zip(rows, launches):
+        row["device_plan_launches"] = count
+    del want, planes
+
+    short = nc // 2
+    cut = plan(short)
+    checks["overflow_counts_every_chunk"] = (
+        int(cut["n_chunks"]) == n_chunks > short)
+    checks["overflow_keeps_the_first_chunks"] = all(
+        np.array_equal(cut[f].cpu().numpy(), getattr(host, f)[:short])
+        for f in ("uv", "sub_uv", "w_plane", "vis", "weights", "anchor",
+                  "valid")) and all(
+        np.array_equal(cut[f].cpu().numpy(), getattr(host, f))
+        for f in ("row_chunk", "row_slot"))
+    emit({"phase": "device_plan", "card": card, "num_vis": len(raw[0]),
+          "n_chunks": n_chunks, "nc": nc, "overflow_nc": short,
+          "runs": int(np.count_nonzero(np.diff(
+              host.anchor[:n_chunks], axis=0).any(axis=1))) + 1,
+          "device_planner_ms_median_of_10": statistics.median(device_ms),
+          "device_planner_ms": device_ms,
+          "device_planner_busy_ms": busy_ms,
+          "device_planner_enqueue_s_profiled": enqueue_s,
+          "device_planner_top_device_ms": sorted(
+              by_op.items(), key=lambda kv: -kv[1])[:8],
+          "host_planner_s_median_of_3": statistics.median(host_s),
+          "host_planner_s": host_s, "native_packer": native.available(),
+          "upload_plan_s_median_of_3": statistics.median(upload_s),
+          "upload_plan_s": upload_s,
+          "launches": dict(zip(("K1", "K2"), launches)), **checks})
+    if not all(checks.values()):
+        raise AssertionError(f"device_plan phase failed: {checks}")
+
+
 def bench_config():
     """The dirty step's shape, ``bench.py``'s (``bench.py:215-228``): 4096
     px, K = 60, oversample 8, 32 W planes, 4 W slices, 8192 chunks of 256,
@@ -2393,10 +2620,14 @@ def distributed_phase(dev, card, dataset, vis_block: int) -> None:
     launches of K1-K7, which must show K1, K2 and K5 on every rank: K1 and
     K2 summed over the chan split's ranks as in the 1-rank run, and at
     most its K1 on a vis rank (a slice whose chunks all lie on the other
-    rank launches no K1 here).  Then the bench-shape step (2 channels) at
-    vis 2 against the unsharded step, within 1e-4 of the peak inside the
-    field, K1 and K2 launched on both ranks, and an all-reduce of a plane
-    pair on idle ranks.  Every rank must have joined over gloo."""
+    rank launches no K1 here).  Then the chan split once more in the
+    ``--coordinator`` form (:func:`coordinator_run`, no ``torchrun``
+    variables): each rank must log and report one host of 2 ranks, gloo
+    and ``cuda:0``, and the images must be bitwise the ``torchrun``
+    run's.  Then the bench-shape step (2 channels) at vis 2 against the
+    unsharded step, within 1e-4 of the peak inside the field, K1 and K2
+    launched on both ranks, and an all-reduce of a plane pair on idle
+    ranks.  Every rank must have joined over gloo."""
     import os
     import tempfile
 
@@ -2471,10 +2702,45 @@ def distributed_phase(dev, card, dataset, vis_block: int) -> None:
                 "blocked_in_all_reduce_s": [ln["psum_s"] for ln in lines],
                 "launches": launches, "launches_ok": every and counted,
                 "backends": [ln["backend"] for ln in lines],
+                "layouts": [ln["layout"] for ln in lines],
+                "devices": [ln["device"] for ln in lines],
                 "waves": lines[0]["waves"]}
             ok = (ok and err <= tol and every and counted
                   and all(ln["backend"] == "gloo" for ln in lines)
                   and all(np.isfinite(g[inside]).all() for g in got))
+
+        # The chan split again in the --coordinator form: 2 processes with
+        # no torchrun variables, each finding the host's layout through
+        # the rendezvous store; the images bitwise the torchrun run's.
+        out = os.path.join(tmp, "coordinator")
+        os.makedirs(out)
+        wall = coordinator_run(2, ["pipeline", out, "1"], out)
+        got = images(os.path.join(out, "images"))
+        same = all(np.array_equal(g, w) for g, w in zip(
+            got, images(os.path.join(tmp, "chan2_vis1", "images"))))
+        lines = ranks(out, 2)
+        logged = []
+        for r in range(2):
+            with open(os.path.join(out, f"coord{r}.log")) as f:
+                logged.append([ln for ln in f.read().splitlines()
+                               if "distributed: rank" in ln])
+        layouts_ok = all(
+            ln["layout"] == {"local_rank": r, "local_world": 2,
+                             "backend": "gloo", "hosts": 1}
+            and ln["device"] == "cuda:0" and ln["backend"] == "gloo"
+            and len(logged[r]) == 1
+            and (f"rank {r} of 2, 1 host(s), local rank {r} of 2, backend "
+                 f"gloo, device cuda:0") in logged[r][0]
+            for r, ln in enumerate(lines))
+        results["coordinator chan 2, vis 1"] = {
+            "bitwise_equal_to_torchrun": same, "seconds": wall,
+            "rank_seconds": [ln["seconds"] for ln in lines],
+            "layouts": [ln["layout"] for ln in lines],
+            "devices": [ln["device"] for ln in lines],
+            "logged": [lg[0] if lg else None for lg in logged],
+            "launches": [ln["launches"] for ln in lines],
+            "layouts_ok": layouts_ok}
+        ok = ok and same and layouts_ok
 
         out = os.path.join(tmp, "step")
         os.makedirs(out)

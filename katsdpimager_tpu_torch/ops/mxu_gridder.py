@@ -141,9 +141,9 @@ def plan_chunks_tiled(uv, sub_uv, w_plane, vis, weights, *, pixels: int,
                       mc: int = 256) -> ChunkPlan:
     """Tile-aligned chunk plan.  Anchors are multiples of ``ts``.
 
-    Uses the JAX package's native counting-sort packer when it builds
-    (its layout is bitwise identical to the numpy planner's), as the JAX
-    planner does.
+    Uses the port's own native counting-sort packer (:mod:`..native`)
+    when it builds (its layout is bitwise identical to the numpy
+    planner's), as the JAX planner uses its package's.
     """
     n = len(uv)
     P = vis.shape[1]
@@ -194,6 +194,73 @@ def plan_chunks_tiled(uv, sub_uv, w_plane, vis, weights, *, pixels: int,
     return ChunkPlan(c_uv, c_sub, c_wp, c_vis, c_wt, asg["anchor"],
                      asg["valid"], asg["row_chunk"].astype(np.int32),
                      asg["row_slot"].astype(np.int32))
+
+
+def plan_chunks_tiled_device(uv, sub_uv, w_plane, vis, weights, *,
+                             pixels: int, kernel_width: int, ts: int,
+                             mc: int, nc: int, device=None) -> dict:
+    """The tiled chunk plan made by device ops, with no host sync.
+
+    Counterpart of the JAX ``plan_chunks_tiled_device``: the layout of
+    :func:`plan_chunks_tiled` (a stable sort by tile key, groups started
+    by ``cummax``, chunks of at most ``mc`` within each tile), scattered
+    into ``nc`` chunks; chunks past ``nc`` are dropped.  The inputs
+    (tensors or arrays) go to ``device`` (None: the CUDA device, which
+    must exist).  Returns a dict of tensors: the :class:`ChunkPlan`
+    fields (``row_chunk`` unclipped for dropped rows, as in JAX) and the
+    0-d int32 ``n_chunks``, the true chunk count, which the caller reads
+    when it needs it.  Plain PyTorch: the JAX function is XLA ops, not a
+    Pallas kernel.
+    """
+    dev = device_mod.resolve(device)
+    uv, sub_uv, w_plane, vis, weights = (
+        torch.as_tensor(x, device=dev)
+        for x in (uv, sub_uv, w_plane, vis, weights))
+    K = kernel_width
+    n, P = vis.shape
+    uv_bias = (K - 1) // 2 - pixels // 2
+    u0 = uv[:, 0].to(torch.int32) - uv_bias
+    v0 = uv[:, 1].to(torch.int32) - uv_bias
+    tv = torch.div(v0, ts, rounding_mode="floor")
+    tu = torch.div(u0, ts, rounding_mode="floor")
+    ntu = -(-pixels // ts) + 1
+    key_s, order = torch.sort(tv * ntu + tu, stable=True)
+
+    idx = torch.arange(n, dtype=torch.int32, device=dev)
+    new_group = torch.ones(n, dtype=torch.bool, device=dev)
+    new_group[1:] = key_s[1:] != key_s[:-1]
+    # the start index of each element's group: cummax of group starts
+    start = torch.cummax(torch.where(new_group, idx, 0), 0).values
+    local = idx - start
+    slot_of = local % mc
+    chunk_of = torch.cumsum(new_group | (slot_of == 0), 0,
+                            dtype=torch.int32) - 1
+    n_chunks = (chunk_of[-1] + 1 if n
+                else torch.zeros((), dtype=torch.int32, device=dev))
+
+    # Rows past nc land in one spare chunk that is cut off (the JAX
+    # scatter's mode="drop", without a host sync to count them).
+    at = (torch.where(chunk_of < nc, chunk_of, nc), slot_of)
+
+    def scat(values, *tail):
+        out = torch.zeros((nc + 1, mc, *tail), dtype=values.dtype,
+                          device=dev)
+        out.index_put_(at, values)
+        return out[:nc]
+
+    anchor = torch.zeros((nc + 1, 2), dtype=torch.int32, device=dev)
+    anchor[at[0]] = torch.stack([tv[order], tu[order]], 1) * ts
+    row_chunk = torch.empty(n, dtype=torch.int32, device=dev)
+    row_slot = torch.empty(n, dtype=torch.int32, device=dev)
+    row_chunk[order] = chunk_of
+    row_slot[order] = slot_of
+    return dict(uv=scat(uv[order].to(torch.int32), 2),
+                sub_uv=scat(sub_uv[order].to(torch.int32), 2),
+                w_plane=scat(w_plane[order].to(torch.int32)),
+                vis=scat(vis[order], P), weights=scat(weights[order], P),
+                anchor=anchor[:nc],
+                valid=scat(torch.ones(n, dtype=torch.bool, device=dev)),
+                row_chunk=row_chunk, row_slot=row_slot, n_chunks=n_chunks)
 
 
 def colour_tiles(pixels: int, ts: int) -> int:

@@ -3,7 +3,8 @@
 :func:`run_ranks` starts ``world`` processes with :mod:`torch.multiprocessing`
 (``spawn``), each in the process group of :mod:`.mesh` over a free
 ``localhost`` port (``torchrun``'s environment: ``MASTER_ADDR``,
-``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``), calls the
+``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+``LOCAL_WORLD_SIZE``; or ``--coordinator``'s arguments), calls the
 named function there and returns each rank's result.  The function is
 named as ``"module:function"`` and must live in the port: a child imports
 nothing else.  A rank that raises, dies or outlives ``timeout`` fails the
@@ -36,14 +37,19 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def _rank_main(rank: int, world: int, port: int, backend: str, target: str,
-               args: tuple, kwargs: dict, results) -> None:
-    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
-                      RANK=str(rank), WORLD_SIZE=str(world),
-                      LOCAL_RANK=str(rank))
+def _rank_main(rank: int, world: int, port: int, backend, coordinator: bool,
+               target: str, args: tuple, kwargs: dict, results) -> None:
     torch.set_num_threads(1)
     try:
-        mesh_mod.initialize_distributed(backend=backend)
+        if coordinator:
+            mesh_mod.initialize_distributed(f"localhost:{port}", world, rank,
+                                            backend=backend)
+        else:
+            os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                              RANK=str(rank), WORLD_SIZE=str(world),
+                              LOCAL_RANK=str(rank),
+                              LOCAL_WORLD_SIZE=str(world))
+            mesh_mod.initialize_distributed(backend=backend)
         module, name = target.split(":")
         fn = getattr(importlib.import_module(module), name)
         results.put((rank, True, fn(*args, **kwargs)))
@@ -53,20 +59,24 @@ def _rank_main(rank: int, world: int, port: int, backend: str, target: str,
         raise
 
 
-def run_ranks(world: int, target: str, *args, backend: str = "gloo",
-              timeout: float = 300.0, **kwargs) -> list:
+def run_ranks(world: int, target: str, *args, backend="gloo",
+              coordinator: bool = False, timeout: float = 300.0,
+              **kwargs) -> list:
     """``target(*args, **kwargs)`` on ``world`` ranks of a new process
     group; returns the results by rank.  ``target`` is
     ``"package.module:function"`` in the port; arguments and results are
-    pickled."""
+    pickled.  ``coordinator`` joins as ``--coordinator localhost:PORT
+    --num-processes world --process-id rank`` does, with no ``torchrun``
+    variables (the hosts' layout then comes through the rendezvous
+    store); ``backend`` None is the group's own choice."""
     if not target.startswith("katsdpimager_tpu_torch."):
         raise ValueError(f"{target}: the ranks run functions of the port")
     ctx = torch.multiprocessing.get_context("spawn")
     results = ctx.Queue()
     port = free_port()
     procs = [ctx.Process(target=_rank_main, daemon=True,
-                         args=(r, world, port, backend, target, args,
-                               kwargs, results))
+                         args=(r, world, port, backend, coordinator,
+                               target, args, kwargs, results))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -125,9 +135,10 @@ def image_shards(jobs, *, device=None) -> list:
 
 
 def mesh_report(vis_shards_list, *, device="cpu") -> list:
-    """For each ``vis_shards``: this rank's mesh indices and what the
-    collectives give on values that depend on the rank: :func:`.mesh.psum`
-    of ``[rank, 1]``, :func:`.mesh.pmax_ints` of ``[rank, -rank]``,
+    """For each ``vis_shards``: this rank's mesh indices, host layout
+    (:func:`.mesh.local_layout`) and device, and what the collectives
+    give on values that depend on the rank: :func:`.mesh.psum` of
+    ``[rank, 1]``, :func:`.mesh.pmax_ints` of ``[rank, -rank]``,
     :func:`.mesh.all_max_int` of the rank, :func:`.mesh.broadcast` of
     ``"from <rank>"`` and :func:`.mesh.gather_to_rank0` of the rank."""
     out = []
@@ -136,6 +147,7 @@ def mesh_report(vis_shards_list, *, device="cpu") -> list:
         r = mesh.rank
         out.append({
             "rank": r, "world": mesh.world, "chan_index": mesh.chan_index,
+            "layout": mesh_mod.local_layout(), "device": str(mesh.device),
             "chan_size": mesh.chan_size, "vis_index": mesh.vis_index,
             "vis_size": mesh.vis_size,
             "psum": mesh_mod.psum(torch.tensor([float(r), 1.0],

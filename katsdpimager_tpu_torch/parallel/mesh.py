@@ -24,12 +24,15 @@ instead.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import datetime
+import json
 import logging
 import os
+import socket
 import time
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
@@ -63,72 +66,149 @@ class Mesh:
         return {"chan": self.chan_size, "vis": self.vis_size}
 
 
+class HostLayout(NamedTuple):
+    """Where a rank sits among the ranks of its host, and the backend."""
+
+    #: this rank's index among its host's ranks, in rank order
+    local_rank: int
+    #: the number of ranks on this rank's host
+    local_world: int
+    #: ``nccl`` or ``gloo``, the same on every rank
+    backend: str
+    #: the number of hosts of the group
+    hosts: int
+
+
+def host_layout(hostnames, cards, rank: int) -> HostLayout:
+    """Rank ``rank``'s :class:`HostLayout` from every rank's hostname and
+    CUDA card count (lists indexed by global rank; 0 cards: no CUDA).
+    The backend is ``nccl`` only where every host has CUDA and no more
+    ranks than cards, else ``gloo``; every rank computes it from the
+    same lists, so all agree (a mismatch would hang the group)."""
+    counts = collections.Counter(hostnames)
+    nccl = all(c > 0 and counts[h] <= c for h, c in zip(hostnames, cards))
+    host = hostnames[rank]
+    local_rank = sum(1 for h in hostnames[:rank] if h == host)
+    return HostLayout(local_rank, counts[host], "nccl" if nccl else "gloo",
+                      len(counts))
+
+
+def _cards() -> int:
+    """This host's CUDA cards (0 without CUDA)."""
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
+#: This process's layout once :func:`initialize_distributed` has joined.
+_layout: Optional[HostLayout] = None
+
+
+def local_layout() -> Optional[HostLayout]:
+    """The :class:`HostLayout` :func:`initialize_distributed` found for
+    this process (None before it joined, or where it did not form the
+    group)."""
+    return _layout
+
+
+def _gather_layout(store, world: int, rank: int) -> HostLayout:
+    """Publish this rank's hostname and card count in ``store``, wait for
+    every rank's and compute this rank's layout."""
+    store.set(f"ktpu_host/{rank}",
+              json.dumps([socket.gethostname(), _cards()]))
+    entries = [json.loads(store.get(f"ktpu_host/{r}")) for r in range(world)]
+    return host_layout([e[0] for e in entries], [e[1] for e in entries],
+                       rank)
+
+
 def initialize_distributed(coordinator: Optional[str] = None,
                            num_processes: Optional[int] = None,
                            process_id: Optional[int] = None, *,
                            backend: Optional[str] = None) -> None:
     """Join the process group (call before any device use).
 
-    With no arguments the rank, world size and rendezvous come from the
-    environment that ``torchrun`` sets (``env://``); otherwise from
-    ``tcp://{coordinator}`` with ``num_processes`` and ``process_id``, as
-    ``jax.distributed.initialize`` takes them.  ``backend`` None is
-    :func:`default_backend`'s choice.  Where the group exists already
-    this does nothing."""
+    ``num_processes`` counts the ranks over every host, one per card, and
+    ``process_id`` is this rank among them (a JAX ``num_processes``
+    counts hosts instead).  Under ``torchrun`` (``LOCAL_RANK`` and
+    ``LOCAL_WORLD_SIZE`` set) the group forms from its environment
+    (``env://``) and the local rank is ``LOCAL_RANK``.  Otherwise the
+    rendezvous is ``tcp://{coordinator}`` with ``num_processes`` and
+    ``process_id``, or without a coordinator ``MASTER_ADDR``,
+    ``MASTER_PORT``, ``RANK`` and ``WORLD_SIZE``: there each rank first
+    publishes its hostname and card count in the rendezvous store, and
+    :func:`host_layout` gives its local rank and the backend.  ``backend``
+    None is that choice (under ``torchrun``, :func:`default_backend`'s).
+    Under ``nccl`` the rank's card becomes the current device before the
+    group forms.  Where the group exists already this does nothing."""
+    global _layout
     if dist.is_initialized():
         return
-    if backend is None:
-        backend = default_backend(num_processes)
-    kwargs = dict(backend=backend,
-                  timeout=datetime.timedelta(seconds=TIMEOUT_S))
-    if coordinator is None:
-        kwargs["init_method"] = "env://"
+    timeout = datetime.timedelta(seconds=TIMEOUT_S)
+    env = os.environ
+    torchrun = {"LOCAL_RANK", "LOCAL_WORLD_SIZE"} <= env.keys()
+    if coordinator is None and torchrun:
+        world, rank = int(env["WORLD_SIZE"]), int(env["RANK"])
+        layout = HostLayout(int(env["LOCAL_RANK"]),
+                            int(env["LOCAL_WORLD_SIZE"]),
+                            backend or default_backend(),
+                            int(env.get("GROUP_WORLD_SIZE", 1)))
+        kwargs = dict(init_method="env://")
     else:
-        if num_processes is None or process_id is None:
-            raise ValueError("a coordinator needs num_processes and "
-                             "process_id")
-        kwargs.update(init_method=f"tcp://{coordinator}",
-                      world_size=num_processes, rank=process_id)
-    if backend == "nccl":
+        if coordinator is not None:
+            if num_processes is None or process_id is None:
+                raise ValueError("a coordinator needs num_processes and "
+                                 "process_id")
+            host, port = coordinator.rsplit(":", 1)
+            world, rank = num_processes, process_id
+        else:
+            host, port = env["MASTER_ADDR"], env["MASTER_PORT"]
+            world, rank = int(env["WORLD_SIZE"]), int(env["RANK"])
+        store = dist.TCPStore(host, int(port), world, is_master=rank == 0,
+                              timeout=timeout)
+        layout = _gather_layout(store, world, rank)
+        if backend is not None:
+            layout = layout._replace(backend=backend)
+        kwargs = dict(store=store, rank=rank, world_size=world)
+    if layout.backend == "nccl":
         # NCCL binds a rank to its card when the group forms.
-        torch.cuda.set_device(rank_device(
-            process_id if coordinator is not None
-            else int(os.environ.get("RANK", "0")), backend))
-    dist.init_process_group(**kwargs)
-    logger.info("distributed: rank %d of %d, backend %s", dist.get_rank(),
-                dist.get_world_size(), backend)
+        torch.cuda.set_device(rank_device(layout.local_rank, "nccl"))
+    dist.init_process_group(layout.backend, timeout=timeout, **kwargs)
+    _layout = layout
+    logger.info("distributed: rank %d of %d, %d host(s), local rank %d of "
+                "%d, backend %s, device %s", rank, world, layout.hosts,
+                layout.local_rank, layout.local_world, layout.backend,
+                rank_device(layout.local_rank, layout.backend)
+                if torch.cuda.is_available() else "cpu")
 
 
 def default_backend(num_processes: Optional[int] = None) -> str:
-    """``nccl`` where CUDA is available and this host's ranks
-    (``LOCAL_WORLD_SIZE`` from ``torchrun``, else ``num_processes``, else
-    ``WORLD_SIZE``) are at most its cards; otherwise ``gloo``, which lets
-    ranks share a card."""
-    if not torch.cuda.is_available():
-        return "gloo"
+    """The backend of ranks on one host (``LOCAL_WORLD_SIZE`` from
+    ``torchrun``, else ``num_processes``, else ``WORLD_SIZE``):
+    :func:`host_layout`'s choice, ``nccl`` where CUDA is available and
+    they are at most its cards, otherwise ``gloo``, which lets ranks
+    share a card."""
     local = os.environ.get("LOCAL_WORLD_SIZE")
     if local is None:
         local = (num_processes if num_processes is not None
                  else os.environ.get("WORLD_SIZE", 1))
-    return "nccl" if int(local) <= torch.cuda.device_count() else "gloo"
+    local = int(local)
+    return host_layout([""] * local, [_cards()] * local, 0).backend
 
 
-def rank_device(rank: int, backend: str) -> torch.device:
-    """The card of a rank: ``cuda:{LOCAL_RANK}`` (``LOCAL_RANK`` from
-    ``torchrun``, else the rank).  More ranks than cards raise, unless
-    the backend is ``gloo``: then the ranks share the cards round-robin."""
+def rank_device(local_rank: int, backend: str) -> torch.device:
+    """The card of a rank, ``cuda:{local_rank}`` (its index among its
+    host's ranks).  More local ranks than cards raise, unless the backend
+    is ``gloo``: then the ranks share the cards round-robin."""
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: a rank drives a card (the CPU "
                            "only where the caller asks for it)")
-    local = int(os.environ.get("LOCAL_RANK", rank))
     cards = torch.cuda.device_count()
-    if local >= cards:
+    if local_rank >= cards:
         if backend != "gloo":
             raise RuntimeError(
-                f"local rank {local} but {cards} CUDA device(s): backend "
-                f"{backend} takes one rank per card (gloo may share them)")
-        local %= cards
-    return torch.device("cuda", local)
+                f"local rank {local_rank} but {cards} CUDA device(s): "
+                f"backend {backend} takes one rank per card (gloo may share "
+                f"them)")
+        local_rank %= cards
+    return torch.device("cuda", local_rank)
 
 
 def world_size() -> int:
@@ -147,7 +227,9 @@ def default_device(device=None) -> torch.device:
     A CUDA device becomes the process's current device, where its
     kernels launch."""
     if device is None and dist.is_initialized():
-        device = rank_device(dist.get_rank(), dist.get_backend())
+        local = (_layout.local_rank if _layout is not None
+                 else int(os.environ.get("LOCAL_RANK", dist.get_rank())))
+        device = rank_device(local, dist.get_backend())
     device = device_mod.resolve(device)
     if device.type == "cuda" and device.index is not None:
         torch.cuda.set_device(device)

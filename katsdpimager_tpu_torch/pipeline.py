@@ -16,17 +16,20 @@ runs every kernel's plain version (the parity reference).  Tests pass
 ``device="cpu"``.  :func:`run` takes a loaded dataset, so an in-memory
 dataset needs no file format.
 
-``--cube`` runs on several processes, one card each, as the JAX package
-does on several hosts (:mod:`.parallel.mesh`): launched by ``torchrun``
-(``python -m torch.distributed.run --nproc-per-node N -m
+``--cube`` runs on several processes (ranks), one card each, on one host
+or several (:mod:`.parallel.mesh`): launched by ``torchrun`` (``python
+-m torch.distributed.run --nproc-per-node N -m
 katsdpimager_tpu_torch.pipeline ...``; :func:`main` joins the group when
 ``WORLD_SIZE`` is set) or with ``--coordinator HOST:PORT
---num-processes N --process-id I`` per process.  A wave then holds one
-channel per chan group of ``--vis-shards`` ranks, and rank 0 writes.
-The backend is ``nccl`` where each rank has a card of its own, else
-``gloo`` (the CPU, or ranks sharing a card:
-:func:`.parallel.mesh.default_backend`).  The per-channel route stays on
-one process.
+--num-processes N --process-id I`` per process.  ``N`` counts the ranks
+over every host, one per card, and ``I`` is the rank among them (a JAX
+``--num-processes`` counts hosts, one process each).  Without
+``torchrun`` the ranks find their hosts' layout through the rendezvous
+(:func:`.parallel.mesh.host_layout`): each drives the card of its index
+among its host's ranks.  A wave then holds one channel per chan group of
+``--vis-shards`` ranks, and rank 0 writes.  The backend is ``nccl`` where
+every rank has a card of its own, else ``gloo`` (the CPU, or ranks
+sharing a card).  The per-channel route stays on one process.
 
 The JAX module enables XLA's persistent compilation cache
 (``xfer.enable_compilation_cache``); the port compiles nothing per
@@ -213,8 +216,10 @@ def get_parser():
     group.add_argument("--coordinator", default=None,
                        help="HOST:PORT of process 0 (without it, torchrun's "
                             "environment, where WORLD_SIZE is set)")
-    group.add_argument("--num-processes", type=int, default=None)
-    group.add_argument("--process-id", type=int, default=None)
+    group.add_argument("--num-processes", type=int, default=None,
+                       help="Ranks over every host, one per card")
+    group.add_argument("--process-id", type=int, default=None,
+                       help="This rank, 0 to --num-processes - 1")
     parser.add_argument("--cube-psf-patch", type=int, default=0,
                         help="CLEAN PSF patch size in --cube mode; 0 "
                              "auto-sizes per wave from the measured PSF "

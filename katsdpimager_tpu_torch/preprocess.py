@@ -382,6 +382,15 @@ class VisibilityCollectorMem(VisibilityCollector):
     """In-memory backend (the base class is already in-memory)."""
 
 
+class VisibilityCollectorNative(VisibilityCollector):
+    """The collector on the native C++ core (``engine="native"`` forced;
+    the JAX package's alias, kept for API parity)."""
+
+    def __init__(self, *args, **kwargs):
+        kwargs["engine"] = "native"
+        super().__init__(*args, **kwargs)
+
+
 def _import_h5py():
     try:
         import h5py

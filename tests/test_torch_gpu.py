@@ -902,3 +902,55 @@ def test_two_ranks_share_the_card(cuda):
         got = r[1]["outputs"][0]
         assert np.abs(got - ref)[..., inside].max() <= 1e-5 * peak
         assert r[1]["psum_calls"] > 0
+
+
+@pytest.mark.parametrize("ts,K,P", [(64, 60, 1), (32, 16, 2)])
+def test_device_plan_grids_as_the_host_plan(cuda, ts, K, P):
+    """``plan_chunks_tiled_device`` on the card, with no host sync: every
+    field bitwise equal to the host plan, and K1 + K2 grid both plans to
+    bitwise equal planes."""
+    pixels, n = 1024, 20000
+    rng = np.random.default_rng(7)
+    kernel = (rng.normal(size=(4, 8, K))
+              + 1j * rng.normal(size=(4, 8, K))).astype(np.complex64)
+    lim = pixels // 2 - K - 1
+    uv = np.clip(rng.normal(scale=lim / 3, size=(n, 2)), -lim, lim
+                 ).astype(np.int16)
+    sub = rng.integers(0, 8, size=(n, 2)).astype(np.int16)
+    wp = rng.integers(0, 4, size=n).astype(np.int16)
+    vis = (rng.normal(size=(n, P))
+           + 1j * rng.normal(size=(n, P))).astype(np.complex64)
+    wt = rng.uniform(0.5, 2.0, size=(n, P)).astype(np.float32)
+    wg = rng.uniform(0.5, 2.0, size=(P, pixels, pixels)).astype(np.float32)
+    kw = dict(pixels=pixels, kernel_width=K, ts=ts, mc=256)
+    host = mxu_gridder.plan_chunks_tiled(uv, sub, wp, vis, wt, **kw)
+    nc = host.uv.shape[0]
+    uv_dev, *rest = (torch.from_numpy(a).to(cuda)
+                     for a in (uv, sub, wp, vis, wt))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        dev = mxu_gridder.plan_chunks_tiled_device(uv_dev, *rest, **kw,
+                                                   nc=nc)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(v.device == uv_dev.device for v in dev.values())
+    for name in mxu_gridder.ChunkPlan._fields:
+        want = torch.from_numpy(np.ascontiguousarray(getattr(host, name)))
+        assert torch.equal(dev[name].cpu(), want), name
+    n_chunks = int(host.valid.any(axis=1).sum())
+    assert int(dev["n_chunks"]) == n_chunks
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+
+    def grid(plan):
+        return mxu_gridder.grid_chunks_parts(
+            up(kernel), up(wg), *(plan[f] for f in (
+                "uv", "sub_uv", "w_plane", "vis", "anchor", "valid")),
+            None, n_chunks, pixels=pixels, ts=ts)
+
+    want = grid({f: up(getattr(host, f)) for f in host._fields})
+    got = grid(dev)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert want[0].abs().max() > 0

@@ -281,3 +281,140 @@ def test_capacity_grows_on_every_rank_when_one_overflows():
     assert [g["capacity"] for g in got] == [1024, 1024]
     assert [g["packed"] for g in got] == [1024, 1024]
     assert [g["overflowed"] for g in got] == [True, False]
+
+
+#: Hostnames by global rank: 2 hosts of 4 ranks, ids contiguous within a
+#: host or interleaved between them.
+TWO_HOSTS = {"contiguous": ["a"] * 4 + ["b"] * 4,
+             "interleaved": ["a", "b"] * 4}
+
+
+@pytest.mark.parametrize("hosts", sorted(TWO_HOSTS))
+def test_host_layout_two_hosts_of_four_cards(hosts):
+    """2 hosts x 4 cards: nccl on every rank, and each rank's local rank
+    its index among its own host's ranks, however the ids interleave."""
+    names = TWO_HOSTS[hosts]
+    for r in range(8):
+        want = names[:r].count(names[r])
+        assert mesh.host_layout(names, [4] * 8, r) == (want, 4, "nccl", 2)
+
+
+@pytest.mark.parametrize("cards,want", [(1, "gloo"), (0, "gloo"),
+                                        (2, "nccl")])
+def test_host_layout_one_host(cards, want):
+    """1 host with 2 ranks: gloo where they share 1 card or there is no
+    CUDA (0 cards), nccl with a card each."""
+    for r in range(2):
+        assert mesh.host_layout(["h", "h"], [cards] * 2, r) == (r, 2, want,
+                                                               1)
+
+
+def test_host_layout_one_host_short_of_cards():
+    """Every rank takes gloo where one host of two has more ranks than
+    cards, and where one host has no CUDA."""
+    names = ["a", "a", "b", "b"]
+    assert {mesh.host_layout(names, [2, 2, 1, 1], r).backend
+            for r in range(4)} == {"gloo"}
+    assert {mesh.host_layout(names, [2, 2, 0, 0], r).backend
+            for r in range(4)} == {"gloo"}
+
+
+class _Store:
+    """A rendezvous store holding every other rank's published host."""
+
+    def __init__(self, names, cards):
+        self.data = {f"ktpu_host/{r}": f'["{h}", {cards}]'.encode()
+                     for r, h in enumerate(names)}
+
+    def set(self, key, value):
+        self.data[key] = value.encode()
+
+    def get(self, key):
+        return self.data[key]
+
+
+def _fake_join(monkeypatch, names, cards):
+    """Stand-ins for the store, the group and the cards; returns what
+    they were called with."""
+    calls = {}
+    monkeypatch.setattr(mesh, "_layout", None)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    monkeypatch.setattr(torch.cuda, "set_device",
+                        lambda d: calls.__setitem__("device", d))
+
+    def store(host, port, world, is_master, timeout):
+        calls["store"] = (host, port, world, is_master)
+        return _Store(names, cards)
+
+    def init(backend, **kwargs):
+        calls["group"] = dict(kwargs, backend=backend)
+
+    monkeypatch.setattr(mesh.dist, "TCPStore", store)
+    monkeypatch.setattr(mesh.dist, "init_process_group", init)
+    for name in ("LOCAL_RANK", "LOCAL_WORLD_SIZE", "GROUP_WORLD_SIZE"):
+        monkeypatch.delenv(name, raising=False)
+    return calls
+
+
+@pytest.mark.parametrize("form", ["coordinator", "env"])
+@pytest.mark.parametrize("hosts", sorted(TWO_HOSTS))
+def test_join_over_two_hosts_takes_nccl_and_the_local_card(monkeypatch,
+                                                           form, hosts):
+    """2 hosts x 4 cards joined with ``--coordinator`` arguments, or with
+    only ``RANK``/``WORLD_SIZE`` set (no ``torchrun`` variables): every
+    rank forms the group over nccl through the rendezvous store and
+    drives the card of its index on its own host."""
+    names = TWO_HOSTS[hosts]
+    for r in range(8):
+        calls = _fake_join(monkeypatch, names, 4)
+        monkeypatch.setattr(mesh.socket, "gethostname", lambda: names[r])
+        if form == "coordinator":
+            mesh.initialize_distributed("head:29500", 8, r)
+        else:
+            monkeypatch.setenv("MASTER_ADDR", "head")
+            monkeypatch.setenv("MASTER_PORT", "29500")
+            monkeypatch.setenv("RANK", str(r))
+            monkeypatch.setenv("WORLD_SIZE", "8")
+            mesh.initialize_distributed()
+        local = names[:r].count(names[r])
+        assert calls["store"] == ("head", 29500, 8, r == 0)
+        assert calls["group"]["backend"] == "nccl"
+        assert (calls["group"]["rank"], calls["group"]["world_size"]) == (
+            r, 8)
+        assert calls["device"] == torch.device("cuda", local)
+        assert mesh.local_layout() == (local, 4, "nccl", 2)
+
+
+def test_join_under_torchrun_reads_its_variables(monkeypatch):
+    """``torchrun``'s ``LOCAL_*`` variables: the group forms from its
+    environment (no store of this module's), on the card of
+    ``LOCAL_RANK``, with :func:`default_backend`'s choice."""
+    calls = _fake_join(monkeypatch, [], 2)
+    for name, value in dict(RANK="5", WORLD_SIZE="8", LOCAL_RANK="1",
+                            LOCAL_WORLD_SIZE="2",
+                            GROUP_WORLD_SIZE="4").items():
+        monkeypatch.setenv(name, value)
+    mesh.initialize_distributed()
+    assert "store" not in calls
+    assert calls["group"]["backend"] == "nccl"
+    assert calls["group"]["init_method"] == "env://"
+    assert calls["device"] == torch.device("cuda", 1)
+    assert mesh.local_layout() == (1, 2, "nccl", 4)
+
+
+def test_coordinator_rendezvous_on_two_ranks():
+    """A real 2-rank rendezvous on the CPU with ``--coordinator``
+    arguments and no ``torchrun`` variables: the store path finds one
+    host of 2 ranks and gloo (no CUDA), and the collectives work."""
+    reports = launch.run_ranks(
+        2, "katsdpimager_tpu_torch.parallel.launch:mesh_report", [1, 2],
+        coordinator=True, backend=None)
+    for r, per_v in enumerate(reports):
+        for V, rep in zip((1, 2), per_v):
+            assert rep["layout"] == (r, 2, "gloo", 1)
+            assert rep["device"] == "cpu"
+            assert (rep["rank"], rep["world"]) == (r, 2)
+            assert rep["psum"] == ([float(r), 1.0] if V == 1
+                                   else [1.0, 2.0])
+            assert rep["gathered"] == ([0, 1] if r == 0 else None)

@@ -1,6 +1,6 @@
-"""The port's host planning and batch synthesis against the JAX package:
-the chunk layout and the example batch must be bit-identical, so one
-batch feeds both packages."""
+"""The port's host planning, device planning and batch synthesis against
+the JAX package: the chunk layout and the example batch must be
+bit-identical, so one batch feeds both packages."""
 
 import dataclasses
 
@@ -155,3 +155,103 @@ def test_batch_round_trip():
         np.testing.assert_array_equal(np.asarray(getattr(back, name)),
                                       np.asarray(getattr(jb, name)),
                                       err_msg=name)
+
+
+def _device_case(clustered, K=12, n=777):
+    """The inputs of ``tests/test_mxu_gridder.py``'s
+    ``test_device_plan_matches_host`` (its ``random_case``, seed 31),
+    without the kernel and the weight grid."""
+    rng = np.random.default_rng(31)
+    pixels, oversample, w_planes, pols = 256, 4, 3, 2
+    rng.normal(size=(w_planes, oversample, K))
+    rng.normal(size=(w_planes, oversample, K))
+    lim = pixels // 2 - K
+    if clustered:
+        uv = np.clip(rng.normal(scale=lim / 3, size=(n, 2)), -lim, lim
+                     ).astype(np.int16)
+    else:
+        uv = rng.integers(-lim, lim, size=(n, 2)).astype(np.int16)
+    sub_uv = rng.integers(0, oversample, size=(n, 2)).astype(np.int16)
+    w_plane = rng.integers(0, w_planes, size=n).astype(np.int16)
+    vis = (rng.normal(size=(n, pols)) + 1j * rng.normal(size=(n, pols))
+           ).astype(np.complex64)
+    weights = rng.uniform(0.3, 2.0, size=(n, pols)).astype(np.float32)
+    return pixels, (uv, sub_uv, w_plane, vis, weights)
+
+
+def _jax_device_plan(args, **kw):
+    import jax.numpy as jnp
+
+    uv, sub_uv, w_plane, vis, weights = args
+    return {k: np.asarray(v) for k, v in jax_mxu.plan_chunks_tiled_device(
+        *(jnp.asarray(a.astype(np.int32)) for a in (uv, sub_uv, w_plane)),
+        jnp.asarray(vis), jnp.asarray(weights), **kw).items()}
+
+
+def _torch_device_plan(args, **kw):
+    got = mxu_gridder.plan_chunks_tiled_device(*args, **kw, device="cpu")
+    assert all(v.device.type == "cpu" for v in got.values())
+    return {k: v.numpy() for k, v in got.items()}
+
+
+def _assert_dicts_equal(got, want):
+    assert got.keys() == want.keys()
+    for name in want:
+        assert got[name].dtype == want[name].dtype, name
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+
+
+@pytest.mark.parametrize("clustered", [True, False])
+@pytest.mark.parametrize("ts,mc", [(32, 64), (64, 256)])
+def test_device_plan_matches_host_and_jax(clustered, ts, mc):
+    """``plan_chunks_tiled_device`` on the CPU: every field bitwise equal
+    to the port's host plan and to the JAX device planner's, in the
+    clustered and the uniform case of ``tests/test_mxu_gridder.py``."""
+    pixels, args = _device_case(clustered)
+    kw = dict(pixels=pixels, kernel_width=12, ts=ts, mc=mc)
+    host = mxu_gridder.plan_chunks_tiled(*args, **kw)
+    nc = host.uv.shape[0]
+    got = _torch_device_plan(args, **kw, nc=nc)
+    for name in mxu_gridder.ChunkPlan._fields:
+        np.testing.assert_array_equal(got[name], getattr(host, name),
+                                      err_msg=name)
+        assert got[name].dtype == getattr(host, name).dtype, name
+    assert got["n_chunks"] == host.valid.any(axis=1).sum()
+    assert got["n_chunks"].shape == () and got["n_chunks"].dtype == np.int32
+    _assert_dicts_equal(got, _jax_device_plan(args, **kw, nc=nc))
+
+
+
+@pytest.mark.parametrize("clustered", [True, False])
+def test_device_plan_drops_chunks_past_nc(clustered):
+    """With ``nc`` below the chunk count the chunks past it are dropped,
+    as the JAX scatter's ``mode="drop"`` drops them: ``n_chunks`` is the
+    true count, the kept chunks are the full plan's, ``row_chunk`` stays
+    unclipped; bitwise equal to the JAX device planner."""
+    pixels, args = _device_case(clustered)
+    kw = dict(pixels=pixels, kernel_width=12, ts=32, mc=64)
+    full = _torch_device_plan(args, **kw, nc=64)
+    total = int(full["n_chunks"])
+    nc = total // 2
+    got = _torch_device_plan(args, **kw, nc=nc)
+    assert int(got["n_chunks"]) == total > nc
+    for name in ("uv", "sub_uv", "w_plane", "vis", "weights", "anchor",
+                 "valid"):
+        np.testing.assert_array_equal(got[name], full[name][:nc],
+                                      err_msg=name)
+    for name in ("row_chunk", "row_slot"):
+        np.testing.assert_array_equal(got[name], full[name], err_msg=name)
+    assert (got["row_chunk"] >= nc).any()
+    _assert_dicts_equal(got, _jax_device_plan(args, **kw, nc=nc))
+
+
+def test_device_plan_of_nothing():
+    """No visibilities: ``n_chunks`` 0 and ``nc`` empty chunks, as the
+    JAX device planner gives."""
+    pixels, args = _device_case(True)
+    args = tuple(a[:0] for a in args)
+    kw = dict(pixels=pixels, kernel_width=12, ts=32, mc=64, nc=4)
+    got = _torch_device_plan(args, **kw)
+    assert int(got["n_chunks"]) == 0 and not got["valid"].any()
+    assert got["uv"].shape == (4, 64, 2) and got["row_chunk"].shape == (0,)
+    _assert_dicts_equal(got, _jax_device_plan(args, **kw))

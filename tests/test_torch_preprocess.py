@@ -77,10 +77,9 @@ def _params(num_channels):
     return ips, [parameters.GridParameters(fgp, 3, 16)] * num_channels
 
 
-def _collect(module, engine, **kw):
+def _collect(module, engine, cls="VisibilityCollectorMem", **kw):
     ips, gps = _params(2)
-    col = module.VisibilityCollectorMem(ips, gps, 1 << 12, engine=engine,
-                                        **kw)
+    col = getattr(module, cls)(ips, gps, 1 << 12, engine=engine, **kw)
     mueller = polarization.polarization_matrix(STOKES[:2], LINEAR)
     for seed in (2, 3):
         uvw, w, vis, _ = _batch(seed, 3000)
@@ -96,10 +95,15 @@ def _slices(col):
             for c in range(col.num_channels)]
 
 
-@pytest.mark.parametrize("engine", ["torch", "native"])
+@pytest.mark.parametrize("engine", ["torch", "native",
+                                    "VisibilityCollectorNative"])
 def test_collector_matches_jax(engine):
     want = _collect(jax_pre, "jax")
-    got = _collect(preprocess, engine, device="cpu")
+    if engine == "VisibilityCollectorNative":
+        # the class forces the native engine over the one passed
+        got = _collect(preprocess, "torch", engine, device="cpu")
+    else:
+        got = _collect(preprocess, engine, device="cpu")
     assert (got.num_input, got.num_output) == (want.num_input,
                                                 want.num_output)
     for gch, wch in zip(_slices(got), _slices(want)):
@@ -111,6 +115,23 @@ def test_collector_matches_jax(engine):
                 np.testing.assert_allclose(
                     g[k], w[k], rtol=0,
                     atol=1e-6 * np.abs(w[k]).max(initial=1e-30))
+
+
+def test_native_collector_is_the_native_engine():
+    """``VisibilityCollectorNative`` forces ``engine="native"`` over an
+    engine passed and passes ``device`` through: its records bitwise
+    those of ``VisibilityCollector(engine="native")``."""
+    got = _collect(preprocess, "torch", "VisibilityCollectorNative",
+                   device="cpu")
+    same = _collect(preprocess, "native", "VisibilityCollector",
+                    device="cpu")
+    assert (got.engine, got.device) == ("native", torch.device("cpu"))
+    assert (got.num_input, got.num_output) == (same.num_input,
+                                                same.num_output)
+    for gch, sch in zip(_slices(got), _slices(same)):
+        for g, s in zip(gch, sch):
+            for k in ("uv", "sub_uv", "w_plane", "weights", "vis"):
+                np.testing.assert_array_equal(g[k], s[k], err_msg=k)
 
 
 def test_hdf5_collector_streams_blocks(tmp_path):
