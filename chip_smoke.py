@@ -46,8 +46,10 @@ per slice, natural weights), then:
   channel-0 model, within the f32 bound of its sums;
 - checks channel 0's wave against the all-plain wave, as configured
   (border 0) and again with CLEAN's interior kept inside the field;
-- runs the probes P1 (A, B, C) and P2 (E, F): the selections and the
-  recombine exact, the FP32 band dot within 1e-6, the TF32 one printed;
+- runs the probes P1 (A, B, C) and P2 (E, F) on the tensor cores: the
+  selections and the recombine exact, the 3xTF32 band dot (stacked, and
+  the four blocks in one launch) within 1e-6, the one-pass TF32 dot above
+  1e-5; each kernel's device microseconds under ``torch.profiler``;
 - runs the per-channel CLI path (``frontend.run``) on a simulated
   64-antenna, 1024-dump, 2-channel L-band observation with noise (in
   memory: the card's machine has no h5py, so ``--no-tmp-file``) at
@@ -113,6 +115,7 @@ It imports no JAX.
 import dataclasses
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -128,12 +131,14 @@ import torch
 H100_SXM_HBM_BYTES_PER_S = 3.35e12
 H100_SXM_FLOP_PER_S = {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12}
 
-#: Times of the designs that K1, K8, K3, K4, K6, K7 and K5 replace, on
+#: Times of the designs that K1, K8, K3, K4, K6, K7, K5 and the probes P1
+#: and P2 (each group of its wrappers, host time included) replace, on
 #: "NVIDIA H100 80GB HBM3, 700.00 W", as PERF.md records them (the kernel
 #: table's earlier designs).
 REPLACED_DESIGN_MS = {"K1": 5.204, "K8": (0.854, 0.901), "K3": 0.608,
                       "K4": 0.938, "K6": (0.610, 0.675), "K7": (0.894, 0.980),
-                      "K5": (6.45, 6.47)}
+                      "K5": (6.45, 6.47), "P1": (0.317, 0.429),
+                      "P2": (0.072, 0.092)}
 
 
 def emit(obj) -> None:
@@ -915,78 +920,141 @@ def k8_phase(dev, record, rows, fused_fft) -> None:
     redesign_line("K8", row[2], row[5])
 
 
+#: Each probe kernel's inputs (keys of ``probes.inputs``) and its dot: the
+#: unit that runs it, its passes and the contraction each pass sums over
+#: ("W": the table's rows, "Mk": the band's); E has no dot.  A's three
+#: passes are its three bf16 thirds; B's and C's three are the TF32
+#: products of their splits (B: one-hot . hi, mid, lo; C: lo hi, hi lo,
+#: hi hi); C_tf32 is one TF32 pass.
+PROBE_WORK = {
+    "A": (("idx", "tab"), ("bf16", 3, "W")),
+    "B": (("idx", "table"), ("tf32", 3, "W")),
+    "C_stacked": (("av", "bu"), ("tf32", 3, "Mk")),
+    "C_separate": (("a", "b", "c", "d"), ("tf32", 3, "Mk")),
+    "C_tf32": (("av", "bu"), ("tf32", 1, "Mk")),
+    "E": (("tab",), None),
+    "F": (("idx", "tab"), ("bf16", 1, "W")),
+}
+
+
+def probe_bound(d, outs) -> dict:
+    """:func:`bound` of the probe kernels named in ``outs`` (name ->
+    output) run as one group on the inputs ``d`` of ``probes.inputs``:
+    the group's distinct inputs read once and every output written once;
+    each dot, 2 x its contraction x its passes per output, on the unit of
+    :data:`PROBE_WORK`."""
+    length = {"W": d["table"].shape[0], "Mk": d["av"].shape[0]}
+    used, ops = set(), {}
+    for name, out in outs.items():
+        keys, dot = PROBE_WORK[name]
+        used.update(keys)
+        if dot is not None:
+            unit, passes, over = dot
+            ops[unit] = (ops.get(unit, 0.0)
+                         + 2.0 * passes * length[over] * out.numel())
+    nbytes = (sum(d[k].numel() * d[k].element_size() for k in used)
+              + sum(o.numel() * o.element_size() for o in outs.values()))
+    return bound(nbytes, **ops)
+
+
+def kernel_us(fn, reps: int) -> dict:
+    """Device microseconds of a kernel over ``reps`` calls of ``fn`` under
+    ``torch.profiler``, from the kernel intervals of its trace (without
+    the host's time between launches): their median, least and largest,
+    and the kernels seen.  The profiler can miss a few kernels right
+    after it starts (48 of 50 on an H100), and late in a long process it
+    has read a mean at half a kernel's time: hence the median."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    durs = sorted(ev["dur"] for ev in trace_events(prof)
+                  if ev.get("ph") == "X" and ev.get("cat") == "kernel")
+    if not durs:
+        return {"us": 0.0, "us_min": 0.0, "us_max": 0.0, "seen": 0}
+    return {"us": statistics.median(durs), "us_min": durs[0],
+            "us_max": durs[-1], "seen": len(durs)}
+
+
 def probe_phase(dev, rows) -> None:
     """P1 (A, B, C) and P2 (E, F): the probes' own entry, with their
-    counters reset just before; A, B, E and F exactly 0, C in FP32 within
-    1e-6 relative of a float64 product, C in TF32 printed.  Then every
-    probe kernel against its plain version on the same inputs, and their
-    times."""
+    counters reset just before; A, B, E and F exactly 0, C by 3xTF32
+    (K1's split) within 1e-6 relative of a float64 product and above 0,
+    C in one TF32 pass above 1e-5; at most 5 P1 and 2 P2 launches, every
+    kernel launched.  Then every probe kernel against its plain version on the
+    same inputs, its device microseconds (one launch a call) beside its
+    bound, and each group's time against the design it replaced."""
     from katsdpimager_tpu_torch import probes
 
     for fn in probes.P1 + probes.P2:
         fn.launches = 0
     errs = probes.run(dev)
     torch.cuda.synchronize()
+    counts = {fn.__name__: fn.launches for fn in probes.P1 + probes.P2}
     launches = {"P1": sum(fn.launches for fn in probes.P1),
                 "P2": sum(fn.launches for fn in probes.P2)}
     exact = ("A", "B", "E", "F_hi", "F_mid", "F_lo")
     ok = (all(errs[k] == 0.0 for k in exact)
-          and errs["C_stacked"] <= 1e-6 and errs["C_separate"] <= 1e-6)
+          and 0.0 < errs["C_stacked"] <= 1e-6
+          and 0.0 < errs["C_separate"] <= 1e-6 and errs["C_tf32"] > 1e-5
+          and min(counts.values()) > 0 and launches["P1"] <= 5
+          and launches["P2"] <= 2)
     emit({"phase": "probe", "rel_err": errs, "exact_must_be_0": exact,
-          "c_fp32_tolerance": 1e-6, "launches": launches, "ok": ok})
-    if not ok or min(launches.values()) <= 0:
-        raise AssertionError(f"probes failed: {errs}, launches {launches}")
+          "c_3xtf32_tolerance": 1e-6, "c_tf32_must_exceed": 1e-5,
+          "launches": launches, "launches_by_wrapper": counts, "ok": ok})
+    if not ok:
+        raise AssertionError(f"probes failed: {errs}, launches {counts}")
 
     # Kernel against plain on the same inputs: the selections and the
-    # recombine exactly; the FP32 dot within 2e-6 of its largest value
-    # (two f32 sums of 256 products in other orders); the TF32 dot within
-    # 1e-4 (tensor cores accumulate in their own order and rounding).
+    # recombine exactly; the 3xTF32 dot within 2e-6 of its largest value
+    # (sums of 256 f32 products in other orders, the kernel's tensor-core
+    # partial sums truncated); the TF32 dot within 1e-4.
     d = probes.inputs(dev)
     tol = {"C_stacked": 2e-6, "C_separate": 2e-6, "C_tf32": 1e-4}
     for probe, replaces in (("P1", "scripts/mosaic_num_probe.py:64"),
                             ("P2", "scripts/mosaic_num_probe2.py:90")):
         worst, worst_tol = 0.0, 0.0
         group = [c for c in probes.cases(d) if c[1] == probe]
+        outs, device_us = {}, {}
         for name, _, kernel, plain in group:
             got, want = kernel(), plain()
+            outs[name] = want
             err = max_err(got, want)
             t = tol.get(name, 0.0) * want.abs().max().item()
+            us = kernel_us(kernel, 50)
+            seen = us["seen"]
+            device_us[name] = us["us"]
+            own = probe_bound(d, {name: want})
             emit({"phase": "kernel_detail", "name": f"{probe} {name}",
-                  "max_abs_err": err, "tolerance": t})
+                  "max_abs_err": err, "tolerance": t,
+                  "device_us": us["us"], "device_us_min": us["us_min"],
+                  "device_us_max": us["us_max"], "kernels_seen": seen,
+                  "bound_us": own["bound_ms"] * 1e3,
+                  "bound_by": own["bound_by"]})
             if not err <= t:
                 raise AssertionError(f"{probe} {name}: {err} > {t}")
+            # One kernel a call (the profiler may miss the first few).
+            if not 0 < seen <= 50:
+                raise AssertionError(f"{probe} {name}: {seen} kernels in 50 "
+                                     "calls")
             if err - t >= worst - worst_tol:
                 worst, worst_tol = err, t
         ms, plain_ms = timed_pair(lambda: [c[3]() for c in group],
                                   lambda: [c[2]() for c in group], reps=10)
-        # Bytes: the group's distinct inputs read once, every output
-        # written once.  Operations: each probe's dot on the unit that
-        # runs it, 2 x its contracted length per output (the selections
-        # are one-hot products over the W table rows, A over all three
-        # bf16 thirds; E has no dot).
-        used = ("idx", "tab", "table", "av", "bu", "a", "b", "c", "d") \
-            if probe == "P1" else ("idx", "tab")
-        outs = {name: plain() for name, _, _, plain in group}
-        mk, w = d["av"].shape[0], d["table"].shape[0]
-        dots = {"A": ("bf16", 3 * w), "F": ("bf16", w), "B": ("fp32", w),
-                "C_stacked": ("fp32", mk), "C_separate": ("fp32", mk),
-                "C_tf32": ("tf32", mk)}
-        ops = {}
-        for name, o in outs.items():
-            if name in dots:
-                unit, length = dots[name]
-                ops[unit] = ops.get(unit, 0.0) + 2.0 * length * o.numel()
-        bnd = bound(sum(d[k].numel() * d[k].element_size() for k in used)
-                    + sum(o.numel() * o.element_size() for o in outs.values()),
-                    **ops)
+        bnd = probe_bound(d, outs)
         emit({"phase": "kernel", "name": probe, "max_abs_err": worst,
               "tolerance": worst_tol, "ms": ms, "plain_ms": plain_ms,
-              **bnd, "ok": True})
+              "device_us": device_us,
+              "device_us_total": sum(device_us.values()), **bnd, "ok": True})
+        redesign_line(probe, ms)
         rows.append({"name": f"{probe} f32-exactness probes", "route": "cuda",
                      "source": "katsdpimager_tpu_torch/csrc/probe.cu",
                      "replaces": replaces, "launches": launches[probe],
                      "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-                     **bnd, "library_ms": None})
+                     **bnd, "library_ms": None, "device_us": device_us})
 
 
 def sim_dataset(num_antennas: int, num_dumps: int, num_channels: int,
@@ -1437,12 +1505,8 @@ def imager_args(channel: int, degrid: bool, vis_block: int, extra=()):
         namespace=arguments.SmartNamespace())
 
 
-def device_busy_ms(prof) -> tuple:
-    """(busy ms, ms by kernel name) of a ``torch.profiler`` run: the union
-    of the device's kernel, copy and memset intervals in its trace.  The
-    profiler also shows each ``record_function`` range on the device
-    (``gpu_user_annotation``); those are not device work and are left
-    out."""
+def trace_events(prof) -> list:
+    """The events of a ``torch.profiler`` run's chrome trace."""
     import os
     import tempfile
 
@@ -1450,9 +1514,17 @@ def device_busy_ms(prof) -> tuple:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
-            events = json.load(f)["traceEvents"]
+            return json.load(f)["traceEvents"]
+
+
+def device_busy_ms(prof) -> tuple:
+    """(busy ms, ms by kernel name) of a ``torch.profiler`` run: the union
+    of the device's kernel, copy and memset intervals in its trace.  The
+    profiler also shows each ``record_function`` range on the device
+    (``gpu_user_annotation``); those are not device work and are left
+    out."""
     spans, by_name = [], {}
-    for ev in events:
+    for ev in trace_events(prof):
         if ev.get("ph") == "X" and ev.get("cat") in ("kernel", "gpu_memcpy",
                                                      "gpu_memset"):
             spans.append((ev["ts"], ev["ts"] + ev["dur"]))

@@ -74,10 +74,9 @@ SIGNATURES = {
     # idx, tab, out, M, W, L, recombine, stream
     "ktt_probe_select_bf16": [_P, _P, _P, _I, _I, _I, _I, _P],
     # idx, table, out, M, W, L, stream
-    "ktt_probe_select_f32": [_P, _P, _P, _I, _I, _I, _P],
-    # x, y, out, Mk, I, J, stream
-    "ktt_probe_dot_f32": [_P, _P, _P, _I, _I, _I, _P],
-    "ktt_probe_dot_tf32": [_P, _P, _P, _I, _I, _I, _P],
+    "ktt_probe_select_tf32x3": [_P, _P, _P, _I, _I, _I, _P],
+    # x0, x1, y0, y1, out, Mk, I, J, xb, yb, split, stream
+    "ktt_probe_band_dot": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # tab, out, W, L, stream
     "ktt_probe_recombine": [_P, _P, _I, _I, _P],
 }

@@ -1,29 +1,36 @@
-"""Numerics probes P1 and P2: does a dot keep f32 exact on this card?
+"""Numerics probes P1 and P2: does a product on this card's tensor cores
+keep f32 exact?
 
 Counterpart of the JAX package's ``scripts/mosaic_num_probe.py`` (probes
 A, B, C) and ``scripts/mosaic_num_probe2.py`` (probes E, F), over the
 same data (``numpy.random.default_rng(0)``: an (W, L) f32 table, M
 indices, four (M, L) f32 matrices; M = W = 256, L = 128).  There each
-probe was a small Pallas kernel that asked what Mosaic's MXU lowering
-does to f32 data; here each is a small CUDA kernel (``csrc/probe.cu``)
-that asks the same of the route a kernel of the port could take:
+probe was a small Pallas kernel that asked what the TPU's matrix unit
+does to f32 data; here each is a small CUDA kernel (``csrc/probe.cu``,
+``wgmma`` with operands in shared memory) that asks the same of the
+tensor-core route a kernel of the port takes:
 
-- **A**: one-hot selection through bf16 tensor cores (``mma.sync``, f32
-  accumulation) from the table split three ways into bf16 (hi, mid, lo),
-  recombined ``(hi + mid) + lo``.  Exact.
-- **B**: one-hot selection by an FP32 FMA dot.  Exact.
-- **C**: the stacked band dot ``[a, b]^T [c, d]`` in FP32 against the
-  four separate dots, both against a float64 product: f32 rounding,
-  <= 1e-6 relative.  The same dot through TF32 tensor cores is printed
-  (about 1e-3): the trap behind the port's rule that no f32 dot runs in
-  TF32.
+- **A**: one-hot selection through bf16 tensor cores (f32 accumulation)
+  from the table split three ways into bf16 (hi, mid, lo), recombined
+  ``(hi + mid) + lo``.  Exact.
+- **B**: the f32 one-hot selection on the TF32 tensor cores in
+  f32-faithful form (the counterpart of the TPU's ``Precision.HIGHEST``):
+  the table split into three TF32 pieces, whose sum rebuilds every value.
+  Exact.  (K1's two pieces would leave up to 2^-22 of each value.)
+- **C**: the stacked band dot ``[a, b]^T [c, d]`` by 3xTF32 with K1's
+  split (``lo hi + hi lo + hi hi``; each product in its own accumulator,
+  promoted into f32 totals every 32 of the contraction, where K1 sums all
+  three in one), against the same dot of the four separate blocks in one
+  launch, both against a float64 product: <= 1e-6 relative.  The same dot in one TF32 pass is printed (about 3e-4): the
+  trap behind the port's rule that no f32 dot runs in TF32.
 - **E**: the recombine with no dot.  Exact.
 - **F**: the raw selected thirds against the host's split.  Exact.
 
 Each kernel wrapper runs its plain PyTorch version for CPU tensors and
-launches its kernel for CUDA tensors, or raises.  ``python -m
-katsdpimager_tpu_torch.probes`` prints the scripts' lines (``--host``:
-the plain versions on the CPU).
+launches its kernel for CUDA tensors, or raises.  The plain versions do
+each kernel's arithmetic: the same splits, f32 products of the pieces.
+``python -m katsdpimager_tpu_torch.probes`` prints the scripts' lines
+(``--host``: the plain versions on the CPU).
 """
 
 from __future__ import annotations
@@ -74,6 +81,18 @@ def _recombined(sel, width: int):
     return (sel[:, :width] + sel[:, width:2 * width]) + sel[:, 2 * width:]
 
 
+def split_tf32(x, pieces: int) -> list:
+    """The ``pieces`` TF32 pieces of f32 ``x``, each rounded to nearest
+    (ties away): piece i is ``tf32_rna`` of ``x`` less the pieces before
+    it.  Two are K1's hi and lo; three rebuild every f32 value exactly
+    (3 x 11 significant bits cover f32's 24)."""
+    out = []
+    for _ in range(pieces):
+        out.append(tf32_rna(x))
+        x = x - out[-1]
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Plain versions
 
@@ -86,19 +105,40 @@ def select_bf16_plain(idx, tab, recombine: bool):
     return _recombined(sel, tab.shape[1] // 3) if recombine else sel
 
 
-def select_f32_plain(idx, table):
-    """Plain version of probe B: one-hot f32 matmul."""
-    return _onehot(idx, table.shape[0]) @ table
+def select_tf32x3_plain(idx, table):
+    """Plain version of probe B: the one-hot selection of each of the
+    table's three TF32 pieces (f32 matmuls, exact: one nonzero product
+    each), summed ``(hi + mid) + lo``."""
+    onehot = _onehot(idx, table.shape[0])
+    hi, mid, lo = (onehot @ p for p in split_tf32(table, 3))
+    return (hi + mid) + lo
 
 
-def dot_f32_plain(x, y):
-    """Plain version of probe C: ``x^T y`` in f32."""
-    return x.transpose(0, 1) @ y
+def dot_3xtf32_plain(x, y):
+    """Plain version of probe C: ``x^T y`` by 3xTF32 with K1's split, the
+    f32 products ``lo^T hi + hi^T lo + hi^T hi`` of the two-piece splits
+    (a product of two TF32 values is exact in f32)."""
+    xh, xl = (p.transpose(0, 1) for p in split_tf32(x, 2))
+    yh, yl = split_tf32(y, 2)
+    return (xl @ yh + xh @ yl) + xh @ yh
+
+
+def dot_3xtf32_separate_plain(a, b, c, d):
+    """Plain version of probe C's separate form: the (2I, 2J) output whose
+    four blocks are :func:`dot_3xtf32_plain` of (a, c), (a, d), (b, c) and
+    (b, d), each (Mk, I) or (Mk, J)."""
+    i, j = a.shape[1], c.shape[1]
+    out = a.new_empty((2 * i, 2 * j))
+    for r, x in enumerate((a, b)):
+        for q, y in enumerate((c, d)):
+            out[r * i:(r + 1) * i, q * j:(q + 1) * j] = dot_3xtf32_plain(x, y)
+    return out
 
 
 def dot_tf32_plain(x, y):
-    """Plain version of probe C through TF32: the inputs rounded to TF32,
-    then an f32 matmul (the products of two TF32 values are exact in f32)."""
+    """Plain version of probe C in one TF32 pass: the inputs rounded to
+    TF32, then an f32 matmul (the products of two TF32 values are exact in
+    f32)."""
     return tf32_rna(x).transpose(0, 1) @ tf32_rna(y)
 
 
@@ -133,7 +173,8 @@ def _select_bf16(idx, tab, recombine: bool):
 def select_bf16_recombined(idx, tab):
     """Probe A: bf16 tensor-core one-hot selection of the (W, 3L) split
     table, recombined ``(hi + mid) + lo`` in registers.  (M,) int32 and
-    (W, 3L) bf16 -> (M, L) f32.  CPU tensors run the plain version."""
+    (W, 3L) bf16 -> (M, L) f32; M and L multiples of 64, W of 16, W <=
+    256.  CPU tensors run the plain version."""
     if idx.device.type == "cpu":
         return select_bf16_plain(idx, tab, True)
     out = _select_bf16(idx, tab, True)
@@ -157,61 +198,84 @@ def select_bf16_raw(idx, tab):
 select_bf16_raw.launches = 0
 
 
-def select_f32(idx, table):
-    """Probe B: one-hot selection by an FP32 FMA dot.  (M,) int32 and
-    (W, L) f32 -> (M, L) f32.  CPU tensors run the plain version."""
+def select_tf32x3(idx, table):
+    """Probe B: one-hot selection on the TF32 tensor cores from the
+    table's three TF32 pieces.  (M,) int32 and (W, L) f32 -> (M, L) f32;
+    M and L multiples of 64, W of 32, W <= 256.  CPU tensors run the plain
+    version."""
     if idx.device.type == "cpu":
-        return select_f32_plain(idx, table)
+        return select_tf32x3_plain(idx, table)
     _check(idx, "idx", torch.int32, 1)
     _check(table, "table", torch.float32, 2)
     (m,), (w, l) = idx.shape, table.shape
     out = torch.empty((m, l), dtype=torch.float32, device=idx.device)
-    err = _build.load().ktt_probe_select_f32(
+    err = _build.load().ktt_probe_select_tf32x3(
         idx.data_ptr(), table.data_ptr(), out.data_ptr(), m, w, l,
         _build.stream_of(idx))
-    _build.check(err, "ktt_probe_select_f32")
-    select_f32.launches += 1
+    _build.check(err, "ktt_probe_select_tf32x3")
+    select_tf32x3.launches += 1
     return out
 
 
-select_f32.launches = 0
+select_tf32x3.launches = 0
 
 
-def _dot(entry, x, y):
-    _check(x, "x", torch.float32, 2)
-    _check(y, "y", torch.float32, 2)
-    if x.shape[0] != y.shape[0]:
-        raise ValueError(f"contracted lengths differ: {x.shape} {y.shape}")
-    mk, i = x.shape
-    j = y.shape[1]
-    out = torch.empty((i, j), dtype=torch.float32, device=x.device)
-    err = getattr(_build.load(), entry)(
-        x.data_ptr(), y.data_ptr(), out.data_ptr(), mk, i, j,
-        _build.stream_of(x))
-    _build.check(err, entry)
+def _band_dot(xs, ys, split: bool):
+    """``[xs]^T [ys]`` for one or two (Mk, xb) blocks ``xs`` side by side
+    and likewise ``ys``, in one launch: out (len(xs) xb, len(ys) yb)."""
+    for name, t in [("x", x) for x in xs] + [("y", y) for y in ys]:
+        _check(t, name, torch.float32, 2)
+    mk, xb = xs[0].shape
+    yb = ys[0].shape[1]
+    if any(x.shape != (mk, xb) for x in xs) or any(
+            y.shape != (mk, yb) for y in ys):
+        raise ValueError("blocks differ in shape: "
+                         f"{[tuple(t.shape) for t in xs + ys]}")
+    i, j = len(xs) * xb, len(ys) * yb
+    out = torch.empty((i, j), dtype=torch.float32, device=xs[0].device)
+    err = _build.load().ktt_probe_band_dot(
+        xs[0].data_ptr(), xs[-1].data_ptr(), ys[0].data_ptr(),
+        ys[-1].data_ptr(), out.data_ptr(), mk, i, j, xb, yb, int(split),
+        _build.stream_of(out))
+    _build.check(err, "ktt_probe_band_dot")
     return out
 
 
-def dot_f32(x, y):
-    """Probe C: ``x^T y`` by FP32 FMA, x (Mk, I), y (Mk, J) f32 -> (I, J).
-    CPU tensors run the plain version."""
+def dot_3xtf32(x, y):
+    """Probe C, stacked: ``x^T y`` by 3xTF32 ``wgmma`` (K1's split), x
+    (Mk, I), y (Mk, J) f32 -> (I, J); Mk a multiple of 32 up to 256, I and
+    J multiples of 64.  CPU tensors run the plain version."""
     if x.device.type == "cpu":
-        return dot_f32_plain(x, y)
-    out = _dot("ktt_probe_dot_f32", x, y)
-    dot_f32.launches += 1
+        return dot_3xtf32_plain(x, y)
+    out = _band_dot((x,), (y,), True)
+    dot_3xtf32.launches += 1
     return out
 
 
-dot_f32.launches = 0
+dot_3xtf32.launches = 0
+
+
+def dot_3xtf32_separate(a, b, c, d):
+    """Probe C, separate: the (2I, 2J) output of the four block dots
+    ``a^T c``, ``a^T d``, ``b^T c``, ``b^T d`` by 3xTF32, in one launch
+    that writes each block in place; a, b (Mk, I), c, d (Mk, J) f32.  CPU
+    tensors run the plain version."""
+    if a.device.type == "cpu":
+        return dot_3xtf32_separate_plain(a, b, c, d)
+    out = _band_dot((a, b), (c, d), True)
+    dot_3xtf32_separate.launches += 1
+    return out
+
+
+dot_3xtf32_separate.launches = 0
 
 
 def dot_tf32(x, y):
-    """Probe C through TF32 tensor cores (``mma.sync`` m16n8k8): ``x^T y``
-    with I % 16 == J % 8 == Mk % 8 == 0.  CPU tensors run the plain
-    version."""
+    """Probe C in one TF32 ``wgmma`` pass, no split: ``x^T y`` as
+    :func:`dot_3xtf32` takes it.  CPU tensors run the plain version."""
     if x.device.type == "cpu":
         return dot_tf32_plain(x, y)
-    out = _dot("ktt_probe_dot_tf32", x, y)
+    out = _band_dot((x,), (y,), False)
     dot_tf32.launches += 1
     return out
 
@@ -221,7 +285,7 @@ dot_tf32.launches = 0
 
 def recombine(tab):
     """Probe E: ``(hi + mid) + lo`` of the (W, 3L) bf16 table, no dot ->
-    (W, L) f32.  CPU tensors run the plain version."""
+    (W, L) f32; L a multiple of 8.  CPU tensors run the plain version."""
     if tab.device.type == "cpu":
         return recombine_plain(tab)
     _check(tab, "tab", torch.bfloat16, 2)
@@ -237,7 +301,8 @@ def recombine(tab):
 recombine.launches = 0
 
 #: The kernel wrappers of P1 and P2, for launch counts.
-P1 = (select_bf16_recombined, select_f32, dot_f32, dot_tf32)
+P1 = (select_bf16_recombined, select_tf32x3, dot_3xtf32, dot_3xtf32_separate,
+      dot_tf32)
 P2 = (recombine, select_bf16_raw)
 
 
@@ -261,24 +326,21 @@ def inputs(device) -> dict:
     return d
 
 
-def _separate(dot, d):
-    blocks = [[dot(x, y) for y in (d["c"], d["d"])] for x in (d["a"], d["b"])]
-    return torch.cat([torch.cat(r, dim=1) for r in blocks])
-
-
 def cases(d) -> list:
     """``(name, probe, kernel call, plain call)`` for every probe on the
-    inputs ``d`` of :func:`inputs`; ``probe`` is ``"P1"`` or ``"P2"``."""
+    inputs ``d`` of :func:`inputs`; ``probe`` is ``"P1"`` or ``"P2"``.
+    Each kernel call is one launch."""
     idx, tab, table, av, bu = d["idx"], d["tab"], d["table"], d["av"], d["bu"]
+    sep = (d["a"], d["b"], d["c"], d["d"])
     return [
         ("A", "P1", lambda: select_bf16_recombined(idx, tab),
          lambda: select_bf16_plain(idx, tab, True)),
-        ("B", "P1", lambda: select_f32(idx, table),
-         lambda: select_f32_plain(idx, table)),
-        ("C_stacked", "P1", lambda: dot_f32(av, bu),
-         lambda: dot_f32_plain(av, bu)),
-        ("C_separate", "P1", lambda: _separate(dot_f32, d),
-         lambda: _separate(dot_f32_plain, d)),
+        ("B", "P1", lambda: select_tf32x3(idx, table),
+         lambda: select_tf32x3_plain(idx, table)),
+        ("C_stacked", "P1", lambda: dot_3xtf32(av, bu),
+         lambda: dot_3xtf32_plain(av, bu)),
+        ("C_separate", "P1", lambda: dot_3xtf32_separate(*sep),
+         lambda: dot_3xtf32_separate_plain(*sep)),
         ("C_tf32", "P1", lambda: dot_tf32(av, bu),
          lambda: dot_tf32_plain(av, bu)),
         ("E", "P2", lambda: recombine(tab), lambda: recombine_plain(tab)),

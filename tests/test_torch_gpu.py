@@ -520,14 +520,19 @@ def test_k2_accumulate_matches_plain(cuda, pixels):
 
 
 def test_probes_on_the_card(cuda):
-    """P1 and P2: A, B, E and F exact, C in FP32 within 1e-6, C in TF32
-    far less exact; every probe kernel against its plain version."""
+    """P1 and P2 on the tensor cores: A, B, E and F exact, C on 3xTF32
+    within 1e-6 and above 0, C in one TF32 pass far less exact, one launch
+    a probe; every probe kernel against its plain version."""
     from katsdpimager_tpu_torch import probes
 
+    for fn in probes.P1 + probes.P2:
+        fn.launches = 0
     errs = probes.run(cuda)
+    assert [fn.launches for fn in probes.P1 + probes.P2] == [1] * 7
     for name in ("A", "B", "E", "F_hi", "F_mid", "F_lo"):
         assert errs[name] == 0.0, name
-    assert errs["C_stacked"] <= 1e-6 and errs["C_separate"] <= 1e-6
+    assert 0.0 < errs["C_stacked"] <= 1e-6
+    assert 0.0 < errs["C_separate"] <= 1e-6
     assert errs["C_tf32"] > 1e-5
     tol = {"C_stacked": 2e-6, "C_separate": 2e-6, "C_tf32": 1e-4}
     for name, _, kernel, plain in probes.cases(probes.inputs(cuda)):
