@@ -11,15 +11,15 @@ Run from the repository root on a machine with a CUDA card:
 (``chip_smoke.py --rank-worker ...`` is one rank of the ``distributed``
 phase, which starts it through ``torchrun`` and with ``--coordinator``.)
 
-It builds the port's CUDA kernels (K1 with its run split, K2-K8 and the
-probes P1/P2) from
+It builds the port's CUDA kernels (K1-K8 and the probes P1/P2) from
 ``katsdpimager_tpu_torch/csrc`` and the production batch (8 channels,
 4096 px, K=60, oversample 8, 32 W planes, 4 W slices, 2^19 visibilities
 per slice, natural weights), then:
 
 - prints what ``ptxas -v`` reported for K1, K3, K4, K5 (its instance for
   the production K), K6, K7 and K8 (registers, spills, stack frame,
-  shared memory);
+  shared memory), and K1's accumulation schedule with its instances'
+  registers (``k1_accumulation``);
 - checks every kernel against its plain PyTorch version at the shapes of
   the main paths (channel 0, slice 0; K8 at (1, 4096, 4096)) and times
   both, and the column DFTs (K3, K4, K6, K7, K8) also against
@@ -69,8 +69,9 @@ per slice, natural weights), then:
   device's busy time and idle share of one profiled wave;
 - ``tiles``: K1 and K2 against their plain versions at ts 8, 16, 33, 50,
   96, 128 and 256, each with K = ts + 1 (K <= 256) and a smaller K, on
-  direct inputs at 2048 px (K1 within 2e-5 of the largest written value,
-  K2 bitwise), with times, bounds and shares; then the paths that take
+  direct inputs at 2048 px (K1 within 2e-5 of the largest written value
+  and within 1e-6 of the peak of a float64 run of its plain version, K2
+  bitwise), with times, bounds and shares; then the paths that take
   those tile sizes against their all-plain runs inside the field: the
   CLI at 400 px, K = 16 (ts 50) and at 4096 px, K = 96 (ts 96), both
   ``--degrid`` on channel 1, and ``pipeline --cube`` at 4096 px, K = 96
@@ -85,15 +86,20 @@ per slice, natural weights), then:
 - ``profile``: channel 0 through ``imager.run`` with ``--write-profile``
   and ``--write-device-profile``: the frontend's stages named, K1-K4 with
   nonzero device time, the five largest device ops;
-- ``k1_long_runs`` (right after K1's row): K1 at ts 64, K 60 and ts 32,
-  K 30 on anchor runs of 4, 32 and 128 full chunks, within 5e-6 of the
-  peak of a float64 run of its plain version, its run split against the
-  plain split; K1's production time, and on 128-chunk runs, in turns
-  against the parent's kernel where an uncommitted copy of it lies at
+- ``k1_long_runs`` (right after K1's row, which also holds K1 at the
+  production slice to 1e-6 of the peak of a float64 run of its plain
+  version): K1 at ts 64, K 60 and ts 32, K 30 on anchor runs of 4, 32 and
+  128 full chunks, within 1e-6 of the peak of a float64 run of its plain
+  version; K1's production time, and on 128-chunk runs, in turns against
+  the parent's kernel where an uncommitted copy of it lies at
   :data:`PARENT_K1_SOURCE`;
 - ``cube_double``: ``pipeline --cube --precision double`` on channel 0 at
   4096 px, K 60, 2 majors against its float32 run (the dirty image within
   1e-4 of the dirty peak inside the field, the same components);
+- ``k1_image`` (after ``step_parity``): channel 0 of the step imaged at
+  float64 throughout (K1's plain version at float64) against the float32
+  step and the double route (K1's float32 planes), and with the parent's
+  K1 where its copy was built (printed);
 - ``device_plan`` (after ``route``): the device chunk planner at the
   production slice, bitwise equal to the host planner's plan, K1 + K2
   planes from both plans bitwise equal, the drop past ``nc``; the device
@@ -112,6 +118,7 @@ exit code is then non-zero.
 It imports no JAX.
 """
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -301,18 +308,19 @@ def main() -> None:
     rows = []
 
     def record(name, source, replaces, err, tol, ms, plain_ms, bnd,
-               library_ms=None, library=None):
-        ok = err <= tol
+               library_ms=None, library=None, extra=None, extra_ok=True):
+        ok = err <= tol and extra_ok
         emit({"phase": "kernel", "name": name, "max_abs_err": err,
               "tolerance": tol, "ms": ms, "plain_ms": plain_ms,
               "library_ms": library_ms, "library": library, **bnd,
-              "card": card, "ok": ok})
+              **(extra or {}), "card": card, "ok": ok})
         if not ok:
-            raise AssertionError(f"{name}: error {err} > tolerance {tol}")
+            raise AssertionError(f"{name}: error {err} > tolerance {tol} "
+                                 f"or {extra}")
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": 0,
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     **bnd, "library_ms": library_ms})
+                     **bnd, "library_ms": library_ms, **(extra or {})})
 
     P = cfg.num_pols
     Mc = cfg.chunk_size
@@ -335,15 +343,21 @@ def main() -> None:
                 pi.abs().where(written, 0.0).max().item())
     err = max((kr - pr).abs().where(written, 0.0).max().item(),
               (ki - pi).abs().where(written, 0.0).max().item())
+    k1_args = (slot, n, count, iu, iv, su, sv, sre, sim, table)
+    vs64 = k1_vs_float64(k1_args, ts, written, kernel=(kr, ki),
+                         plain=(pr, pi))
     record("K1 fused gridder", "katsdpimager_tpu_torch/csrc/gridder.cu",
            "katsdpimager_tpu/ops/pallas_gridder.py:118", err, 2e-5 * scale,
-           ms, plain_ms, k1_bound)
+           ms, plain_ms, k1_bound,
+           extra={"err_vs_float64_over_peak": vs64,
+                  "float64_tolerance": K1_FLOAT64_TOL},
+           extra_ok=vs64["kernel"] <= K1_FLOAT64_TOL)
     redesign_line("K1", ms)
     emit({"phase": "kernel_detail", "name": "K1 runs",
           **run_lengths(slot, n, count)})
-    k1_long_runs_phase(dev, card, ((slot, n, count, iu, iv, su, sv, sre,
-                                    sim, table), kr, ki, ts),
-                       parent_k1(parent_build))
+    k1_accumulation_line(_build, fused_gridder)
+    parent = parent_k1(parent_build)
+    k1_long_runs_phase(dev, card, (k1_args, kr, ki, ts), parent)
 
     out = {}
 
@@ -556,27 +570,40 @@ def main() -> None:
           "shapes_ok": shapes})
     if not (err <= 1e-4 and finite and shapes and peak > 0):
         raise AssertionError("step parity failed")
+    del dirty, got, ref
+    k1_image_phase(card, cfg, batch, inside, mc, parent)
 
     # ---- where the step's time goes: one step under torch.profiler (the
     # device's busy time and idle share against the timed steps above),
     # and the host's seconds until the step's last launch returned.
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run_step()
-        enqueued = time.perf_counter() - t0
-        torch.cuda.synchronize()
-    busy_ms, by_name = device_busy_ms(prof)
+    def profiled_step():
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run_step()
+            enqueued = time.perf_counter() - t0
+            torch.cuda.synchronize()
+        return device_busy_ms(prof) + (enqueued,)
+
+    busy_ms, by_name, enqueued = profiled_step()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    emit({"phase": "step_profile", "card": card, "step_s": elapsed,
-          "device_busy_ms": busy_ms,
-          "idle_share": 1 - busy_ms / 1e3 / elapsed,
-          "host_enqueue_s_profiled": enqueued, "top_device_ms": top})
+    line = {"phase": "step_profile", "card": card, "step_s": elapsed,
+            "device_busy_ms": busy_ms,
+            "idle_share": 1 - busy_ms / 1e3 / elapsed,
+            "host_enqueue_s_profiled": enqueued, "top_device_ms": top}
+    if parent is not None:
+        # the same step with the parent's K1, for its device busy time
+        with k1_swapped(parent):
+            run_step()
+            pbusy, pby_name, _ = profiled_step()
+        line.update(parent_k1_device_busy_ms=pbusy,
+                    parent_k1_top_device_ms=sorted(
+                        pby_name.items(), key=lambda kv: -kv[1])[:3])
+    emit(line)
     if not busy_ms > 0:
         raise AssertionError("the profiler saw no device work in the step")
 
-    del dirty, got, ref
     wave_phases(cfg, batch, num_channels, rows, card, mc, cube, fourier,
                 fused_gridder, fused_fft, fused_degrid)
     route_phase(dev, mc, cube, fused_fft)
@@ -590,7 +617,7 @@ def main() -> None:
     exact_phase(dev, card, dataset, IMAGER_VIS_BLOCK)
     double_phase(dev, card, dataset, IMAGER_VIS_BLOCK, runs[1])
     profile_phase(dev, card, dataset, IMAGER_VIS_BLOCK)
-    cube_double_phase(dev, card, dataset, IMAGER_VIS_BLOCK)
+    cube_double_phase(dev, card, dataset, IMAGER_VIS_BLOCK, parent)
     distributed_phase(dev, card, dataset, IMAGER_VIS_BLOCK)
 
     print(card, flush=True)
@@ -982,8 +1009,9 @@ def kernel_us(fn, reps: int) -> dict:
 def probe_phase(dev, rows) -> None:
     """P1 (A, B, C) and P2 (E, F): the probes' own entry, with their
     counters reset just before; A, B, E and F exactly 0, C by 3xTF32
-    (K1's split) within 1e-6 relative of a float64 product and above 0,
-    C in one TF32 pass above 1e-5; at most 5 P1 and 2 P2 launches, every
+    (K1's split and accumulation) within 1e-6 relative of a float64
+    product and above 0, C in one TF32 pass above 1e-5; at most 5 P1 and
+    2 P2 launches, every
     kernel launched.  Then every probe kernel against its plain version on the
     same inputs, its device microseconds (one launch a call) beside its
     bound, and each group's time against the design it replaced."""
@@ -1724,10 +1752,10 @@ def tiles_phase(dev, card) -> None:
     """K1 and K2 at every tile size of :data:`TILE_CASES` against their
     plain versions on direct inputs at 2048 px: K1 within 2e-5 of the
     largest written value, K2 bitwise; times in turns, with the bound
-    computed as the kernel table's K1 and K2 rows compute it.  K1 and its
-    plain version are also held to a float64 run of the plain version
-    (printed), here and at ts 32 and 64, whose windows do not promote
-    their sums."""
+    computed as the kernel table's K1 and K2 rows compute it.  K1, here
+    and at ts 32 and 64, within :data:`K1_FLOAT64_TOL` of the peak of a
+    float64 run of its plain version (the plain version's own float32
+    error printed beside it)."""
     from katsdpimager_tpu_torch.ops import fused_gridder
 
     N, P = 2048, 1
@@ -1749,18 +1777,8 @@ def tiles_phase(dev, card) -> None:
                     pi.abs().where(written, 0.0).max().item())
         k1_err = max((kr - pr).abs().where(written, 0.0).max().item(),
                      (ki - pi).abs().where(written, 0.0).max().item())
-        r64, i64 = (torch.zeros(shape, dtype=torch.float64, device=dev)
-                    for _ in range(2))
-        fused_gridder.grid_planes_plain(
-            slot, n, count, iu, iv, su, sv, sre.double(), sim.double(),
-            table.to(torch.complex128), r64, i64, ts=ts)
-        scale64 = max(r64.abs().max().item(), i64.abs().max().item())
-        vs64 = {name: max((a.double() - r64).abs().where(written, 0.0).max(),
-                          (b.double() - i64).abs().where(written, 0.0).max()
-                          ).item() / scale64
-                for name, (a, b) in (("kernel", (kr, ki)),
-                                     ("plain", (pr, pi)))}
-        del r64, i64
+        vs64 = k1_vs_float64(args, ts, written, kernel=(kr, ki),
+                             plain=(pr, pi))
         n_valid = int(count.sum())
         runs = int(occ.sum())
         window_bytes = runs * P * (2 * ts) ** 2 * 8
@@ -1779,14 +1797,16 @@ def tiles_phase(dev, card) -> None:
         k2_read = sum(int(written[a, b, 0, :N - a * ts, :N - b * ts].sum())
                       for a in range(2) for b in range(2)) * 8 * P
         k2_bound = bound(k2_read + occ.numel() + 2 * P * N * N * 4)
-        ok = k1_err <= 2e-5 * scale and scale > 0 and k2_same
+        ok = (k1_err <= 2e-5 * scale and scale > 0 and k2_same
+              and vs64["kernel"] <= K1_FLOAT64_TOL)
         emit({"phase": "tiles", "card": card, "ts": ts, "K": K,
               "pixels": N, "chunks": n, "valid_slots": n_valid,
               "runs": runs,
               "k1": {"ms": k1_ms, "plain_ms": k1_plain_ms, **k1_bound,
                      "share": k1_bound["bound_ms"] / k1_ms,
                      "max_abs_err": k1_err, "tolerance": 2e-5 * scale,
-                     "err_vs_float64_over_peak": vs64},
+                     "err_vs_float64_over_peak": vs64,
+                     "float64_tolerance": K1_FLOAT64_TOL},
               "k2": {"ms": k2_ms, "plain_ms": k2_plain_ms, **k2_bound,
                      "share": k2_bound["bound_ms"] / k2_ms,
                      "bitwise_equal": k2_same},
@@ -1857,16 +1877,17 @@ def parent_k1(build):
 
 
 #: Chunks per anchor run in :func:`k1_long_runs_phase`, and how many runs
-#: of each length it grids (full chunks of 256 valid slots are 32 batches
-#: each, so every run of two chunks or more is a long run).
+#: of each length it grids (full chunks of 256 valid slots: runs of 128,
+#: 1024 and 4096 k-steps of 8, 4 to 64 segments of K1's totals).
 LONG_RUN_CASES = ((4, 600), (32, 128), (128, 48))
 
 
 def k1_long_runs_phase(dev, card, production, parent) -> None:
     """K1 at ts 64, K 60 and ts 32, K 30 on direct inputs whose anchor
-    runs hold 4, 32 and 128 full chunks (2048 px): within 5e-6 of the
-    peak of a float64 run of its plain version over the written blocks
-    (the plain version's own float32 error printed beside it).  Then
+    runs hold 4, 32 and 128 full chunks (2048 px): within
+    :data:`K1_FLOAT64_TOL` of the peak of a float64 run of its plain
+    version over the written blocks (the plain version's own float32
+    error printed beside it).  Then
     K1's time at the production slice (``production``: its arguments),
     and on the 128-chunk runs at ts 64, in turns against the parent's
     kernel where its copy was built (``parent``), parent, change, change,
@@ -1888,34 +1909,25 @@ def k1_long_runs_phase(dev, card, production, parent) -> None:
             args = (slot, n, count, iu, iv, su, sv, sre, sim, table)
             fused_gridder.grid_planes(*args, kr, ki, ts=ts)
             fused_gridder.grid_planes_plain(*args, pr, pi, ts=ts)
-            r64, i64 = (torch.zeros(shape, dtype=torch.float64, device=dev)
-                        for _ in range(2))
-            fused_gridder.grid_planes_plain(
-                slot, n, count, iu, iv, su, sv, sre.double(), sim.double(),
-                table.to(torch.complex128), r64, i64, ts=ts)
             occ = fused_gridder.occupancy(slot, n, nt2)
             written = occ.repeat_interleave(2 * ts, -2).repeat_interleave(
                 2 * ts, -1)[:, :, None]
-            scale64 = max(r64.abs().max().item(), i64.abs().max().item())
-            vs64 = {name: max((a.double() - r64).abs().where(written, 0.0)
-                              .max(), (b.double() - i64).abs()
-                              .where(written, 0.0).max()).item() / scale64
-                    for name, (a, b) in (("kernel", (kr, ki)),
-                                         ("plain", (pr, pi)))}
+            vs64 = k1_vs_float64(args, ts, written, kernel=(kr, ki),
+                                 plain=(pr, pi))
             line = {"phase": "k1_long_runs", "card": card, "ts": ts, "K": K,
-                    "pixels": N, "chunks_per_run": run_chunks,
-                    "runs": int(occ.sum()), "chunks": n,
+                    "pixels": N, "chunks_per_run": run_chunks, "chunks": n,
                     **run_lengths(slot, n, count),
-                    "err_vs_float64_over_peak": vs64, "tolerance": 5e-6}
+                    "err_vs_float64_over_peak": vs64,
+                    "tolerance": K1_FLOAT64_TOL}
             if ts == 64 and run_chunks == LONG_RUN_CASES[-1][0]:
                 line.update(k1_turns(parent, args, kr, ki, ts))
-            line["ok"] = vs64["kernel"] <= 5e-6
+            line["ok"] = vs64["kernel"] <= K1_FLOAT64_TOL
             emit(line)
             worst = max(worst, vs64["kernel"])
             if not line["ok"]:
                 raise AssertionError(f"k1_long_runs at ts {ts}, runs of "
                                      f"{run_chunks} chunks failed")
-            del kr, ki, pr, pi, r64, i64
+            del kr, ki, pr, pi
     args, kr, ki, ts = production
     emit({"phase": "k1_long_runs", "card": card,
           "case": "production slice (channel 0, slice 0)",
@@ -1925,9 +1937,9 @@ def k1_long_runs_phase(dev, card, production, parent) -> None:
 
 def run_lengths(slot, n: int, count) -> dict:
     """The first ``n`` chunks' anchor runs by length in K1's batches
-    (``ceil(count / BATCH)`` summed over a run's chunks): how many take
-    its short body (at most ``PROMOTE`` batches) and how many its
-    promoting one, at ts 32 and 64."""
+    (``ceil(count / BATCH)`` summed over a run's chunks): runs, batches,
+    the longest run's, and K1's promotions (a run's stretches of
+    ``PROMOTE_STEPS`` batches)."""
     from katsdpimager_tpu_torch.ops import fused_gridder
 
     s = slot[:n].long()
@@ -1937,9 +1949,54 @@ def run_lengths(slot, n: int, count) -> dict:
     batches = torch.zeros(int(first.sum()), dtype=torch.long,
                           device=s.device).index_add_(
         0, run, -(-count[:n].long() // fused_gridder.BATCH))
-    long_runs = int((batches > fused_gridder.PROMOTE).sum())
-    return {"short_runs": batches.numel() - long_runs,
-            "long_runs": long_runs}
+    steps = fused_gridder.PROMOTE_STEPS
+    return {"runs": batches.numel(), "batches": int(batches.sum()),
+            "longest_run_batches": int(batches.max()),
+            "promotions": int((-(-batches // steps)).sum())}
+
+
+#: K1's gate against float64: its planes within this much of the peak of
+#: a float64 run of its plain version on the same inputs (the JAX
+#: gridder's class: 1.6-2.2e-7, ``doc/PERFORMANCE.md``).
+K1_FLOAT64_TOL = 1e-6
+
+
+def k1_vs_float64(args, ts: int, written, **planes) -> dict:
+    """The largest error of each of ``planes`` (name: (re, im) float32)
+    over the written blocks, over the peak of a float64 run of the plain
+    K1 on ``args`` (its arguments up to the planes)."""
+    from katsdpimager_tpu_torch.ops import fused_gridder
+
+    slot, n, count, iu, iv, su, sv, sre, sim, table = args
+    shape = planes[next(iter(planes))][0].shape
+    r64, i64 = (torch.zeros(shape, dtype=torch.float64, device=sre.device)
+                for _ in range(2))
+    fused_gridder.grid_planes_plain(
+        slot, n, count, iu, iv, su, sv, sre.double(), sim.double(),
+        table.to(torch.complex128), r64, i64, ts=ts)
+    scale = max(r64.abs().max().item(), i64.abs().max().item())
+    return {name: max((a.double() - r64).abs().where(written, 0.0).max(),
+                      (b.double() - i64).abs().where(written, 0.0).max()
+                      ).item() / scale
+            for name, (a, b) in planes.items()}
+
+
+def k1_accumulation_line(_build, fused_gridder) -> None:
+    """K1's accumulation schedule and the registers and spills of each of
+    its instances (``ptxas -v``)."""
+    emit({"phase": "k1_accumulation",
+          "schedule": "3xTF32 wgmma m64n64k8 into one accumulator set (re, "
+                      "im) a warpgroup, afresh every batch (PROMOTE_STEPS "
+                      "k-steps of 8), then IEEE adds into a segment's FP32 "
+                      "totals and every SEGMENT batches into the run's, in "
+                      "registers; stored once a run",
+          "promote_steps": fused_gridder.PROMOTE_STEPS,
+          "batch": fused_gridder.BATCH, "segment": fused_gridder.SEGMENT,
+          "accumulator_sets": 1,
+          "instances": [
+              {k: v for k, v in r.items() if k != "source"}
+              for r in _build.ptxas_report()
+              if "18grid_planes_kernelI" in r["function"]]})
 
 
 def k1_turns(parent, args, kr, ki, ts) -> dict:
@@ -2233,7 +2290,8 @@ def cube_argv(out, vis_block: int, channels=(0, 1), extra=()):
             "-c", str(channels[0]), "-C", str(channels[1]), *extra]
 
 
-def cube_double_phase(dev, card, dataset, vis_block: int) -> None:
+def cube_double_phase(dev, card, dataset, vis_block: int,
+                      parent=None) -> None:
     """``pipeline --cube --precision double`` on channel 0 of the CLI's
     observation (4096 px, K = 60, 2 majors; cut to one channel) against
     the same run at float32 on the card: the dirty image (CLEAN's first
@@ -2242,7 +2300,9 @@ def cube_double_phase(dev, card, dataset, vis_block: int) -> None:
     the restored images' and models' differences printed, not gated
     (CLEAN's components drift between float32 and float64 runs, in the
     JAX package as much: tests/test_torch_imager.py), and both runs'
-    seconds."""
+    seconds.  With the parent's K1 (``parent``), its dirty images' error
+    is printed beside (K1 fills float32 planes at both precisions, so this
+    comparison does not see K1's own error: ``k1_image`` does)."""
     import os
     import tempfile
 
@@ -2292,6 +2352,12 @@ def cube_double_phase(dev, card, dataset, vis_block: int) -> None:
     with tempfile.TemporaryDirectory() as tmp:
         single = run(tmp, "single", [])
         double = run(tmp, "double", ["--precision", "double"])
+        if parent is not None:
+            with k1_swapped(parent):
+                parents = [run(tmp, "parent_" + name, extra)["inputs"][0]
+                           for name, extra in (
+                               ("single", []),
+                               ("double", ["--precision", "double"]))]
     N = single["restored"].shape[-1]
     taper = wkernel.taper(N, 7.0, 8, wkernel.default_beta(7.0))
     t2 = np.outer(taper, taper)
@@ -2299,6 +2365,9 @@ def cube_double_phase(dev, card, dataset, vis_block: int) -> None:
     dirty_s, dirty_d = single["inputs"][0], double["inputs"][0]
     peak = float(np.abs(dirty_s).max())
     dirty_err = float(np.abs(dirty_d - dirty_s)[:, inside].max()) / peak
+    parent_err = None if parent is None else float(np.abs(
+        parents[1] - parents[0])[:, inside].max()) / float(
+            np.abs(parents[0]).max())
     model_s, model_d = single["models"][-1], double["models"][-1]
     same = bool(np.array_equal((model_s != 0)[:, inside],
                                (model_d != 0)[:, inside]))
@@ -2316,6 +2385,7 @@ def cube_double_phase(dev, card, dataset, vis_block: int) -> None:
     emit({"phase": "cube_double", "card": card, "pixels": N,
           "kernel_width": 60, "majors": 2, "channels": 1,
           "dirty_max_err_inside_over_dirty_peak": dirty_err,
+          "parent_k1_dirty_max_err_inside_over_dirty_peak": parent_err,
           "tolerance": 1e-4, "dirty_peak": peak,
           "same_component_positions_inside": same,
           "components_inside": int((model_d != 0)[:, inside].sum()),
@@ -2328,6 +2398,106 @@ def cube_double_phase(dev, card, dataset, vis_block: int) -> None:
           "single_launches": single["launches"], "ok": ok})
     if not ok:
         raise AssertionError("cube_double failed")
+
+
+@contextlib.contextmanager
+def k1_swapped(run):
+    """K1's wrapper replaced, for the block, by ``run`` (the parent copy's
+    ``ktt_grid_planes``, :func:`parent_k1`), with its own launch count."""
+    from katsdpimager_tpu_torch.ops import fused_gridder
+
+    saved = fused_gridder.grid_planes
+
+    def swapped(*args, ts):
+        run(*args, ts)
+        swapped.launches += 1
+
+    swapped.launches = 0
+    fused_gridder.grid_planes = swapped
+    try:
+        yield
+    finally:
+        fused_gridder.grid_planes = saved
+
+
+def float64_grid_onto(grid, kernel, weights_grid, plan_uv, plan_sub,
+                      plan_wp, plan_vis, plan_anchor, plan_valid,
+                      dw_chunks=None, n_chunks=None, *, pixels: int, ts: int,
+                      plain: bool = False):
+    """``mxu_gridder.grid_chunks_onto`` at float64 throughout, for natural
+    weights: K1's plain version on float64 samples into float64 colour
+    planes, each occupied block added onto the float64 grid."""
+    from katsdpimager_tpu_torch.ops import fused_gridder, mxu_gridder
+
+    if weights_grid is not None or dw_chunks is not None:
+        raise NotImplementedError("natural weights only")
+    nt2 = mxu_gridder.colour_tiles(pixels, ts)
+    iu, iv, su, sv = fused_gridder.tap_indices(
+        kernel, plan_uv, plan_sub, plan_wp, plan_anchor, pixels=pixels,
+        ts=ts)
+    sample = (plan_vis.to(torch.complex128)
+              * plan_valid[..., None]).transpose(-1, -2)
+    slot = fused_gridder.chunk_slots(plan_anchor, n_chunks, ts=ts, nt2=nt2)
+    P = plan_vis.shape[-1]
+    ext2 = nt2 * 2 * ts
+    planes = [torch.zeros((2, 2, P, ext2, ext2), dtype=torch.float64,
+                          device=plan_vis.device) for _ in range(2)]
+    fused_gridder.grid_planes_plain(
+        slot, n_chunks, fused_gridder.valid_counts(plan_valid), iu, iv, su,
+        sv, sample.real.contiguous(), sample.imag.contiguous(),
+        fused_gridder.conj_table(kernel).to(torch.complex128), *planes,
+        ts=ts)
+    occ = fused_gridder.occupancy(slot, n_chunks, nt2)
+    for plane, g in zip(planes, grid):
+        for a in range(2):
+            for b in range(2):
+                m = occ[a, b].repeat_interleave(2 * ts, 0).repeat_interleave(
+                    2 * ts, 1)
+                g[:, a * ts:, b * ts:] += torch.where(m, plane[a, b], 0.0)[
+                    :, :pixels - a * ts, :pixels - b * ts]
+    return grid
+
+
+def k1_image_phase(card, cfg, batch, inside, mc, parent) -> None:
+    """K1's error as the dirty image sees it: channel 0 of the step's
+    batch imaged at float64 throughout (K1's plain version at float64,
+    :func:`float64_grid_onto`, then the double route: grids, transforms
+    and taper at float64) as the reference; against it, the float32 step
+    and the double route as the port runs it (K1's float32 planes, the
+    rest at float64: K1's own share), over the reference's peak inside
+    the field; with the parent's K1 (``parent``) beside.  Printed, not
+    gated: the batch is noise, whose dirty peak is low (the step's gate
+    against its plain version is ``step_parity``'s)."""
+    from katsdpimager_tpu_torch.ops import mxu_gridder
+
+    db = batch._replace(taper1d=batch.taper1d.double(),
+                        pixel_size=batch.pixel_size.double(),
+                        mid_w=batch.mid_w.double(),
+                        vis=batch.vis.to(torch.complex128))
+    step = mc.single_channel_step(cfg)
+
+    def image(b):
+        return step(*mc.channel_args(b, 0))[0].double()
+
+    saved = mxu_gridder.grid_chunks_onto
+    mxu_gridder.grid_chunks_onto = float64_grid_onto
+    try:
+        ref = image(db)
+    finally:
+        mxu_gridder.grid_chunks_onto = saved
+    peak = ref.abs().max().item()
+
+    def errors():
+        return {name: (image(b) - ref).abs()[:, inside].max().item() / peak
+                for name, b in (("step_float32", batch),
+                                ("double_route_k1_float32", db))}
+
+    line = {"phase": "k1_image", "card": card, "channel": 0,
+            "float64_peak": peak, "err_inside_over_float64_peak": errors()}
+    if parent is not None:
+        with k1_swapped(parent):
+            line["parent_k1_err_inside_over_float64_peak"] = errors()
+    emit(line)
 
 
 #: Seconds a torchrun launch of the distributed phase may take.

@@ -34,44 +34,45 @@ using namespace hopper;
 // 0.23 ms, the bytes written 0.15 ms.
 //
 // Design: the window, padded to Wp = 64 ceil(2ts / 64) rows and columns,
-// is cut into square blocks of B = 128 (Wp a multiple of 128) or 64
-// (otherwise); one CTA per anchor run and block (grid NC x P x
-// (Wp / B)^2), so ts 32 and 64 keep one CTA per run, and a thread never
-// holds more than 64 + 64 accumulators (a 256- or 512-wide band at ts 128
-// or 256 would not fit one CTA's registers).  A CTA whose chunk is not
-// the first of its run exits at once.  The CTA loops over its run's
-// chunks, and in each over the valid slots only, kKB = 8 visibilities at a
-// time (the MMA depth): padding costs nothing.  The block is a complex
+// is cut into blocks of 64 rows by BN = 128 (Wp a multiple of 128) or 64
+// (otherwise) columns; one CTA per anchor run and block (grid NC x P x
+// (Wp / 64) (Wp / BN)), one warpgroup per 64 columns of the block, each
+// holding its 64 x 64 complex sub-block.  A CTA whose chunk is not the
+// first of its run exits at once.  The CTA loops over its run's chunks,
+// and in each over the valid slots only, kKB = 16 visibilities at a time
+// (two wgmma k-steps): padding costs nothing.  The block is a complex
 // matrix product A^T B over the staged visibilities, A[m, j] = conj(K_v)
 // sample for the block's rows j and B[m, k] = conj(K_u) for its columns
-// k, computed on the tensor cores with wgmma.mma_async m64nBk8 TF32 as
-// four real products in the 3xTF32 scheme: each staged operand is split
-// once into hi = tf32_rna(x) and lo = tf32_rna(x - hi), and every product
-// sums lo*hi + hi*lo + hi*hi in FP32 accumulators (the lo*lo term, below
-// 2^-22 of the product, is dropped), so the band keeps FP32 accuracy;
-// plain TF32 would not.  One warpgroup per 64 rows of the block keeps its
-// rows in accumulator registers across the run; A and B come from shared
-// memory through descriptors, -Bi by the instruction's B scale of -1.
-// Rows and columns at or past 2ts (the padding) stage as zeros and are
-// never stored.  Every kPromote batches of a longer run the accumulators
-// are promoted into the run's block of the plane by IEEE adds: the tensor
-// cores' accumulation loses more than rounding would, and its error grows
-// with the adds it takes (see kPromote).  A wide window (kWide: any ts but
-// 32 and 64, whose window is one unpadded block) does so in the one
-// kernel.  At ts 32 and 64 (the production tile), where most runs hold
-// one or two chunks, the promotion's code in the band loop would cost
-// every run: there each CTA first counts its run's batches (run_batches)
-// and then takes one of two bodies, the code without promotion or bounds
-// tests for a short run (at most kPromote batches) and the promoting code
-// for a long one.
-// Each chunk's slot data is loaded into shared memory once;
-// while batch b's wgmmas run, the same threads write batch b + 1's split
-// operands (double buffered), one barrier per batch.  The JAX kernel's
-// one-hot selection and lane shift become an indexed table load with a
-// bounds test.  Each thread stores its own elements of the run's block,
-// pairs of floats (8-byte aligned for every ts: 2ts and so the plane's
-// row stride are even), at the end of the run and at each promotion: no
-// atomics, so the result does not depend on scheduling.
+// k, computed on the tensor cores with wgmma.mma_async m64n64k8 TF32 as four
+// real products in the 3xTF32 scheme (wgmma_tf32x3): each staged operand
+// is split once into hi = tf32_rna(x) and lo = tf32_rna(x - hi), and every
+// product sums lo*hi + hi*lo + hi*hi, so the band keeps FP32 accuracy;
+// plain TF32 would not.  A and B come from shared memory through
+// descriptors, -Bi by the instruction's B scale of -1.  Rows and columns
+// at or past 2ts (the padding) stage as zeros and are never stored.
+//
+// Accumulation (wgmma.cuh): the tensor cores' FP32 sums truncate, and
+// their error grows with the adds they take (6 a k-step into each of the
+// real and imaginary accumulators).  So each warpgroup's accumulators
+// sum one batch (kPromoteSteps k-steps) afresh (scale_d = 0), and are
+// then promoted by IEEE adds into FP32 totals in registers, a segment's
+// and, every kSegment batches, the run's; the totals are stored once, at
+// the end of the run.  The accumulators and two totals of a 64 x 64
+// complex sub-block take 192 registers a thread, which is why a
+// warpgroup holds 64 columns (a 64 x 128 sub-block would need 384): at
+// ts 64 a run takes two CTAs, each staging its 64 rows of A and all 128
+// columns of B.  (The schedule before, one accumulator per 128 x 128
+// block promoted into the plane every 32 k-steps, was 3-4e-6 of the
+// peak from a float64 run; this one 2.7-4.3e-7, on an H100.)
+//
+// Each chunk's slot data is loaded into shared memory once; while batch
+// b's wgmmas run, the same threads write batch b + 1's split operands
+// (double buffered), one barrier per batch.  The JAX kernel's one-hot
+// selection and lane shift become an indexed table load with a bounds
+// test.  Each thread stores its own totals into the run's block, pairs of
+// floats (8-byte aligned for every ts: 2ts and so the plane's row stride
+// are even), once: no atomics, so the result does not depend on
+// scheduling.
 //
 // Why not the alternatives (measured, PERF.md): mma.sync m16n8k8 runs TF32
 // at a quarter of wgmma's rate; with A in registers the issuing warp's own
@@ -81,42 +82,27 @@ using namespace hopper;
 // batch of K = 60 taps misses one only when all its sv <= 4).
 // ---------------------------------------------------------------------------
 
-constexpr int kKB = 8;         // visibilities per batch (the MMA depth)
+// Visibilities per batch: one stretch of kPromoteSteps wgmma k-steps of
+// 8, staged in one round and promoted at its end.
+constexpr int kKB = 8 * kPromoteSteps;
 constexpr int kMaxMc = 256;    // slots per chunk held in shared memory
 
-// One CTA's block of the window, B x B complex, over B / 64 warpgroups
-// of 64 rows.  A staged batch holds kKB visibilities in eight planes, A
-// (re hi, re lo, im hi, im lo) then B (likewise), each in the K-major
-// core-matrix layout of smem_desc: row r (j - the block's first row for
-// A, k - its first column for B), slot m at float
-// ((r / 8) (kKB / 4) + m / 4) 32 + (r % 8) 4 + m % 4.
-template <int B>
+// One CTA's block of the window, 64 rows x BN columns complex, one
+// warpgroup per 64 columns.  A staged batch holds kKB visibilities in
+// eight planes, A (re hi, re lo, im hi, im lo; 64 rows) then B (likewise;
+// BN columns), each in the K-major core-matrix layout of smem_desc: row r
+// (j - the block's first row for A, k - its first column for B), slot m
+// at float ((r / 8) (kKB / 4) + m / 4) 32 + (r % 8) 4 + m % 4.
+template <int BN>
 struct BandTile {
-  static constexpr int kThreads = 2 * B;      // one warpgroup per 64 rows
-  static constexpr int kPlane = kKB * B;      // floats
-  static constexpr int kStage = 8 * kPlane;
+  static constexpr int kThreads = 2 * BN;     // one warpgroup per 64 cols
+  static constexpr int kPlaneA = kKB * 64;    // floats
+  static constexpr int kPlaneB = kKB * BN;
+  static constexpr int kStage = 4 * kPlaneA + 4 * kPlaneB;
   static constexpr int kSmemBytes =
       2 * kStage * static_cast<int>(sizeof(float));
-  static constexpr int kAcc = B / 2;          // accumulators a thread, each
-  static constexpr int kSteps = kKB / 8;      // wgmma k-steps a batch
+  static constexpr int kAcc = 32;  // m64n64 accumulators a thread, each
 };
-
-// Batches the tensor cores accumulate before the sums are promoted into
-// the run's block of the colour plane.  A wgmma's FP32 accumulation
-// loses more than IEEE rounding would (it appears to truncate), and its
-// error grows with the number of adds (measured on an H100 against a
-// float64 reference:
-// 5.2e-5 of the peak at ts = 128, K = 128 and 1.7e-4 at ts = 256, K = 200
-// when a run's sums stayed in the accumulators, against 5e-7 for FP32
-// sums on the CUDA cores); the promoted totals take IEEE adds, so each
-// stretch of kPromote batches (6 kPromote adds a value) bounds it: with
-// kPromote = 32, 4.0e-6 and 3.7e-6 at those two.  A run of at most
-// kPromote batches is stored once.  The totals live in the plane, not
-// in shared memory: 128 KB more of it would leave the L1 cache that K1's
-// table loads go through too small.  At ts 64, promoting in the one band
-// loop cost every run 8% (kPromote 32) to 16% (16) of K1's time, though
-// most runs there are short: hence the two bodies at ts 32 and 64.
-constexpr int kPromote = 32;
 
 // One chunk's slot data, loaded once per chunk into shared memory.
 struct __align__(16) ChunkSlots {
@@ -124,7 +110,7 @@ struct __align__(16) ChunkSlots {
   float sr[kMaxMc], si[kMaxMc];
 };
 
-template <int B>
+template <int BN>
 __device__ __forceinline__ void load_chunk(
     ChunkSlots& cs, int c, int cnt, int p, const int* __restrict__ iu,
     const int* __restrict__ iv, const int* __restrict__ su,
@@ -132,7 +118,7 @@ __device__ __forceinline__ void load_chunk(
     const float* __restrict__ sim, int Mc, int P) {
   const size_t cm = static_cast<size_t>(c) * Mc;
   const size_t cp = (static_cast<size_t>(c) * P + p) * Mc;
-  for (int m = threadIdx.x; m < cnt; m += BandTile<B>::kThreads) {
+  for (int m = threadIdx.x; m < cnt; m += BandTile<BN>::kThreads) {
     cs.iv[m] = iv[cm + m];
     cs.sv[m] = sv[cm + m];
     cs.iu[m] = iu[cm + m];
@@ -142,49 +128,47 @@ __device__ __forceinline__ void load_chunk(
   }
 }
 
+// Offset (floats) of row r, slots 4 k4 .. 4 k4 + 3 in a staged plane.
+__device__ __forceinline__ int core_offset(int r, int k4) {
+  return ((r >> 3) * (kKB / 4) + k4) * 32 + (r & 7) * 4;
+}
+
 // Visibilities m0 .. m0 + kKB - 1 of the chunk in `cs` (slots at or past
-// cnt give zeros) as split planes, for window rows jr0 .. jr0 + B - 1 (A)
-// and columns jc0 .. jc0 + B - 1 (B); rows and columns at or past ts2
-// give zeros.
-// A thread takes one block position j and 4 consecutive slots, whose
-// slot data it reads as vectors and whose 4 values per plane are
-// contiguous in the core-matrix layout: one 16-byte store per plane,
+// cnt give zeros) as split planes, for window rows jr0 .. jr0 + 63 (A)
+// and columns jc0 .. jc0 + BN - 1 (B); rows and columns at or past ts2
+// give zeros.  A thread takes one row (or column) and 4 consecutive
+// slots, whose slot data it reads as vectors and whose 4 values per plane
+// are contiguous in the core-matrix layout: one 16-byte store per plane,
 // free of bank conflicts.  A's products are split here; B's split comes
 // ready from `tabs`.  Ends with the async-proxy fence.
-template <int B, bool kWide>
+template <int BN, bool kPad>
 __device__ __forceinline__ void stage_batch(float* S, const ChunkSlots& cs,
                                             int m0, int cnt,
                                             const float2* __restrict__ tab,
                                             const float4* __restrict__ tabs,
                                             int K, int ts2, int jr0,
                                             int jc0) {
-  using T = BandTile<B>;
+  using T = BandTile<BN>;
 #pragma unroll
-  for (int grp = threadIdx.x; grp < (kKB / 4) * B; grp += T::kThreads) {
-    const int j = grp % B;
-    const int k4 = grp / B;
+  for (int grp = threadIdx.x; grp < (kKB / 4) * 64; grp += T::kThreads) {
+    const int j = grp % 64;
+    const int k4 = grp / 64;
     const int jr = jr0 + j;
-    const int jc = jc0 + j;
     const int mq = m0 + 4 * k4;
     const int4 sv4 = *reinterpret_cast<const int4*>(cs.sv + mq);
     const int4 iv4 = *reinterpret_cast<const int4*>(cs.iv + mq);
-    const int4 su4 = *reinterpret_cast<const int4*>(cs.su + mq);
-    const int4 iu4 = *reinterpret_cast<const int4*>(cs.iu + mq);
     const float4 sr4 = *reinterpret_cast<const float4*>(cs.sr + mq);
     const float4 si4 = *reinterpret_cast<const float4*>(cs.si + mq);
     const int svs[4] = {sv4.x, sv4.y, sv4.z, sv4.w};
     const int ivs[4] = {iv4.x, iv4.y, iv4.z, iv4.w};
-    const int sus[4] = {su4.x, su4.y, su4.z, su4.w};
-    const int ius[4] = {iu4.x, iu4.y, iu4.z, iu4.w};
     const float srs[4] = {sr4.x, sr4.y, sr4.z, sr4.w};
     const float sis[4] = {si4.x, si4.y, si4.z, si4.w};
-    float v[8][4];  // [plane][slot]: A re hi, re lo, im hi, im lo; B ...
+    float v[4][4];  // [plane][slot]: re hi, re lo, im hi, im lo
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
-      const bool live = mq + u < cnt;
       float ar = 0.f, ai = 0.f;
       const int dv = jr - svs[u];
-      if (live && (!kWide || jr < ts2) && dv >= 0 && dv < K) {
+      if (mq + u < cnt && (!kPad || jr < ts2) && dv >= 0 && dv < K) {
         const float2 t = tab[ivs[u] * K + dv];
         ar = t.x * srs[u] - t.y * sis[u];
         ai = t.x * sis[u] + t.y * srs[u];
@@ -195,67 +179,84 @@ __device__ __forceinline__ void stage_batch(float* S, const ChunkSlots& cs,
       v[1][u] = __uint_as_float(tf32_rna(ar - rh));
       v[2][u] = ih;
       v[3][u] = __uint_as_float(tf32_rna(ai - ih));
+    }
+    const int off = core_offset(j, k4);
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      *reinterpret_cast<float4*>(S + q * T::kPlaneA + off) =
+          make_float4(v[q][0], v[q][1], v[q][2], v[q][3]);
+  }
+#pragma unroll
+  for (int grp = threadIdx.x; grp < (kKB / 4) * BN; grp += T::kThreads) {
+    const int j = grp % BN;
+    const int k4 = grp / BN;
+    const int jc = jc0 + j;
+    const int mq = m0 + 4 * k4;
+    const int4 su4 = *reinterpret_cast<const int4*>(cs.su + mq);
+    const int4 iu4 = *reinterpret_cast<const int4*>(cs.iu + mq);
+    const int sus[4] = {su4.x, su4.y, su4.z, su4.w};
+    const int ius[4] = {iu4.x, iu4.y, iu4.z, iu4.w};
+    float v[4][4];  // [plane][slot]: re hi, re lo, im hi, im lo
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
       float4 b = make_float4(0.f, 0.f, 0.f, 0.f);
       const int du = jc - sus[u];
-      if (live && (!kWide || jc < ts2) && du >= 0 && du < K)
+      if (mq + u < cnt && (!kPad || jc < ts2) && du >= 0 && du < K)
         b = tabs[ius[u] * K + du];
-      v[4][u] = b.x;
-      v[5][u] = b.y;
-      v[6][u] = b.z;
-      v[7][u] = b.w;
+      v[0][u] = b.x;
+      v[1][u] = b.y;
+      v[2][u] = b.z;
+      v[3][u] = b.w;
     }
-    const int off = ((j >> 3) * (kKB / 4) + k4) * 32 + (j & 7) * 4;
+    const int off = core_offset(j, k4);
 #pragma unroll
-    for (int q = 0; q < 8; ++q)
-      *reinterpret_cast<float4*>(S + q * T::kPlane + off) =
+    for (int q = 0; q < 4; ++q)
+      *reinterpret_cast<float4*>(S + 4 * T::kPlaneA + q * T::kPlaneB +
+                                 off) =
           make_float4(v[q][0], v[q][1], v[q][2], v[q][3]);
   }
   fence_proxy_async();
 }
 
-// Warpgroup wg's band update from a staged batch, in 3xTF32: for each
-// k-step and each of the terms lo hi, hi lo, hi hi: re += Ar Br - Ai Bi,
-// im += Ar Bi + Ai Br.  Issues the wgmmas and commits them; the caller
-// waits.
-template <int B>
-__device__ __forceinline__ void band_issue(
-    float (&acc_r)[BandTile<B>::kAcc], float (&acc_i)[BandTile<B>::kAcc],
-    const float* S, int wg) {
-  using T = BandTile<B>;
+// Warpgroup wg's band sums of a staged batch, afresh, in 3xTF32: for
+// each k-step, re += Ar Br - Ai Bi, im += Ar Bi + Ai Br, each product by
+// wgmma_tf32x3.  Issues the wgmmas and commits them; the caller waits.
+template <int BN>
+__device__ __forceinline__ void band_issue(float (&acc_r)[32],
+                                           float (&acc_i)[32],
+                                           const float* S, int wg) {
+  using T = BandTile<BN>;
   fence_operands(acc_r);
   fence_operands(acc_i);
   wgmma_fence();
 #pragma unroll
-  for (int ks = 0; ks < T::kSteps; ++ks) {
-    // Planes A re hi .. A im lo, B re hi .. B im lo at k-step ks (the
-    // next 8 slots: 2 core matrices along K); A from the warpgroup's 64
-    // rows (8 groups of 8).  LBO: the next 4 slots; SBO: the next 8 rows.
-    uint64_t desc[8];
+  for (int ks = 0; ks < kPromoteSteps; ++ks) {
+    // Planes A re hi .. A im lo (the block's 64 rows), B re hi .. B im lo
+    // at the warpgroup's 64 columns (8 groups of 8), at k-step ks (the
+    // next 8 slots: 2 core matrices along K): LBO the next 4 slots, SBO
+    // the next 8 rows.
+    uint64_t a[4], b[4];
 #pragma unroll
-    for (int q = 0; q < 8; ++q)
-      desc[q] = smem_desc(S + q * T::kPlane + ks * 64 +
-                              (q < 4 ? wg * 8 * (kKB / 4) * 32 : 0),
-                          128, 128 * (kKB / 4));
-#pragma unroll
-    for (int term = 0; term < 3; ++term) {
-      const int ah = term == 0 ? 1 : 0;  // A lo in the first term
-      const int bh = term == 1 ? 1 : 0;  // B lo in the second
-      wgmma_tf32<1>(acc_r, desc[ah], desc[4 + bh]);
-      wgmma_tf32<1>(acc_i, desc[ah], desc[6 + bh]);
-      wgmma_tf32<-1>(acc_r, desc[2 + ah], desc[6 + bh]);
-      wgmma_tf32<1>(acc_i, desc[2 + ah], desc[4 + bh]);
+    for (int q = 0; q < 4; ++q) {
+      a[q] = smem_desc(S + q * T::kPlaneA + ks * 64, 128, 128 * (kKB / 4));
+      b[q] = smem_desc(S + 4 * T::kPlaneA + q * T::kPlaneB + ks * 64 +
+                           wg * 8 * (kKB / 4) * 32,
+                       128, 128 * (kKB / 4));
     }
+    const int sd = ks > 0;  // the first k-step starts afresh
+    wgmma_tf32x3<1>(acc_r, a[0], a[1], b[0], b[1], sd);   // + Ar Br
+    wgmma_tf32x3<1>(acc_i, a[0], a[1], b[2], b[3], sd);   // + Ar Bi
+    wgmma_tf32x3<-1>(acc_r, a[2], a[3], b[2], b[3], 1);   // - Ai Bi
+    wgmma_tf32x3<1>(acc_i, a[2], a[3], b[0], b[1], 1);    // + Ai Br
   }
   wgmma_commit();
 }
 
 // The band of the anchor run that starts at chunk c0, polarization p, for
-// the block of window rows jr0 .. and columns jc0 .. (both 0 but in a wide
-// window), written into the run's block of the colour plane.  With
-// kPromoteSums the accumulators are promoted into the plane every
-// kPromote batches.  Every thread of the CTA enters; the shared memory is
-// the caller's.
-template <int B, bool kWide, bool kPromoteSums>
+// the block of window rows jr0 .. jr0 + 63 and columns jc0 .. jc0 + BN -
+// 1, written into the run's block of the colour plane.  Every thread of
+// the CTA enters; the shared memory is the caller's.
+template <int BN, bool kPad>
 __device__ __forceinline__ void grid_run(
     int c0, int p, int jr0, int jc0, float* stage, ChunkSlots& cs,
     const int* __restrict__ slot, int n, const int* __restrict__ count,
@@ -265,23 +266,26 @@ __device__ __forceinline__ void grid_run(
     const float2* __restrict__ tab, const float4* __restrict__ tabs,
     float* __restrict__ accr, float* __restrict__ acci, int Mc, int P, int K,
     int ts2, int nt2) {
-  using T = BandTile<B>;
-  // The window's extent: a window that is one unpadded block (ts 32 and
-  // 64) knows it at compile time.
-  const int w2 = kWide ? ts2 : B;
+  using T = BandTile<BN>;
   const int s = slot[c0];
-
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;
   const int t = lane % 4;
-  const int r0 = (threadIdx.x / 32) * 16;      // this warp's 16 rows
+  const int wg = threadIdx.x / 128;             // this warpgroup's columns
+  const int r0 = ((threadIdx.x / 32) % 4) * 16; // this warp's 16 rows
 
-  float acc_r[T::kAcc];
-  float acc_i[T::kAcc];
+  // The tensor cores' accumulators (one stretch), the segment's totals
+  // and the run's (wgmma.cuh).
+  float acc_r[T::kAcc], acc_i[T::kAcc], seg_r[T::kAcc], seg_i[T::kAcc],
+      tot_r[T::kAcc], tot_i[T::kAcc];
 #pragma unroll
   for (int i = 0; i < T::kAcc; ++i) {
     acc_r[i] = 0.f;
     acc_i[i] = 0.f;
+    seg_r[i] = 0.f;
+    seg_i[i] = 0.f;
+    tot_r[i] = 0.f;
+    tot_i[i] = 0.f;
   }
 
   // The run's batches: (chunk c, first slot m0), empty chunks skipped.
@@ -302,64 +306,31 @@ __device__ __forceinline__ void grid_run(
   auto stage_at = [&](float* S, bool new_chunk) {
     if (new_chunk) {
       // The wgmmas in flight read only their own staged planes.
-      load_chunk<B>(cs, c, cnt, p, iu, iv, su, sv, sre, sim, Mc, P);
+      load_chunk<BN>(cs, c, cnt, p, iu, iv, su, sv, sre, sim, Mc, P);
       __syncthreads();
     }
-    stage_batch<B, kWide>(S, cs, m0, cnt, tab, tabs, K, w2, jr0, jc0);
-  };
-  // Decode the slot: colour (a, b) = tile parities, then the tile of the
-  // colour plane; the planes are (2, 2, P, ext2, ext2) images.
-  const int colour = s / (nt2 * nt2);
-  const int rem = s - colour * (nt2 * nt2);
-  const int tv2 = rem / nt2;
-  const int tu2 = rem - tv2 * nt2;
-  const size_t ext2 = static_cast<size_t>(nt2) * w2;
-  const size_t base =
-      ((static_cast<size_t>(colour) * P + p) * ext2 +
-       static_cast<size_t>(tv2) * w2) * ext2 +
-      static_cast<size_t>(tu2) * w2;
-  // Stores this thread's accumulators into the run's block, added onto
-  // what an earlier promotion stored there (the thread's own values).
-  // Accumulator i of n8 block nb8: block row g (+ 8 for i & 2), block
-  // column 8 nb8 + 2 t (+ 1 for i & 1); the window's padding past w2 is
-  // not stored (w2 is even, so a pair lies wholly inside or outside).
-  bool promoted = false;
-  auto flush = [&]() {
-#pragma unroll
-    for (int nb8 = 0; nb8 < B / 8; ++nb8) {
-      const int col = jc0 + 8 * nb8 + 2 * t;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = jr0 + r0 + g + 8 * h;
-        if (kWide && (row >= w2 || col >= w2)) continue;
-        const size_t off = base + row * ext2 + col;
-        const int i = 4 * nb8 + 2 * h;
-        float2 re = make_float2(acc_r[i], acc_r[i + 1]);
-        float2 im = make_float2(acc_i[i], acc_i[i + 1]);
-        if (kPromoteSums && promoted) {
-          const float2 tr = *reinterpret_cast<const float2*>(accr + off);
-          const float2 ti = *reinterpret_cast<const float2*>(acci + off);
-          re = make_float2(tr.x + re.x, tr.y + re.y);
-          im = make_float2(ti.x + im.x, ti.y + im.y);
-        }
-        *reinterpret_cast<float2*>(accr + off) = re;
-        *reinterpret_cast<float2*>(acci + off) = im;
-      }
-    }
+    stage_batch<BN, kPad>(S, cs, m0, cnt, tab, tabs, K, ts2, jr0, jc0);
   };
   // One batch: its wgmmas, the next batch staged while they run, the
-  // wait; returns whether the run has a next batch.
-  int buf = 0;
+  // wait and the promotion; returns whether the run has a next batch.
+  int buf = 0, stretches = 0;
   auto band_step = [&]() {
     const float* S = stage + buf * T::kStage;
     const int c_now = c;
     m0 += kKB;
     const bool next = settle();
-    band_issue<B>(acc_r, acc_i, S, threadIdx.x / 128);
+    band_issue<BN>(acc_r, acc_i, S, wg);
     if (next) stage_at(stage + (buf ^ 1) * T::kStage, c != c_now);
     wgmma_wait_all();
     fence_operands(acc_r);
     fence_operands(acc_i);
+    promote(seg_r, acc_r);
+    promote(seg_i, acc_i);
+    if (++stretches == kSegment) {
+      promote<true>(tot_r, seg_r);
+      promote<true>(tot_i, seg_i);
+      stretches = 0;
+    }
     __syncthreads();
     buf ^= 1;
     return next;
@@ -367,65 +338,46 @@ __device__ __forceinline__ void grid_run(
   bool have = settle();
   if (have) stage_at(stage, true);
   __syncthreads();
-  if constexpr (!kPromoteSums) {
-    while (have) have = band_step();
-  } else {
-    // Stretches of at most kPromote batches, each promoted into the
-    // plane before the next: the promotion stays out of the batch loop.
-    while (have) {
-      for (int b = 0; have && b < kPromote; ++b) have = band_step();
-      if (have) {
-        flush();
-        promoted = true;
+  while (have) have = band_step();
+  promote(tot_r, seg_r);
+  promote(tot_i, seg_i);
+
+  // Decode the slot: colour (a, b) = tile parities, then the tile of the
+  // colour plane; the planes are (2, 2, P, ext2, ext2) images.  Total i
+  // of n8 block nb8: block row r0 + g (+ 8 for i & 2), column 64 wg +
+  // 8 nb8 + 2 t (+ 1 for i & 1); the window's padding past ts2 is not
+  // stored (ts2 is even, so a pair lies wholly inside or outside).
+  const int colour = s / (nt2 * nt2);
+  const int rem = s - colour * (nt2 * nt2);
+  const int tv2 = rem / nt2;
+  const int tu2 = rem - tv2 * nt2;
+  const size_t ext2 = static_cast<size_t>(nt2) * ts2;
+  const size_t base =
+      ((static_cast<size_t>(colour) * P + p) * ext2 +
+       static_cast<size_t>(tv2) * ts2) * ext2 +
+      static_cast<size_t>(tu2) * ts2;
 #pragma unroll
-        for (int i = 0; i < T::kAcc; ++i) {
-          acc_r[i] = 0.f;
-          acc_i[i] = 0.f;
-        }
-      }
+  for (int nb8 = 0; nb8 < 8; ++nb8) {
+    const int col = jc0 + 64 * wg + 8 * nb8 + 2 * t;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = jr0 + r0 + g + 8 * h;
+      if (kPad && (row >= ts2 || col >= ts2)) continue;
+      const size_t off = base + row * ext2 + col;
+      const int i = 4 * nb8 + 2 * h;
+      *reinterpret_cast<float2*>(accr + off) =
+          make_float2(tot_r[i], tot_r[i + 1]);
+      *reinterpret_cast<float2*>(acci + off) =
+          make_float2(tot_i[i], tot_i[i + 1]);
     }
   }
-
-  flush();
-}
-
-// The batches of the anchor run that starts at chunk c0 (ceil(count /
-// kKB) summed over its chunks, as the band loop takes them), or a number
-// past kPromote once the count is past it.  Each warp counts on its own,
-// 32 chunks at a time, so every thread of the CTA gets the same number
-// with no barrier; most runs end within the first 32 chunks.
-__device__ __forceinline__ int run_batches(const int* __restrict__ slot,
-                                           int n,
-                                           const int* __restrict__ count,
-                                           int c0) {
-  const int lane = threadIdx.x % 32;
-  const int s = slot[c0];
-  int batches = 0;
-  for (int base = c0; base < n && batches <= kPromote; base += 32) {
-    const int d = base + lane;
-    // Both loads issue before either is used: one memory latency a step.
-    const int sd = d < n ? slot[d] : -1;
-    const int cd = d < n ? count[d] : 0;
-    const unsigned in = __ballot_sync(~0u, sd == s);
-    const int len = in == ~0u ? 32 : __ffs(~in) - 1;  // the run's chunks here
-    int b = lane < len ? (cd + kKB - 1) / kKB : 0;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) b += __shfl_xor_sync(~0u, b, o);
-    batches += b;
-    if (len < 32) break;
-  }
-  return batches;
 }
 
 // One CTA per chunk c0 (grid x), polarization (y) and block of the
-// window (z); the CTA whose chunk starts a run grids it.  A wide window
-// promotes its sums.  At ts 32 and 64 (kWide false) the run's length in
-// batches picks one of two bodies once per CTA: a short run takes the
-// code with neither bounds tests nor promotion, a long run the promoting
-// one.  The kernel takes the larger body's registers (222 at ts 64, where
-// the short body alone took 202; one CTA an SM either way).
-template <int B, bool kWide>
-__global__ void __launch_bounds__(BandTile<B>::kThreads, 1)
+// window (z: row block z / nbc, column block z % nbc); the CTA whose chunk
+// starts a run grids it.  kPad: the window has padding past 2ts.
+template <int BN, bool kPad>
+__global__ void __launch_bounds__(BandTile<BN>::kThreads, 1)
 grid_planes_kernel(const int* __restrict__ slot, int n,
                    const int* __restrict__ count,
                    const int* __restrict__ iu, const int* __restrict__ iv,
@@ -435,48 +387,38 @@ grid_planes_kernel(const int* __restrict__ slot, int n,
                    const float2* __restrict__ tab,
                    const float4* __restrict__ tabs,
                    float* __restrict__ accr, float* __restrict__ acci,
-                   int Mc, int P, int K, int ts2, int nb, int nt2) {
+                   int Mc, int P, int K, int ts2, int nbc, int nt2) {
   const int c0 = blockIdx.x;
   if (c0 >= n) return;
   if (c0 > 0 && slot[c0 - 1] == slot[c0]) return;  // not a run's first chunk
   extern __shared__ __align__(128) float stage[];  // [2][kStage]
   __shared__ ChunkSlots cs;                    // the current chunk's slots
-  if (kWide)
-    grid_run<B, true, true>(c0, blockIdx.y, (blockIdx.z / nb) * B,
-                            (blockIdx.z % nb) * B, stage, cs, slot, n, count,
-                            iu, iv, su, sv, sre, sim, tab, tabs, accr, acci,
-                            Mc, P, K, ts2, nt2);
-  else if (run_batches(slot, n, count, c0) <= kPromote)
-    grid_run<B, false, false>(c0, blockIdx.y, 0, 0, stage, cs, slot, n,
-                              count, iu, iv, su, sv, sre, sim, tab, tabs,
-                              accr, acci, Mc, P, K, B, nt2);
-  else
-    grid_run<B, false, true>(c0, blockIdx.y, 0, 0, stage, cs, slot, n, count,
-                             iu, iv, su, sv, sre, sim, tab, tabs, accr, acci,
-                             Mc, P, K, B, nt2);
+  grid_run<BN, kPad>(c0, blockIdx.y, (blockIdx.z / nbc) * 64,
+                     (blockIdx.z % nbc) * BN, stage, cs, slot, n, count, iu,
+                     iv, su, sv, sre, sim, tab, tabs, accr, acci, Mc, P, K,
+                     ts2, nt2);
 }
 
-template <int B, bool kWide>
+template <int BN, bool kPad>
 cudaError_t launch_grid_planes(const int* slot, int n, const int* count,
                                const int* iu, const int* iv, const int* su,
                                const int* sv, const float* sre,
                                const float* sim, const float2* tab,
                                const float4* tabs, float* accr, float* acci,
-                               int NC, int Mc, int P, int K, int ts2, int nb,
+                               int NC, int Mc, int P, int K, int ts2, int wp,
                                int nt2, cudaStream_t stream) {
-  using T = BandTile<B>;
+  using T = BandTile<BN>;
   cudaError_t err = cudaFuncSetAttribute(
-      grid_planes_kernel<B, kWide>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
-      T::kSmemBytes);
+      grid_planes_kernel<BN, kPad>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
   if (err != cudaSuccess) return err;
-  grid_planes_kernel<B, kWide><<<dim3(NC, P, nb * nb), T::kThreads,
+  const int nbc = wp / BN;
+  grid_planes_kernel<BN, kPad><<<dim3(NC, P, (wp / 64) * nbc), T::kThreads,
                                  T::kSmemBytes, stream>>>(
       slot, n, count, iu, iv, su, sv, sre, sim, tab, tabs, accr, acci, Mc, P,
-      K, ts2, nb, nt2);
+      K, ts2, nbc, nt2);
   return cudaGetLastError();
 }
-
 
 // ---------------------------------------------------------------------------
 // K2 -- replaces katsdpimager_tpu/ops/pallas_gridder.py:_make_combine_kernel
@@ -545,8 +487,8 @@ __global__ void combine_planes_kernel(const float* __restrict__ accr,
 }  // namespace
 
 // K1 takes every tile size ts in [1, kMaxTile] with K <= ts + 1: the
-// window (2ts, padded to Wp = 64 ceil(2ts / 64)) in blocks of 128 where
-// Wp is a multiple of 128, else of 64.
+// window (2ts, padded to Wp = 64 ceil(2ts / 64)) in blocks of 64 rows by
+// 128 columns where Wp is a multiple of 128, else by 64.
 constexpr int kMaxTile = 256;
 
 extern "C" int ktt_grid_planes(const void* slot, int n, const void* count,
@@ -574,21 +516,19 @@ extern "C" int ktt_grid_planes(const void* slot, int n, const void* count,
   auto ai = static_cast<float*>(acci);
   const int ts2 = 2 * ts;
   const int wp = 64 * ((ts2 + 63) / 64);
-  if (ts2 == 128)
-    return launch_grid_planes<128, false>(s, n, cn, u, v, du, dv, r, i, t,
-                                          ts4, ar, ai, NC, Mc, P, K, ts2, 1,
-                                          nt2, st);
-  if (ts2 == 64)
-    return launch_grid_planes<64, false>(s, n, cn, u, v, du, dv, r, i, t,
-                                         ts4, ar, ai, NC, Mc, P, K, ts2, 1,
-                                         nt2, st);
   if (wp % 128 == 0)
-    return launch_grid_planes<128, true>(s, n, cn, u, v, du, dv, r, i, t,
-                                         ts4, ar, ai, NC, Mc, P, K, ts2,
-                                         wp / 128, nt2, st);
-  return launch_grid_planes<64, true>(s, n, cn, u, v, du, dv, r, i, t, ts4,
-                                      ar, ai, NC, Mc, P, K, ts2, wp / 64, nt2,
-                                      st);
+    return wp == ts2 ? launch_grid_planes<128, false>(
+                           s, n, cn, u, v, du, dv, r, i, t, ts4, ar, ai, NC,
+                           Mc, P, K, ts2, wp, nt2, st)
+                     : launch_grid_planes<128, true>(
+                           s, n, cn, u, v, du, dv, r, i, t, ts4, ar, ai, NC,
+                           Mc, P, K, ts2, wp, nt2, st);
+  return wp == ts2 ? launch_grid_planes<64, false>(s, n, cn, u, v, du, dv, r,
+                                                   i, t, ts4, ar, ai, NC, Mc,
+                                                   P, K, ts2, wp, nt2, st)
+                   : launch_grid_planes<64, true>(s, n, cn, u, v, du, dv, r,
+                                                  i, t, ts4, ar, ai, NC, Mc,
+                                                  P, K, ts2, wp, nt2, st);
 }
 
 extern "C" int ktt_combine_planes(const void* accr, const void* acci,

@@ -27,19 +27,19 @@
 //   pieces cover f32's 24 bits, so every value rebuilds exactly; K1's two
 //   pieces leave up to 2^-22 of it.
 // - C (band_dot_kernel<kSplit2>): x^T y by 3xTF32 wgmma m64n64k8 from
-//   shared memory, with K1's split and instruction (wgmma.cuh): lo hi +
-//   hi lo + hi hi with hi = tf32_rna(v), lo = tf32_rna(v - hi), f32
-//   accumulation.  The stacked form reads [a, b] and [c, d]; the separate
-//   form is the same launch reading a, b, c and d, each tile lying in one
-//   128 x 128 block of the output, as the TPU's kern_sep writes the four
-//   blocks of one output.  Its accumulation is not K1's: the tensor
-//   cores' accumulation truncates and its error grows with the adds it
-//   takes, so the three products go to three accumulators and every kKC
-//   of the contraction (4 adds each) the sums are promoted into f32
-//   totals by IEEE adds: 1.8e-7 of the peak on an H100.  K1's schedule,
-//   all three products in one accumulator promoted every kPromote = 32
-//   batches of 8 (none at this contraction of 256, so 96 adds), gave
-//   1.9e-6 here, above the probe's 1e-6 (PERF.md).
+//   shared memory, with K1's split, instruction and accumulation
+//   (wgmma.cuh): lo hi + hi lo + hi hi with hi = tf32_rna(v), lo =
+//   tf32_rna(v - hi) into one FP32 accumulator (wgmma_tf32x3) that sums
+//   kPromoteSteps k-steps of 8 and is then promoted by IEEE adds into a
+//   segment's total, that into the tile's every kSegment stretches
+//   (promote), as K1 does each batch.  The stacked form reads [a, b] and
+//   [c, d]; the separate form is the same launch reading a, b, c and d,
+//   each tile lying in one 128 x 128 block of the output, as the TPU's
+//   kern_sep writes the four blocks of one output.  The tensor cores'
+//   accumulation truncates and its error grows with the adds it takes:
+//   K1's schedule before (one accumulator promoted every 32 k-steps:
+//   none at this contraction of 256, so 96 adds) gave 1.9e-6 here, above
+//   the probe's 1e-6 (PERF.md).
 // - C_tf32 (band_dot_kernel<kSplit1>): the same dot in one TF32 pass, no
 //   split: TF32 keeps 10 mantissa bits, about 3e-4 relative here.  This is
 //   the trap that the port's rule "no f32 dot in TF32" guards against.
@@ -239,10 +239,8 @@ template <int kRoute>
 struct DotRoute;
 
 template <>
-struct DotRoute<kSplit2> {  // 3xTF32: lo hi + hi lo + hi hi
-  static constexpr int kPa = 2, kPb = 2, kTerms = 3;
-  __host__ __device__ static constexpr int a(int t) { return t == 0; }
-  __host__ __device__ static constexpr int b(int t) { return t == 1; }
+struct DotRoute<kSplit2> {  // 3xTF32 (hi, lo): wgmma_tf32x3's terms
+  static constexpr int kPa = 2, kPb = 2;
 };
 
 template <>
@@ -356,53 +354,89 @@ __global__ void __launch_bounds__(kThreads)
     fence_proxy_async();
   };
 
-  // A chunk's wgmmas go round kAcc accumulators (term t at k-step ks into
-  // (kTerms ks + t) % kAcc, zeroed by its first wgmma of the chunk); the
-  // chunk's sums are then promoted into `total` as (acc0 + acc1) + acc2
-  // (B: (hi + mid) + lo, exact).
-  constexpr int kAcc = 3;
-  float acc[kAcc][32], total[32];
+  // Descriptors of every plane at k-step ks of the staged chunk S (8 k:
+  // 2 core matrices along K).  LBO: the next 4 k; SBO: the next 8 rows.
+  auto descs = [&](const float* S, int ks, uint64_t (&da)[R::kPa],
+                   uint64_t (&db)[R::kPb]) {
+#pragma unroll
+    for (int q = 0; q < R::kPa; ++q)
+      da[q] = smem_desc(S + q * kPlane + ks * 64, 128, 128 * (kKC / 4));
+#pragma unroll
+    for (int q = 0; q < R::kPb; ++q)
+      db[q] = smem_desc(S + (R::kPa + q) * kPlane + ks * 64, 128,
+                        128 * (kKC / 4));
+  };
+  constexpr int kAcc = kRoute == kSplit2 ? 1 : 3;
+  static_assert((kKC / 8) % kPromoteSteps == 0, "whole stretches a chunk");
+  float acc[kAcc][32], total[32], seg[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
 #pragma unroll
     for (int q = 0; q < kAcc; ++q) acc[q][i] = 0.f;
     total[i] = 0.f;
+    seg[i] = 0.f;
   }
+  int stretches = 0;
   if (chunks > 0) stage_chunk(stage, 0);
   __syncthreads();
   for (int c = 0; c < chunks; ++c) {
     const float* S = stage + (c & 1) * kStage;
+    if constexpr (kRoute == kSplit2) {
+      // K1's schedule (wgmma.cuh): the three products into one
+      // accumulator, kPromoteSteps k-steps a stretch, each stretch
+      // promoted into the segment's total `seg` and that into `total`
+      // every kSegment stretches; the next chunk stages under the first.
+      for (int h = 0; h < kKC / 8 / kPromoteSteps; ++h) {
+        fence_operands(acc[0]);
+        wgmma_fence();
 #pragma unroll
-    for (int q = 0; q < kAcc; ++q) fence_operands(acc[q]);
-    wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < kKC / 8; ++ks) {
-      // Each plane at k-step ks (8 k: 2 core matrices along K).  LBO: the
-      // next 4 k; SBO: the next 8 rows.
-      uint64_t da[R::kPa], db[R::kPb];
-#pragma unroll
-      for (int q = 0; q < R::kPa; ++q)
-        da[q] = smem_desc(S + q * kPlane + ks * 64, 128, 128 * (kKC / 4));
-#pragma unroll
-      for (int q = 0; q < R::kPb; ++q)
-        db[q] = smem_desc(S + (R::kPa + q) * kPlane + ks * 64, 128,
-                          128 * (kKC / 4));
-#pragma unroll
-      for (int t = 0; t < R::kTerms; ++t) {
-        const int w = ks * R::kTerms + t;
-        wgmma_tf32(acc[w % kAcc], da[R::a(t)], db[R::b(t)], w >= kAcc);
+        for (int k = 0; k < kPromoteSteps; ++k) {
+          uint64_t da[R::kPa], db[R::kPb];
+          descs(S, h * kPromoteSteps + k, da, db);
+          wgmma_tf32x3(acc[0], da[0], da[1], db[0], db[1], k > 0);
+        }
+        wgmma_commit();
+        if (h == 0 && c + 1 < chunks)
+          stage_chunk(stage + ((c + 1) & 1) * kStage, c + 1);
+        wgmma_wait_all();
+        fence_operands(acc[0]);
+        promote(seg, acc[0]);
+        if (++stretches == kSegment) {
+          promote<true>(total, seg);
+          stretches = 0;
+        }
       }
+    } else {
+      // B and C_tf32: the chunk's wgmmas go round kAcc accumulators (term
+      // t at k-step ks into (kTerms ks + t) % kAcc, zeroed by its first
+      // wgmma of the chunk); the chunk's sums are then promoted into
+      // `total` as (acc0 + acc1) + acc2 (B: (hi + mid) + lo, exact).
+#pragma unroll
+      for (int q = 0; q < kAcc; ++q) fence_operands(acc[q]);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kKC / 8; ++ks) {
+        uint64_t da[R::kPa], db[R::kPb];
+        descs(S, ks, da, db);
+#pragma unroll
+        for (int t = 0; t < R::kTerms; ++t) {
+          const int w = ks * R::kTerms + t;
+          wgmma_tf32(acc[w % kAcc], da[R::a(t)], db[R::b(t)], w >= kAcc);
+        }
+      }
+      wgmma_commit();
+      if (c + 1 < chunks) stage_chunk(stage + ((c + 1) & 1) * kStage, c + 1);
+      wgmma_wait_all();
+#pragma unroll
+      for (int q = 0; q < kAcc; ++q) fence_operands(acc[q]);
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        total[i] += (acc[0][i] + acc[1][i]) + acc[2][i];
     }
-    wgmma_commit();
-    if (c + 1 < chunks) stage_chunk(stage + ((c + 1) & 1) * kStage, c + 1);
-    wgmma_wait_all();
-#pragma unroll
-    for (int q = 0; q < kAcc; ++q) fence_operands(acc[q]);
-#pragma unroll
-    for (int i = 0; i < 32; ++i)
-      total[i] += (acc[0][i] + acc[1][i]) + acc[2][i];
     __syncthreads();
   }
+
+  if constexpr (kRoute == kSplit2) promote(total, seg);
 
   // Warp w's rows are the tile's rows 16 w .. 16 w + 15, which CTA w of
   // the cluster sums: each warp stores its totals into that CTA's `red`,

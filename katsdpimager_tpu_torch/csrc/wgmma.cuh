@@ -2,7 +2,8 @@
 // and the numerics probes (csrc/probe.cu): the TF32 rounding that both
 // split their f32 operands with, the shared-memory matrix descriptor, the
 // TF32 wgmma.mma_async products and the fences around their asynchronous
-// window.
+// window, and the 3xTF32 accumulation schedule that K1 and probe C share
+// (wgmma_tf32x3, promote, kPromoteSteps, kSegment).
 
 #pragma once
 
@@ -24,44 +25,9 @@ __device__ __forceinline__ uint32_t tf32_rna(float x) {
   return r;
 }
 
-// wgmma.mma_async m64nNk8, TF32 inputs, FP32 accumulation, d += a b
+// wgmma.mma_async m64n64k8, TF32 inputs, FP32 accumulation, d += a b
 // (kScaleB = 1) or d -= a b (kScaleB = -1); A and B through shared-memory
-// matrix descriptors.  scale_d = 0 ignores d's old value.  N = 128:
-template <int kScaleB = 1>
-__device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t desc_a,
-                                           uint64_t desc_b, int scale_d = 1) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, %67;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kScaleB));
-}
-
-// N = 64:
+// matrix descriptors.  scale_d = 0 ignores d's old value.
 template <int kScaleB = 1>
 __device__ __forceinline__ void wgmma_tf32(float (&d)[32], uint64_t desc_a,
                                            uint64_t desc_b, int scale_d = 1) {
@@ -82,6 +48,52 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[32], uint64_t desc_a,
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kScaleB));
+}
+
+// The tensor cores' FP32 accumulation is not IEEE: a wgmma k8 step
+// aligns its eight exact products and the accumulator to the largest
+// exponent among them, keeps each to 2 bits past that one's 24-bit
+// significand (the lower bits are dropped), and truncates the sum to FP32
+// (the model of tests/test_torch_k1_accumulation.py, fitted to four
+// readings of probe C on an H100 to within 1%).  Each add loses up to
+// ~2^-23 of the largest addend, always towards zero, so the error of a sum
+// kept in the accumulators grows with the adds it takes: 1.9e-6 of the
+// peak after 96 adds at probe C, 3-4e-6 in K1 after 192.  The schedule
+// that K1 and probe C share bounds it: the tensor cores sum kPromoteSteps
+// k-steps of 8 (scale_d = 0 starts each such stretch afresh), then the
+// CUDA cores add the stretch into FP32 totals in registers by IEEE adds
+// (promote): into a segment's total, which goes into the run's total
+// every kSegment stretches, so that neither sum's own rounding grows with
+// the thousands of stretches of a long run (one total read 1.4-1.7e-6 of
+// the peak on runs of 4096 k-steps, two 3.1-4.1e-7).
+constexpr int kPromoteSteps = 2;
+constexpr int kSegment = 32;
+
+// d = (scale_d ? d : 0) + s (a_lo b_hi + a_hi b_lo + a_hi b_hi), three
+// TF32 wgmmas into one accumulator in that order, s = kScaleB (+1 or
+// -1): the 3xTF32 product of two f32 operands split into TF32 hi =
+// tf32_rna(x) and lo = tf32_rna(x - hi) (lo lo, below 2^-22 of the
+// product, is dropped).  Issues only: the caller fences and commits.
+template <int kScaleB = 1>
+__device__ __forceinline__ void wgmma_tf32x3(float (&d)[32], uint64_t a_hi,
+                                             uint64_t a_lo, uint64_t b_hi,
+                                             uint64_t b_lo, int scale_d) {
+  wgmma_tf32<kScaleB>(d, a_lo, b_hi, scale_d);
+  wgmma_tf32<kScaleB>(d, a_hi, b_lo);
+  wgmma_tf32<kScaleB>(d, a_hi, b_hi);
+}
+
+// total += part by IEEE adds on the CUDA cores, part then zeroed with
+// kClear; after the wgmmas that wrote an accumulator part have completed
+// (wgmma_wait_all, fence_operands).
+template <bool kClear = false, int ND>
+__device__ __forceinline__ void promote(float (&total)[ND],
+                                        float (&part)[ND]) {
+#pragma unroll
+  for (int i = 0; i < ND; ++i) {
+    total[i] += part[i];
+    if (kClear) part[i] = 0.f;
+  }
 }
 
 __device__ __forceinline__ void wgmma_fence() {

@@ -49,12 +49,15 @@ MAX_CHUNK = 256
 #: The largest tile size K1 takes (every ts up to it with K <= ts + 1).
 MAX_TILE = 256
 
-#: Visibilities per K1 batch (its MMA depth) and the batches its tensor
-#: cores sum before the sums are promoted into the plane (``kKB`` and
-#: ``kPromote`` in ``csrc/gridder.cu``): an anchor run of more than
-#: ``PROMOTE`` batches is a long run.
-BATCH = 8
-PROMOTE = 32
+#: The ``wgmma`` k-steps of 8 visibilities that K1's tensor cores sum
+#: before the sums are promoted into FP32 totals (``kPromoteSteps`` in
+#: ``csrc/wgmma.cuh``); the visibilities K1 stages and sums in one round,
+#: one such stretch (``kKB`` in ``csrc/gridder.cu``); and the stretches
+#: whose sums a segment's total takes before the run's does
+#: (``kSegment``).
+PROMOTE_STEPS = 2
+BATCH = 8 * PROMOTE_STEPS
+SEGMENT = 32
 
 
 # ---------------------------------------------------------------------------
@@ -136,16 +139,18 @@ def grid_planes(slot, n: int, count, iu, iv, su, sv, sre, sim, table, accr,
     Replaces ``katsdpimager_tpu/ops/pallas_gridder.py:_make_kernel``.
     Bound by the band products (a dense 2ts x 2ts window per valid
     visibility).  The window, padded to a multiple of 64, is cut into
-    blocks of 128 or 64 square; one CTA per anchor run and block loops
-    over the valid slots only, 8 at a time, and forms its block on the
-    tensor cores in 3xTF32 (``wgmma`` m64nBk8, each operand split into
-    TF32 hi and lo), FP32 accurate; the block stays in accumulator
-    registers and is written once, with no atomics (details in the CUDA
-    source).  Takes every ``ts`` up to :data:`MAX_TILE` with
-    ``K <= ts + 1``; chunks hold at most :data:`MAX_CHUNK` slots.  The
-    tensor cores' sums are promoted into the plane every :data:`PROMOTE`
-    batches of a run; at ts 32 and 64 each CTA counts its run's batches
-    first, and only a long run takes the kernel's promoting body.
+    blocks of 64 rows by 128 or 64 columns; one CTA per anchor run and
+    block loops over the valid slots only, :data:`BATCH` at a time, and
+    forms its block on the tensor cores in 3xTF32 (``wgmma`` m64n64k8,
+    each operand split into TF32 hi and lo).  The tensor cores' truncating
+    sums take one batch (:data:`PROMOTE_STEPS` k-steps of 8) and are then
+    promoted by IEEE adds into FP32 totals in registers, a segment's and,
+    every :data:`SEGMENT` batches, the run's, so the planes keep FP32
+    accuracy (2.7-4.3e-7 of the peak from a float64 run on an H100, the
+    JAX gridder's class); the totals are written once, with no atomics
+    (details in the CUDA source).  Takes
+    every ``ts`` up to :data:`MAX_TILE` with ``K <= ts + 1``; chunks hold
+    at most :data:`MAX_CHUNK` slots.
     """
     if accr.device.type == "cpu":
         grid_planes_plain(slot, n, count, iu, iv, su, sv, sre, sim, table,

@@ -18,10 +18,11 @@ tensor-core route a kernel of the port takes:
   the table split into three TF32 pieces, whose sum rebuilds every value.
   Exact.  (K1's two pieces would leave up to 2^-22 of each value.)
 - **C**: the stacked band dot ``[a, b]^T [c, d]`` by 3xTF32 with K1's
-  split (``lo hi + hi lo + hi hi``; each product in its own accumulator,
-  promoted into f32 totals every 32 of the contraction, where K1 sums all
-  three in one), against the same dot of the four separate blocks in one
-  launch, both against a float64 product: <= 1e-6 relative.  The same dot in one TF32 pass is printed (about 3e-4): the
+  split and accumulation (``lo hi + hi lo + hi hi`` into one tensor-core
+  accumulator, promoted into f32 totals every ``PROMOTE_STEPS`` k-steps
+  of 8: ``csrc/wgmma.cuh``), against the same dot of the four separate
+  blocks in one launch, both against a float64 product: <= 1e-6
+  relative.  The same dot in one TF32 pass is printed (about 3e-4): the
   trap behind the port's rule that no f32 dot runs in TF32.
 - **E**: the recombine with no dot.  Exact.
 - **F**: the raw selected thirds against the host's split.  Exact.
@@ -117,7 +118,9 @@ def select_tf32x3_plain(idx, table):
 def dot_3xtf32_plain(x, y):
     """Plain version of probe C: ``x^T y`` by 3xTF32 with K1's split, the
     f32 products ``lo^T hi + hi^T lo + hi^T hi`` of the two-piece splits
-    (a product of two TF32 values is exact in f32)."""
+    (a product of two TF32 values is exact in f32), summed in f32 in
+    torch's order (the kernel's tensor-core accumulation is not
+    modelled)."""
     xh, xl = (p.transpose(0, 1) for p in split_tf32(x, 2))
     yh, yl = split_tf32(y, 2)
     return (xl @ yh + xh @ yl) + xh @ yh
@@ -242,9 +245,10 @@ def _band_dot(xs, ys, split: bool):
 
 
 def dot_3xtf32(x, y):
-    """Probe C, stacked: ``x^T y`` by 3xTF32 ``wgmma`` (K1's split), x
-    (Mk, I), y (Mk, J) f32 -> (I, J); Mk a multiple of 32 up to 256, I and
-    J multiples of 64.  CPU tensors run the plain version."""
+    """Probe C, stacked: ``x^T y`` by 3xTF32 ``wgmma`` with K1's split and
+    accumulation, x (Mk, I), y (Mk, J) f32 -> (I, J); Mk a multiple of 32
+    up to 256, I and J multiples of 64.  CPU tensors run the plain
+    version."""
     if x.device.type == "cpu":
         return dot_3xtf32_plain(x, y)
     out = _band_dot((x,), (y,), True)

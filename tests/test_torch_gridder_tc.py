@@ -197,25 +197,47 @@ def test_split_table_is_the_kernels_split():
     assert not tabs[0, :4].any()
 
 
-#: Anchor runs at K1's promotion boundary: (chunks per run, valid slots
-#: per chunk), the middle run holding PROMOTE (32) or PROMOTE + 1 batches
-#: of BATCH (8) valid slots between one-chunk runs: in one or two chunks,
-#: or over 33 and 34 chunks, one of them empty (no batch), so that the
-#: kernel's count crosses a warp's group of 32 chunks.
+def _stretch_runs():
+    """Runs at K1's stretch of ``PROMOTE_STEPS`` k-steps of 8: the middle
+    run holds one k-step fewer, as many and one more, in one chunk (the
+    last k-step partial) or over one chunk more with an empty chunk
+    first."""
+    c = fused_gridder.PROMOTE_STEPS
+    runs = {}
+    for k in (c - 1, c, c + 1):
+        if k >= 1:
+            runs[f"{k} in 1 chunk"] = ([1, 1, 1], [100, 8 * k - 3, 7])
+            runs[f"{k} in {k + 1} chunks"] = (
+                [1, k + 1, 1], [100, 0] + [8] * (k - 1) + [5, 7])
+    return runs
+
+
+#: Anchor runs at K1's promotion boundaries: (chunks per run, valid slots
+#: per chunk), the middle run holding the k-steps of 8 valid slots that
+#: the case's name gives, between one-chunk runs: at the stretch of
+#: PROMOTE_STEPS k-steps (``_stretch_runs``); at 32 and 33, in one or
+#: two chunks or over 33 and 34 chunks, one of them empty, where the
+#: schedule before (promoted into the plane every 32 k-steps) changed
+#: body; and at a segment of the kernel's totals.
 _EIGHTS = [8] * 16 + [0] + [8] * 16
 BOUNDARY_RUNS = {
+    **_stretch_runs(),
     "32 in 1 chunk": ([1, 1, 1], [100, 256, 7]),
     "33 in 2 chunks": ([1, 2, 1], [100, 256, 1, 7]),
     "32 in 33 chunks": ([1, 33, 1], [100] + _EIGHTS + [7]),
     "33 in 34 chunks": ([1, 34, 1], [100] + _EIGHTS + [8, 7]),
+    # one segment of totals (kSegment = 32 batches of 16), and one batch
+    # more
+    "64 in 2 chunks": ([1, 2, 1], [100, 256, 256, 7]),
+    "65 in 3 chunks": ([1, 3, 1], [100, 256, 256, 5, 7]),
 }
 
 
-def boundary_inputs(case, *, ts, K, seed=5, Mc=256, WO=64):
+def run_inputs(runs, counts, *, ts, K, seed=5, Mc=256, WO=64):
     """Direct K1 inputs (the arguments of ``grid_planes`` up to the
-    planes) whose runs are ``BOUNDARY_RUNS[case]``, valid slots a prefix
-    of each chunk, taps anywhere in range; and nt2."""
-    runs, counts = BOUNDARY_RUNS[case]
+    planes; CPU) whose anchor runs hold ``runs`` chunks with ``counts``
+    valid slots, a prefix of each chunk, taps anywhere in range; and
+    nt2."""
     rng = np.random.default_rng(seed)
     nt2 = 3
     NC = sum(runs)
@@ -238,20 +260,19 @@ def boundary_inputs(case, *, ts, K, seed=5, Mc=256, WO=64):
 
 @pytest.mark.parametrize("case", list(BOUNDARY_RUNS))
 def test_k1_runs_at_the_promotion_boundary(case):
-    """K1 (its plain version on the CPU) on runs of exactly PROMOTE and
-    PROMOTE + 1 batches, where the kernel at ts 32 and 64 moves from the
-    short body to the promoting one: the middle run holds the case's
-    batches, every run's block is written once, as the float64 sum of
-    its chunks gridded one at a time, and nothing else is written.
-    ``tests/test_torch_gpu.py`` holds the kernel to this on the card."""
+    """K1 (its plain version on the CPU) on runs at the kernel's
+    promotion boundaries (:data:`BOUNDARY_RUNS`): the middle run holds the
+    case's k-steps of 8, every run's block is written once, as the float64 sum
+    of its chunks gridded one at a time, and nothing else is written.
+    ``tests/test_torch_gpu.py`` holds the kernel to this on the card, and
+    ``tests/test_torch_k1_accumulation.py`` the kernel's schedule."""
     ts, K = 32, 30
-    args, nt2 = boundary_inputs(case, ts=ts, K=K)
+    args, nt2 = run_inputs(*BOUNDARY_RUNS[case], ts=ts, K=K)
     slot, n, count = args[:3]
     runs, _ = BOUNDARY_RUNS[case]
     c0, c1 = runs[0], runs[0] + runs[1]
-    batches = sum(-(-int(k) // fused_gridder.BATCH) for k in count[c0:c1])
-    want_batches = fused_gridder.PROMOTE + case.startswith("33")
-    assert batches == want_batches
+    ksteps = sum(-(-int(k) // 8) for k in count[c0:c1])
+    assert ksteps == int(case.split()[0])
     ext2 = nt2 * 2 * ts
     shape = (2, 2, 1, ext2, ext2)
     kr, ki = (torch.full(shape, float("nan")) for _ in range(2))
