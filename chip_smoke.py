@@ -19,7 +19,10 @@ per slice, natural weights), then:
 - prints what ``ptxas -v`` reported for K1, K3, K4, K5 (its instance for
   the production K), K6, K7 and K8 (registers, spills, stack frame,
   shared memory), and K1's accumulation schedule with its instances'
-  registers (``k1_accumulation``);
+  registers (one ``ptxas`` count shared by the CTA's producer and
+  consumer threads) and, at the production slice, the items and batches
+  its workers report taking in a launch of their own (``K1 work``, also
+  on ``k1_accumulation``);
 - checks every kernel against its plain PyTorch version at the shapes of
   the main paths (channel 0, slice 0; K8 at (1, 4096, 4096)) and times
   both, and the column DFTs (K3, K4, K6, K7, K8) also against
@@ -92,7 +95,9 @@ per slice, natural weights), then:
   128 full chunks, within 1e-6 of the peak of a float64 run of its plain
   version; K1's production time, and on 128-chunk runs, in turns against
   the parent's kernel where an uncommitted copy of it lies at
-  :data:`PARENT_K1_SOURCE`;
+  :data:`PARENT_K1_SOURCE` (``tiles`` times every case against it too,
+  and ``k1_parent_bitwise`` holds K1 bitwise equal to it at the
+  production slice, the long runs and every ``tiles`` case);
 - ``cube_double``: ``pipeline --cube --precision double`` on channel 0 at
   4096 px, K 60, 2 majors against its float32 run (the dirty image within
   1e-4 of the dirty peak inside the field, the same components);
@@ -308,12 +313,13 @@ def main() -> None:
     rows = []
 
     def record(name, source, replaces, err, tol, ms, plain_ms, bnd,
-               library_ms=None, library=None, extra=None, extra_ok=True):
+               library_ms=None, library=None, extra=None, extra_ok=True,
+               detail=None):
         ok = err <= tol and extra_ok
         emit({"phase": "kernel", "name": name, "max_abs_err": err,
               "tolerance": tol, "ms": ms, "plain_ms": plain_ms,
               "library_ms": library_ms, "library": library, **bnd,
-              **(extra or {}), "card": card, "ok": ok})
+              **(extra or {}), **(detail or {}), "card": card, "ok": ok})
         if not ok:
             raise AssertionError(f"{name}: error {err} > tolerance {tol} "
                                  f"or {extra}")
@@ -333,9 +339,13 @@ def main() -> None:
     k1_bound = bound(
         2 * n * 4 + n_valid * (4 * 4 + 2 * P * 4) + table.numel() * 8
         + window_bytes, tf32=3 * 8.0 * K * K * P * n_valid)
+    k1_args = (slot, n, count, iu, iv, su, sv, sre, sim, table)
+    work = k1_work(k1_args, kr.shape, ts, runs)
     emit({"phase": "kernel_detail", "name": "K1 work", "chunks": n,
           "slots": n * Mc, "valid_slots": n_valid,
-          "valid_share": n_valid / (n * Mc), "runs": runs})
+          "valid_share": n_valid / (n * Mc), "runs": runs, **work})
+    if not work["ok"]:
+        raise AssertionError(f"K1's workers took other work: {work}")
     ms, plain_ms = timed_pair(k1_plain, k1_kernel)
     written = occ.repeat_interleave(2 * ts, -2).repeat_interleave(
         2 * ts, -1)[:, :, None]                     # (2, 2, 1, ext2, ext2)
@@ -343,7 +353,6 @@ def main() -> None:
                 pi.abs().where(written, 0.0).max().item())
     err = max((kr - pr).abs().where(written, 0.0).max().item(),
               (ki - pi).abs().where(written, 0.0).max().item())
-    k1_args = (slot, n, count, iu, iv, su, sv, sre, sim, table)
     vs64 = k1_vs_float64(k1_args, ts, written, kernel=(kr, ki),
                          plain=(pr, pi))
     record("K1 fused gridder", "katsdpimager_tpu_torch/csrc/gridder.cu",
@@ -351,12 +360,16 @@ def main() -> None:
            ms, plain_ms, k1_bound,
            extra={"err_vs_float64_over_peak": vs64,
                   "float64_tolerance": K1_FLOAT64_TOL},
-           extra_ok=vs64["kernel"] <= K1_FLOAT64_TOL)
+           extra_ok=vs64["kernel"] <= K1_FLOAT64_TOL,
+           detail={"work_items": work["work_items"],
+                   "registers_every_thread":
+                       k1_ptxas(_build, ts)["registers"]})
     redesign_line("K1", ms)
     emit({"phase": "kernel_detail", "name": "K1 runs",
           **run_lengths(slot, n, count)})
-    k1_accumulation_line(_build, fused_gridder)
+    k1_accumulation_line(_build, fused_gridder, work)
     parent = parent_k1(parent_build)
+    k1_bitwise("production", parent, k1_args, kr.shape, ts)
     k1_long_runs_phase(dev, card, (k1_args, kr, ki, ts), parent)
 
     out = {}
@@ -612,7 +625,7 @@ def main() -> None:
     probe_phase(dev, rows)
     dataset, runs = imager_phase(dev, card, rows)
     pipeline_phase(dev, card, rows)
-    tiles_phase(dev, card)
+    tiles_phase(dev, card, parent)
     tiles_runs_phase(dev, card, dataset, IMAGER_VIS_BLOCK)
     exact_phase(dev, card, dataset, IMAGER_VIS_BLOCK)
     double_phase(dev, card, dataset, IMAGER_VIS_BLOCK, runs[1])
@@ -1748,14 +1761,16 @@ def k1_inputs(dev, seed, *, ts, K, pixels, P=1, max_runs=600, Mc=256,
     return t, nt2
 
 
-def tiles_phase(dev, card) -> None:
+def tiles_phase(dev, card, parent) -> None:
     """K1 and K2 at every tile size of :data:`TILE_CASES` against their
     plain versions on direct inputs at 2048 px: K1 within 2e-5 of the
     largest written value, K2 bitwise; times in turns, with the bound
     computed as the kernel table's K1 and K2 rows compute it.  K1, here
     and at ts 32 and 64, within :data:`K1_FLOAT64_TOL` of the peak of a
     float64 run of its plain version (the plain version's own float32
-    error printed beside it)."""
+    error printed beside it).  Where the parent's K1 was built
+    (``parent``), K1's time in turns against it and the two bitwise
+    equal; then the ``k1_parent_bitwise`` line."""
     from katsdpimager_tpu_torch.ops import fused_gridder
 
     N, P = 2048, 1
@@ -1799,6 +1814,7 @@ def tiles_phase(dev, card) -> None:
         k2_bound = bound(k2_read + occ.numel() + 2 * P * N * N * 4)
         ok = (k1_err <= 2e-5 * scale and scale > 0 and k2_same
               and vs64["kernel"] <= K1_FLOAT64_TOL)
+        k1_bitwise(f"tiles ts {ts} K {K}", parent, args, shape, ts)
         emit({"phase": "tiles", "card": card, "ts": ts, "K": K,
               "pixels": N, "chunks": n, "valid_slots": n_valid,
               "runs": runs,
@@ -1806,7 +1822,8 @@ def tiles_phase(dev, card) -> None:
                      "share": k1_bound["bound_ms"] / k1_ms,
                      "max_abs_err": k1_err, "tolerance": 2e-5 * scale,
                      "err_vs_float64_over_peak": vs64,
-                     "float64_tolerance": K1_FLOAT64_TOL},
+                     "float64_tolerance": K1_FLOAT64_TOL,
+                     **k1_turns(parent, args, kr, ki, ts)},
               "k2": {"ms": k2_ms, "plain_ms": k2_plain_ms, **k2_bound,
                      "share": k2_bound["bound_ms"] / k2_ms,
                      "bitwise_equal": k2_same},
@@ -1814,6 +1831,7 @@ def tiles_phase(dev, card) -> None:
         if not ok:
             raise AssertionError(f"tiles: K1/K2 at ts {ts}, K {K} failed")
         del kr, ki, pr, pi, out
+    k1_parent_bitwise_line(parent)
 
 
 #: An uncommitted copy of the parent's ``csrc/gridder.cu``, built and
@@ -1914,6 +1932,8 @@ def k1_long_runs_phase(dev, card, production, parent) -> None:
                 2 * ts, -1)[:, :, None]
             vs64 = k1_vs_float64(args, ts, written, kernel=(kr, ki),
                                  plain=(pr, pi))
+            k1_bitwise(f"long runs ts {ts} x {run_chunks}", parent, args,
+                       shape, ts)
             line = {"phase": "k1_long_runs", "card": card, "ts": ts, "K": K,
                     "pixels": N, "chunks_per_run": run_chunks, "chunks": n,
                     **run_lengths(slot, n, count),
@@ -1981,22 +2001,33 @@ def k1_vs_float64(args, ts: int, written, **planes) -> dict:
             for name, (a, b) in planes.items()}
 
 
-def k1_accumulation_line(_build, fused_gridder) -> None:
-    """K1's accumulation schedule and the registers and spills of each of
-    its instances (``ptxas -v``)."""
+def k1_accumulation_line(_build, fused_gridder, work) -> None:
+    """K1's accumulation schedule, its work at the production slice as
+    its workers reported it (``work``, :func:`k1_work`) and each
+    instance's registers, spills and static shared memory (``ptxas -v``:
+    one register count for all the CTA's threads, producer and consumers
+    alike, as the kernel sets no ``setmaxnreg``)."""
+    instances = []
+    for ts in (64, 50, 32, 16):      # (BN, kPad) = (128, 0), (128, 1),
+        inst = k1_instance(ts)       # (64, 0), (64, 1)
+        row = k1_ptxas(_build, ts)
+        instances.append({"bn": inst["bn"], "pad": inst["pad"],
+                          "lanes": inst["lanes"],
+                          "registers_every_thread": row["registers"],
+                          **{k: row[k] for k in ("spill_stores",
+                                                 "spill_loads",
+                                                 "stack_bytes",
+                                                 "static_smem_bytes")}})
     emit({"phase": "k1_accumulation",
           "schedule": "3xTF32 wgmma m64n64k8 into one accumulator set (re, "
-                      "im) a warpgroup, afresh every batch (PROMOTE_STEPS "
-                      "k-steps of 8), then IEEE adds into a segment's FP32 "
-                      "totals and every SEGMENT batches into the run's, in "
-                      "registers; stored once a run",
+                      "im) a consumer warpgroup, afresh every batch "
+                      "(PROMOTE_STEPS k-steps of 8), then IEEE adds into a "
+                      "segment's FP32 totals in registers and every SEGMENT "
+                      "batches, and at the run's end, into the run's totals "
+                      "in its block of the planes",
           "promote_steps": fused_gridder.PROMOTE_STEPS,
           "batch": fused_gridder.BATCH, "segment": fused_gridder.SEGMENT,
-          "accumulator_sets": 1,
-          "instances": [
-              {k: v for k, v in r.items() if k != "source"}
-              for r in _build.ptxas_report()
-              if "18grid_planes_kernelI" in r["function"]]})
+          "accumulator_sets": 1, "work": work, "instances": instances})
 
 
 def k1_turns(parent, args, kr, ki, ts) -> dict:
@@ -2017,6 +2048,100 @@ def k1_turns(parent, args, kr, ki, ts) -> dict:
                                reps=20)
     return {"k1_ms": ms, "parent_k1_ms": parent_ms,
             "change_over_parent": ms / parent_ms}
+
+
+#: Whether K1 and the parent's copy gave bitwise equal planes, by case
+#: (``k1_bitwise``), for the ``k1_parent_bitwise`` line.
+K1_BITWISE = {}
+
+
+def k1_bitwise(case, parent, args, shape, ts) -> None:
+    """Grid ``args`` with K1 and with the parent's copy into planes that
+    start as NaN and note whether every bit agrees (nothing without the
+    copy)."""
+    from katsdpimager_tpu_torch.ops import fused_gridder
+
+    if parent is None:
+        return
+    dev = args[0].device
+    kr, ki, pr, pi = (torch.full(shape, float("nan"), device=dev)
+                      for _ in range(4))
+    fused_gridder.grid_planes(*args, kr, ki, ts=ts)
+    parent(*args, pr, pi, ts)
+    K1_BITWISE[case] = all(torch.equal(a.view(torch.int32),
+                                       b.view(torch.int32))
+                           for a, b in ((kr, pr), (ki, pi)))
+
+
+def k1_parent_bitwise_line(parent) -> None:
+    """The ``k1_parent_bitwise`` line: K1 bitwise equal to the parent's
+    copy at the production slice, the long runs and every ``tiles`` case
+    (the same IEEE adds in the same order: the run's totals moved from
+    registers into the planes); fails where a case differs."""
+    if parent is None:
+        emit({"phase": "k1_parent_bitwise",
+              "parent": "no copy at " + PARENT_K1_SOURCE})
+        return
+    same = all(K1_BITWISE.values())
+    emit({"phase": "k1_parent_bitwise", "cases": K1_BITWISE,
+          "bitwise_equal": same, "ok": same})
+    if not same:
+        raise AssertionError("K1 is not bitwise equal to the parent's "
+                             "copy: " + str(K1_BITWISE))
+
+
+def k1_ptxas(_build, ts) -> dict:
+    """``ptxas -v``'s report of K1's instance at tile size ``ts``."""
+    inst = k1_instance(ts)
+    name = "18grid_planes_kernelILi%dELb%dE" % (inst["bn"], inst["pad"])
+    return next(r for r in _build.ptxas_report() if name in r["function"])
+
+
+def k1_instance(ts) -> dict:
+    """K1's instance at tile size ``ts``, as ``ktt_grid_planes`` picks it:
+    the window padded to ``wp`` (``pad``: past 2 ts), cut into ``tiles``
+    of 64 rows by ``bn`` columns, and the ``lanes`` (workers) of a CTA
+    (:func:`k1_work` holds this to what the kernel reports)."""
+    wp = 64 * -(-2 * ts // 64)
+    bn = 128 if wp % 128 == 0 else 64
+    return {"wp": wp, "bn": bn, "pad": wp > 2 * ts,
+            "lanes": 1 if bn == 128 else 2,
+            "tiles": (wp // 64) * (wp // bn)}
+
+
+def k1_work(args, shape, ts, runs) -> dict:
+    """K1's work at ``args``, as its workers report it in a launch of its
+    own (``grid_planes(..., stats=...)``): the items (pass, anchor run)
+    and batches of 16 valid slots each worker took.  ``ok`` where the
+    workers are the instance's lanes of one CTA an SM, and took every
+    pass (polarization, tile) of each of the ``runs`` runs once with its
+    batches."""
+    from katsdpimager_tpu_torch.ops import fused_gridder
+
+    dev = args[0].device
+    n, count, P = args[1], args[2], args[7].shape[1]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    stats = torch.full((2 * sms, 2), -1, dtype=torch.int32, device=dev)
+    kr, ki = (torch.empty(shape, device=dev) for _ in range(2))
+    fused_gridder.grid_planes(*args, kr, ki, ts=ts, stats=stats)
+    inst = k1_instance(ts)
+    workers = inst["lanes"] * sms
+    got = stats.cpu()
+    items, batches = got[:workers, 0], got[:workers, 1]
+    passes = P * inst["tiles"]
+    b = fused_gridder.BATCH
+    want_batches = passes * int(((count[:n] + b - 1) // b).sum())
+    ok = (int(items.sum()) == passes * runs
+          and int(batches.sum()) == want_batches
+          and bool((items >= 0).all()) and bool((got[workers:] == -1).all()))
+    return {"work_items": int(items.sum()), "work_items_expected":
+            passes * runs, "batches": int(batches.sum()),
+            "batches_expected": want_batches, "ctas": sms,
+            "workers": workers, "lanes": inst["lanes"],
+            "tiles_per_run": inst["tiles"],
+            "heaviest_worker_batches": int(batches.max()),
+            "mean_worker_batches": float(batches.double().mean()),
+            "heaviest_worker_items": int(items.max()), "ok": ok}
 
 
 #: ``--w-step`` of the K = 96 runs: with K = 96 a W slice spans more W,

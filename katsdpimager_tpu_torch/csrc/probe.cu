@@ -88,14 +88,6 @@ __device__ __forceinline__ unsigned char* align_smem(unsigned char* p) {
   return p + ((kAlign - (a & (kAlign - 1))) & (kAlign - 1));
 }
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
 // This thread's arrival, announcing `bytes` of TMA transfers to come.
 __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
                                                uint32_t bytes) {
@@ -104,23 +96,6 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
           smem_u32(bar)),
       "r"(bytes)
       : "memory");
-}
-
-// Waits for the phase `parity` of `bar` to complete; traps (a launch
-// error, not a hang) if it has not after ~2^32 cycles, about 2 s.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const long long start = clock64();
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-    if (!done && clock64() - start > (1LL << 32)) __trap();
-  } while (!done);
 }
 
 // A 2-D box of `map` at (c0 columns, c1 rows) into shared memory at dst,

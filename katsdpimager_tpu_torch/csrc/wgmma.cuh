@@ -2,8 +2,10 @@
 // and the numerics probes (csrc/probe.cu): the TF32 rounding that both
 // split their f32 operands with, the shared-memory matrix descriptor, the
 // TF32 wgmma.mma_async products and the fences around their asynchronous
-// window, and the 3xTF32 accumulation schedule that K1 and probe C share
-// (wgmma_tf32x3, promote, kPromoteSteps, kSegment).
+// window, the 3xTF32 accumulation schedule that K1 and probe C share
+// (wgmma_tf32x3, promote, kPromoteSteps, kSegment), and the barriers of
+// K1's producer/consumer ring (mbarrier full/empty pairs, named
+// barriers).
 
 #pragma once
 
@@ -23,6 +25,14 @@ __device__ __forceinline__ uint32_t tf32_rna(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
   return r;
+}
+
+// tf32_rna(x) for finite x, as a float, on the integer pipe: half a TF32
+// ulp added to the magnitude's bits, the 13 bits below it dropped (the
+// rounding fused_gridder.tf32_rna emulates).  Cheaper than the
+// conversion in a loop that does little else (K1's producer).
+__device__ __forceinline__ float tf32_round(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & ~0x1FFFu);
 }
 
 // wgmma.mma_async m64n64k8, TF32 inputs, FP32 accumulation, d += a b
@@ -83,6 +93,7 @@ __device__ __forceinline__ void wgmma_tf32x3(float (&d)[32], uint64_t a_hi,
   wgmma_tf32<kScaleB>(d, a_hi, b_hi);
 }
 
+
 // total += part by IEEE adds on the CUDA cores, part then zeroed with
 // kClear; after the wgmmas that wrote an accumulator part have completed
 // (wgmma_wait_all, fence_operands).
@@ -133,6 +144,57 @@ __device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo,
          (static_cast<uint64_t>(lbo >> 4) << 16) |
          (static_cast<uint64_t>(sbo >> 4) << 32) |
          (static_cast<uint64_t>(layout) << 62);
+}
+
+// An mbarrier in shared memory that completes a phase when `count`
+// threads have arrived (or, with mbar_expect_tx, transfers landed).
+// Initialised by one thread, before a CTA barrier; the fence makes the
+// initialisation visible to the other threads and the async proxy.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// This thread's arrival (release: its earlier shared-memory writes are
+// visible to a thread whose wait sees the phase complete).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n.reg .b64 state;\n"
+      "mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(
+          smem_u32(bar))
+      : "memory");
+}
+
+// Waits for the phase `parity` of `bar` to complete (acquire); traps (a
+// launch error, not a hang) if it has not after ~2^32 cycles, about 2 s.
+// A barrier's phase before its first reads as complete with parity 1, so
+// a producer's first wait on an empty ring slot passes at once.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const long long start = clock64();
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (!done && clock64() - start > (1LL << 32)) __trap();
+  } while (!done);
+}
+
+// Named barrier `id` (1-15; 0 is __syncthreads) over `count` threads, a
+// multiple of 32: bar_sync waits for the others, bar_arrive only counts.
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 }  // namespace hopper

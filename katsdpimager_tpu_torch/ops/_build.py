@@ -51,7 +51,7 @@ _I = ctypes.c_int
 #: C entry points and their argument types (pointers and the stream are
 #: ``c_void_p``, so 64-bit addresses are never cut to 32 bits).
 SIGNATURES = {
-    # slot, n, count, iu, iv, su, sv, sre, sim, tab, tabs, accr, acci,
+    # slot, n, count, iu, iv, su, sv, sre, sim, tab, accr, acci, stats,
     # NC, Mc, P, K, ts, nt2, stream
     "ktt_grid_planes": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _I, _P],

@@ -121,7 +121,7 @@ def grid_planes_plain(slot, n: int, count, iu, iv, su, sv, sre, sim, table,
 
 
 def grid_planes(slot, n: int, count, iu, iv, su, sv, sre, sim, table, accr,
-                acci, *, ts: int) -> None:
+                acci, *, ts: int, stats=None) -> None:
     """K1: grid the first ``count[c]`` slots of each of the first ``n``
     chunks into the colour planes, in place.
 
@@ -131,7 +131,10 @@ def grid_planes(slot, n: int, count, iu, iv, su, sv, sre, sim, table, accr,
     (2, 2, P, ext2, ext2) f32 with ``ext2 = nt2 * 2 ts``.  Writes each
     occupied slot's block once; leaves every other block untouched.
     Index ranges (``iu/iv < W*O``, slots inside the planes) are the
-    planner's invariants; the kernel does not check them.
+    planner's invariants; the kernel does not check them.  ``stats``, a
+    diagnostic of the kernel alone: None, or an int32 tensor of (2 x the
+    card's SMs, 2) into which each worker of the schedule (lane l of CTA
+    b is worker l x SMs + b) writes the items and the batches it took.
 
     CPU tensors run :func:`grid_planes_plain`; CUDA tensors launch
     ``ktt_grid_planes`` (``csrc/gridder.cu``) or raise.
@@ -139,20 +142,26 @@ def grid_planes(slot, n: int, count, iu, iv, su, sv, sre, sim, table, accr,
     Replaces ``katsdpimager_tpu/ops/pallas_gridder.py:_make_kernel``.
     Bound by the band products (a dense 2ts x 2ts window per valid
     visibility).  The window, padded to a multiple of 64, is cut into
-    blocks of 64 rows by 128 or 64 columns; one CTA per anchor run and
-    block loops over the valid slots only, :data:`BATCH` at a time, and
-    forms its block on the tensor cores in 3xTF32 (``wgmma`` m64n64k8,
-    each operand split into TF32 hi and lo).  The tensor cores' truncating
-    sums take one batch (:data:`PROMOTE_STEPS` k-steps of 8) and are then
-    promoted by IEEE adds into FP32 totals in registers, a segment's and,
-    every :data:`SEGMENT` batches, the run's, so the planes keep FP32
-    accuracy (2.7-4.3e-7 of the peak from a float64 run on an H100, the
-    JAX gridder's class); the totals are written once, with no atomics
-    (details in the CUDA source).  Takes
-    every ``ts`` up to :data:`MAX_TILE` with ``K <= ts + 1``; chunks hold
-    at most :data:`MAX_CHUNK` slots.
+    tiles of 64 rows by 128 or 64 columns; each tile of each anchor run is
+    a work item, and a persistent CTA per SM takes a contiguous share of
+    the items by weight: a producer warpgroup stages the valid slots,
+    :data:`BATCH` at a time, into a ring of shared-memory stages, and
+    two consumer warpgroups form each 64 x 64 sub-block on
+    the tensor cores in 3xTF32 (``wgmma`` m64n64k8, each operand split
+    into TF32 hi and lo).  The tensor cores' truncating sums take one
+    batch (:data:`PROMOTE_STEPS` k-steps of 8) and are then promoted by
+    IEEE adds into a segment's FP32 totals in registers and those, every
+    :data:`SEGMENT` batches and at the run's end, into the run's totals
+    in its block of the plane, so the planes keep FP32 accuracy (2.7-4.3e-7
+    of the peak from a float64 run on an H100, the JAX gridder's class);
+    one owner per value, no atomics, so the planes do not depend on the
+    schedule (details in the CUDA source).  Takes every ``ts`` up to
+    :data:`MAX_TILE` with ``K <= ts + 1``; chunks hold at most
+    :data:`MAX_CHUNK` slots.
     """
     if accr.device.type == "cpu":
+        if stats is not None:
+            raise NotImplementedError("stats come from the CUDA kernel only")
         grid_planes_plain(slot, n, count, iu, iv, su, sv, sre, sim, table,
                           accr, acci, ts=ts)
         return
@@ -180,15 +189,18 @@ def grid_planes(slot, n: int, count, iu, iv, su, sv, sre, sim, table, accr,
     _build.expect(acci, "acci", torch.float32, (2, 2, P, ext2, ext2), dev)
     if not 0 <= n <= NC:
         raise ValueError(f"n = {n} outside [0, {NC}]")
+    if stats is not None:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        _build.expect(stats, "stats", torch.int32, (2 * sms, 2), dev)
     if n == 0:
         return
-    tabs = split_table(table)
     lib = _build.load()
     err = lib.ktt_grid_planes(
         slot.data_ptr(), n, count.data_ptr(), iu.data_ptr(), iv.data_ptr(),
         su.data_ptr(), sv.data_ptr(), sre.data_ptr(), sim.data_ptr(),
-        table.data_ptr(), tabs.data_ptr(), accr.data_ptr(), acci.data_ptr(),
-        NC, Mc, P, K, ts, nt2, _build.stream_of(accr))
+        table.data_ptr(), accr.data_ptr(), acci.data_ptr(),
+        None if stats is None else stats.data_ptr(), NC, Mc, P, K, ts, nt2,
+        _build.stream_of(accr))
     _build.check(err, "ktt_grid_planes")
     grid_planes.launches += 1
 
@@ -375,9 +387,10 @@ def tf32_rna(x):
 
 
 def split_table(table):
-    """K1's B operand rows, split for 3xTF32 once per call: the (W*O, K)
-    complex64 table as (W*O, K, 4) f32 ``[re hi, re lo, im hi, im lo]``,
-    ``hi = tf32_rna(x)``, ``lo = tf32_rna(x - hi)``."""
+    """K1's split of its B operand's values for 3xTF32 (its producer
+    splits each table value it stages), the whole table at once: the (W*O,
+    K) complex64 table as (W*O, K, 4) f32 ``[re hi, re lo, im hi, im
+    lo]``, ``hi = tf32_rna(x)``, ``lo = tf32_rna(x - hi)``."""
     parts = []
     for x in (table.real, table.imag):
         x = x.to(torch.float32)

@@ -12,6 +12,7 @@ import torch
 from katsdpimager_tpu_torch.ops import (clean, fused_degrid, fused_fft,
                                         fused_gridder, mxu_gridder)
 from katsdpimager_tpu_torch.parallel import cube, multichannel
+from test_torch_k1_schedule import k1_schedule
 
 pytestmark = pytest.mark.gpu
 
@@ -830,16 +831,16 @@ def test_k1_tiles_hold_float64(cuda, ts, K):
     assert plain <= 1e-6, plain
 
 
-def test_k1_production_slice_holds_float64(cuda):
-    """K1 at the production slice (``chip_smoke.py``'s step: 4096 px,
-    K = 60, ts 64, channel 0, slice 0 of 2^19 visibilities): within 1e-6
-    of the peak of a float64 run of its plain version."""
+def _production_slice(dev):
+    """K1's arguments at the production slice (``chip_smoke.py``'s step:
+    4096 px, K = 60, ts 64, channel 0, slice 0 of 2^19 visibilities),
+    its tile size and nt2."""
     cfg = multichannel.MultiChannelConfig(
         pixels=4096, num_pols=1, kernel_width=60, oversample=8,
         w_planes=32, w_slices=4, chunks_per_slice=8192, chunk_size=256,
         rv=64, ru=64, minor_cycles=0, weight_type="natural")
     batch = multichannel.make_example_batch(cfg, 1, vis_per_slice=1 << 19,
-                                            device=cuda)
+                                            device=dev)
     N, ts, K = cfg.pixels, cfg.rv, cfg.kernel_width
     nt2 = mxu_gridder.colour_tiles(N, ts)
     n = int(batch.n_chunks[0, 0])
@@ -854,9 +855,129 @@ def test_k1_production_slice_holds_float64(cuda):
     args = (fused_gridder.chunk_slots(anc, n, ts=ts, nt2=nt2), n,
             fused_gridder.valid_counts(val), iu, iv, su, sv, sre, sim,
             fused_gridder.conj_table(kern))
-    del batch
+    return args, ts, nt2
+
+
+def test_k1_production_slice_holds_float64(cuda):
+    """K1 at the production slice (``chip_smoke.py``'s step: 4096 px,
+    K = 60, ts 64, channel 0, slice 0 of 2^19 visibilities): within 1e-6
+    of the peak of a float64 run of its plain version."""
+    args, ts, nt2 = _production_slice(cuda)
     err, _ = _k1_err_vs_float64(cuda, args, ts, nt2)
     assert err <= 1e-6, err
+
+
+def _bits(t):
+    return t.view(torch.int32)
+
+
+def test_k1_two_launches_are_bitwise_equal(cuda):
+    """Two launches of K1 at the production slice, into planes that start
+    as NaN, give bitwise equal planes: each value has one owner and no
+    sum depends on the order in which the CTAs take their work."""
+    args, ts, nt2 = _production_slice(cuda)
+    shape = (2, 2, 1, nt2 * 2 * ts, nt2 * 2 * ts)
+    planes = [[torch.full(shape, float("nan"), device=cuda)
+               for _ in range(2)] for _ in range(2)]
+    for kr, ki in planes:
+        fused_gridder.grid_planes(*args, kr, ki, ts=ts)
+    torch.cuda.synchronize()
+    (ar, ai), (br, bi) = planes
+    assert torch.equal(_bits(ar), _bits(br))
+    assert torch.equal(_bits(ai), _bits(bi))
+    assert int((~torch.isnan(ar)).sum()) > 0
+
+
+def _adversarial_inputs(dev, ts, K, seed=3, spare=40):
+    """One anchor run of 128 full chunks among 500 runs of one chunk with
+    0-256 valid slots; ``spare`` chunks past n that name the long run's
+    slot with full counts (K1 must not grid them); nt2 at 2048 px."""
+    rng = np.random.default_rng(seed)
+    nt2 = mxu_gridder.colour_tiles(2048, ts)
+    runs = [1] * 200 + [128] + [1] * 300
+    n = sum(runs)
+    NC = n + spare
+    slots = rng.choice(4 * nt2 * nt2, size=len(runs), replace=False)
+    slot = np.full(NC, slots[200], np.int32)
+    slot[:n] = np.repeat(slots, runs)
+    count = np.full(NC, 256, np.int32)
+    count[:n] = np.concatenate([rng.integers(0, 257, size=200),
+                                np.full(128, 256),
+                                rng.integers(0, 257, size=300)])
+    Mc, WO = 256, 64
+    iu, iv = (rng.integers(0, WO, size=(NC, Mc)).astype(np.int32)
+              for _ in range(2))
+    su, sv = (rng.integers(0, ts, size=(NC, Mc)).astype(np.int32)
+              for _ in range(2))
+    live = np.arange(Mc)[None, None, :] < count[:, None, None]
+    sre, sim = (np.where(live, rng.normal(size=(NC, 1, Mc)), 0.0).astype(
+        np.float32) for _ in range(2))
+    table = (rng.normal(size=(WO, K))
+             + 1j * rng.normal(size=(WO, K))).astype(np.complex64)
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in
+         (slot, count, iu, iv, su, sv, sre, sim, table)]
+    return (t[0], n, *t[1:]), nt2
+
+
+@pytest.mark.parametrize("ts,K", [(64, 60), (32, 30)])
+def test_k1_adversarial_run_lengths(cuda, ts, K):
+    """K1 on a plan whose run lengths are adversarial for its schedule
+    (one 128-chunk run, 2048 batches, among 500 one-chunk runs, and
+    chunks past n that would add to the long run): the blocks its plain
+    version writes and no others (planes start as NaN), within 2e-5 of
+    the largest written value and within 1e-6 of the peak of a float64
+    run; a second launch bitwise equal."""
+    args, nt2 = _adversarial_inputs(cuda, ts, K)
+    shape = (2, 2, 1, nt2 * 2 * ts, nt2 * 2 * ts)
+    kr, ki, pr, pi, kr2, ki2 = (torch.full(shape, float("nan"), device=cuda)
+                                for _ in range(6))
+    fused_gridder.grid_planes(*args, kr, ki, ts=ts)
+    fused_gridder.grid_planes(*args, kr2, ki2, ts=ts)
+    fused_gridder.grid_planes_plain(*args, pr, pi, ts=ts)
+    torch.cuda.synchronize()
+    written = ~torch.isnan(pr)
+    assert torch.equal(written, ~torch.isnan(kr))
+    assert torch.equal(written, ~torch.isnan(ki))
+    scale = max(pr[written].abs().max().item(), pi[written].abs().max().item())
+    for k, p in ((kr, pr), (ki, pi)):
+        assert (k[written] - p[written]).abs().max().item() <= 2e-5 * scale
+    assert torch.equal(_bits(kr), _bits(kr2))
+    assert torch.equal(_bits(ki), _bits(ki2))
+    err, _ = _k1_err_vs_float64(cuda, args, ts, nt2)
+    assert err <= 1e-6, err
+
+
+@pytest.mark.parametrize("case", ["production", "adversarial ts 64",
+                                  "adversarial ts 32"])
+def test_k1_work_matches_the_schedule_model(cuda, case):
+    """Each worker of K1 (lane l of CTA b, worker l x SMs + b) reports
+    the items and batches that the schedule's plain model
+    (``tests/test_torch_k1_schedule.py``) deals it, at the production
+    slice and on the adversarial run lengths; workers the instance does
+    not have report nothing; and the planes of the launch that reports
+    are bitwise those of one that does not."""
+    if case == "production":
+        args, ts, nt2 = _production_slice(cuda)
+    else:
+        ts, K = {"adversarial ts 64": (64, 60),
+                 "adversarial ts 32": (32, 30)}[case]
+        args, nt2 = _adversarial_inputs(cuda, ts, K)
+    P = args[7].shape[1]
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    stats = torch.full((2 * sms, 2), -1, dtype=torch.int32, device=cuda)
+    shape = (2, 2, P, nt2 * 2 * ts, nt2 * 2 * ts)
+    kr, ki, kr2, ki2 = (torch.full(shape, float("nan"), device=cuda)
+                        for _ in range(4))
+    fused_gridder.grid_planes(*args, kr, ki, ts=ts, stats=stats)
+    fused_gridder.grid_planes(*args, kr2, ki2, ts=ts)
+    model = k1_schedule(args[0].cpu(), args[1], args[2].cpu(), P=P, ts=ts,
+                        ctas=sms)
+    want = [[len(items), sum(b for _, _, b in items)] for items in model]
+    want += [[-1, -1]] * (2 * sms - len(want))
+    assert stats.cpu().tolist() == want
+    assert sum(w[0] for w in want) > 0
+    assert torch.equal(_bits(kr), _bits(kr2))
+    assert torch.equal(_bits(ki), _bits(ki2))
 
 
 def _stretch_runs():

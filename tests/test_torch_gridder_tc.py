@@ -180,8 +180,9 @@ def test_tf32x3_band_holds_the_k1_gate(K):
 
 
 def test_split_table_is_the_kernels_split():
-    """The B operand's pre-split table: hi and lo in TF32 (13 low bits
-    clear), hi + lo within 2^-22 of each value, zeros kept."""
+    """The B operand's split, as K1's producer applies it to each table
+    value it stages: hi and lo in TF32 (13 low bits clear), hi + lo within
+    2^-22 of each value, zeros kept."""
     rng = torch.Generator().manual_seed(3)
     table = torch.complex(torch.randn((16, 60), generator=rng),
                           torch.randn((16, 60), generator=rng))

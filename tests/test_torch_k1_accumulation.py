@@ -182,19 +182,17 @@ def cuda_constant(name, path):
 SEGMENT = int(cuda_constant("kSegment", "wgmma.cuh"))
 
 
-def emulated_k1(args, nt2, *, ts, batch=fused_gridder.BATCH,
-                promote_every=1, interleaved=False):
-    """K1's planes under the model (float64 arrays of f32 values, blocks
-    no run writes zero), walking each run in batches of ``batch`` slots:
-    per k-step of 8, re takes the 3xTF32 terms (lo hi, hi lo, hi hi) of
-    Ar Br, then of -Ai Bi, and im those of Ar Bi, then of Ai Br
-    (``interleaved``: term by term, the two products alternating); the
-    accumulators start afresh every ``promote_every`` batches of a run,
-    whose sums go by IEEE adds into a segment's total, and that into the
-    run's every :data:`SEGMENT` stretches, or (``interleaved``: the
-    schedule before, batches of 8 promoted into the plane every 32) into
-    the run's at once; stored at the end of the run.  The defaults are
-    the kernel's schedule."""
+def run_sums(args, nt2, *, ts, batch=fused_gridder.BATCH, promote_every=1,
+             interleaved=False):
+    """The tensor cores' sums of each anchor run under the model, walking
+    it in batches of ``batch`` slots: per k-step of 8, re takes the 3xTF32
+    terms (lo hi, hi lo, hi hi) of Ar Br, then of -Ai Bi, and im those of
+    Ar Bi, then of Ai Br (``interleaved``: term by term, the two products
+    alternating); the accumulators start afresh every ``promote_every``
+    batches of the run.  Yields, for each run and polarization, ``(c0, p,
+    colour, tv2, tu2, sums)``: the run's first chunk, its block, and the
+    accumulators (2, 2ts, 2ts) each time they are promoted (float64
+    arrays of f32 values)."""
     slot, n, count, iu, iv, su, sv, sre, sim, table = args
     W2 = 2 * ts
     K = table.shape[1]
@@ -203,8 +201,6 @@ def emulated_k1(args, nt2, *, ts, batch=fused_gridder.BATCH,
     tabs = fused_gridder.split_table(table).numpy().astype(np.float64)
     iu, iv, su, sv = (a.numpy() for a in (iu, iv, su, sv))
     sre, sim = sre.numpy(), sim.numpy()
-    shape = (2, 2, P, nt2 * W2, nt2 * W2)
-    planes = [np.zeros(shape), np.zeros(shape)]
     j = np.arange(W2)
     seqs = (((1, "r", "r"), (-1, "i", "i")),    # re
             ((1, "r", "i"), (1, "i", "r")))     # im
@@ -212,10 +208,8 @@ def emulated_k1(args, nt2, *, ts, batch=fused_gridder.BATCH,
         colour, rem = divmod(int(slot[c0]), nt2 * nt2)
         tv2, tu2 = divmod(rem, nt2)
         for p in range(P):
-            tot = np.zeros((2, W2, W2))
-            seg = np.zeros((2, W2, W2))
             acc = np.zeros((2, W2, W2))
-            stretches = 0
+            sums = []
             for b, (c, b0) in enumerate(batches):
                 if b % promote_every == 0:
                     acc[:] = 0
@@ -247,19 +241,145 @@ def emulated_k1(args, nt2, *, ts, batch=fused_gridder.BATCH,
                             acc[part] = tc_step(acc[part],
                                                 sign * outer(a, bb))
                 if (b + 1) % promote_every == 0 or b + 1 == len(batches):
-                    if interleaved:
-                        tot = f32(tot + acc)
-                        continue
-                    seg = f32(seg + acc)
+                    sums.append(acc.copy())
+            yield c0, p, colour, tv2, tu2, sums
+
+
+def emulated_k1(args, nt2, *, ts, batch=fused_gridder.BATCH,
+                promote_every=1, interleaved=False):
+    """K1's planes under the model (float64 arrays of f32 values, blocks
+    no run writes zero): each run's sums (:func:`run_sums`) go by IEEE
+    adds into a segment's total, and that into the run's every
+    :data:`SEGMENT` stretches and at the run's end, in registers, or
+    (``interleaved``: the schedule before, batches of 8 promoted into the
+    plane every 32) into the run's at once; stored at the end of the run.
+    The defaults are the kernel's sums with the run's totals kept in
+    registers, the schedule before the totals moved into the planes."""
+    P = args[7].shape[1]
+    W2 = 2 * ts
+    shape = (2, 2, P, nt2 * W2, nt2 * W2)
+    planes = [np.zeros(shape), np.zeros(shape)]
+    for c0, p, colour, tv2, tu2, sums in run_sums(
+            args, nt2, ts=ts, batch=batch, promote_every=promote_every,
+            interleaved=interleaved):
+        tot = np.zeros((2, W2, W2))
+        seg = np.zeros((2, W2, W2))
+        stretches = 0
+        for acc in sums:
+            if interleaved:
+                tot = f32(tot + acc)
+                continue
+            seg = f32(seg + acc)
+            stretches += 1
+            if stretches == SEGMENT:
+                tot = f32(tot + seg)
+                seg[:] = 0
+                stretches = 0
+        tot = f32(tot + seg)
+        for q in range(2):
+            plane = planes[q].reshape(2, 2, P, nt2, W2, nt2, W2)
+            plane[colour // 2, colour % 2, p, tv2, :, tu2, :] = tot[q]
+    return planes
+
+
+#: The flags the producer writes beside a staged batch (``csrc/gridder.cu``,
+#: ``StageInfo``): the item's first and last batch, an item with no batch.
+FIRST, LAST, EMPTY = 1, 2, 4
+
+
+def consumed_k1(args, nt2, *, ts, ctas, seed):
+    """K1's planes as its consumers build them (``consume`` and
+    ``add_totals`` in ``csrc/gridder.cu``), under the model, in float32
+    planes that start as NaN: the schedule's model deals the items
+    (pass, anchor run) to ``lanes * ctas`` workers (``k1_schedule``), each
+    item's batches arrive as the producer stages them (the first and last
+    flagged; an item with no batch one empty stage), and the workers run
+    interleaved in a random order (``seed``).  A consumer clears its
+    segment at an item's first stage, promotes each batch's sums (its
+    tile of :func:`run_sums`) into the segment, and adds the segment into
+    the run's totals in the plane every :data:`SEGMENT` batches and at the
+    item's last stage: the first add stores ``0 + segment``, later ones
+    load, add and store."""
+    from tests.test_torch_k1_schedule import k1_layout, k1_schedule
+
+    slot, n, count = args[:3]
+    P = args[7].shape[1]
+    W2 = 2 * ts
+    lay = k1_layout(ts)
+    nbc = lay["wp"] // lay["bn"]
+    sums = {(c0, p): (colour, tv2, tu2, s)
+            for c0, p, colour, tv2, tu2, s in run_sums(args, nt2, ts=ts)}
+    shape = (2, 2, P, nt2 * W2, nt2 * W2)
+    planes = [np.full(shape, np.nan, np.float32) for _ in range(2)]
+
+    def worker(items):
+        for q, c0, nb in items:
+            p, t = divmod(q, lay["tiles"])
+            r0, k0 = 64 * (t // nbc), lay["bn"] * (t % nbc)
+            rows = slice(r0, min(r0 + 64, W2))
+            cols = slice(k0, min(k0 + lay["bn"], W2))
+            colour, tv2, tu2, accs = sums[c0, p]
+            assert len(accs) == nb
+            blocks = [pl[colour // 2, colour % 2, p,
+                         tv2 * W2 + rows.start:tv2 * W2 + rows.stop,
+                         tu2 * W2 + cols.start:tu2 * W2 + cols.stop]
+                      for pl in planes]
+            stages = [(FIRST if i == 0 else 0) | (LAST if i == nb - 1 else 0)
+                      for i in range(nb)] or [FIRST | LAST | EMPTY]
+
+            def add_totals(seg, stored):
+                for q2 in range(2):
+                    base = blocks[q2].astype(np.float64) if stored else 0.0
+                    blocks[q2][:] = base + seg[q2]      # rounds to f32
+
+            for flags, acc in zip(stages, accs or [None]):
+                if flags & FIRST:
+                    seg = np.zeros((2,) + blocks[0].shape)
+                    stretches, stored = 0, False
+                if not flags & EMPTY:
+                    seg = f32(seg + acc[:, rows, cols])
                     stretches += 1
                     if stretches == SEGMENT:
-                        tot = f32(tot + seg)
+                        add_totals(seg, stored)
                         seg[:] = 0
-                        stretches = 0
-            tot = f32(tot + seg)
-            for q in range(2):
-                plane = planes[q].reshape(2, 2, P, nt2, W2, nt2, W2)
-                plane[colour // 2, colour % 2, p, tv2, :, tu2, :] = tot[q]
+                        stored, stretches = True, 0
+                if flags & LAST:
+                    add_totals(seg, stored)
+                yield
+
+    sched = k1_schedule(slot, n, count, P=P, ts=ts, ctas=ctas)
+    running = [worker(items) for items in sched]
+    rng = np.random.default_rng(seed)
+    while running:
+        w = running[rng.integers(len(running))]
+        if next(w, StopIteration) is StopIteration:
+            running.remove(w)
+    return planes
+
+
+def run_blocks(args, nt2, *, ts):
+    """Where the anchor runs' blocks lie in the planes (bool)."""
+    slot, n = args[:2]
+    P = args[7].shape[1]
+    W2 = 2 * ts
+    mask = np.zeros((2, 2, P, nt2, W2, nt2, W2), bool)
+    for c in range(n):
+        colour, rem = divmod(int(slot[c]), nt2 * nt2)
+        tv2, tu2 = divmod(rem, nt2)
+        mask[colour // 2, colour % 2, :, tv2, :, tu2, :] = True
+    return mask.reshape(2, 2, P, nt2 * W2, nt2 * W2)
+
+
+def assert_consumed_is_the_register_schedule(args, nt2, *, ts, ctas, seed):
+    """:func:`consumed_k1` writes each run's block and nothing else, each
+    value bitwise the register schedule's (:func:`emulated_k1`)."""
+    regs = emulated_k1(args, nt2, ts=ts)
+    planes = consumed_k1(args, nt2, ts=ts, ctas=ctas, seed=seed)
+    mask = run_blocks(args, nt2, ts=ts)
+    for a, b in zip(regs, planes):
+        assert np.array_equal(~np.isnan(b), mask)
+        assert np.array_equal(a[mask], b[mask].astype(np.float64))
+    assert np.abs(regs[0]).max() > 0
     return planes
 
 
@@ -340,6 +460,25 @@ def test_new_schedule_holds_float64(ts, K, ksteps):
                            ref) <= 1e-6
 
 
+#: Runs whose totals take one add and several: a run of 32 k-steps and of
+#: 128 (1 and 4 segments of SEGMENT batches of 16 visibilities).
+PLANE_CASES = [(32, 30, 32), (32, 30, 128), (64, 60, 32)]
+
+
+@pytest.mark.parametrize("ts,K,ksteps", PLANE_CASES)
+def test_plane_totals_match_the_register_totals(ts, K, ksteps):
+    """The run's totals in its block of the plane, as the consumers add
+    them (:func:`consumed_k1`: items dealt to 3 CTAs' workers by the
+    schedule's model, at ts 64 each run two tiles on two workers, the
+    workers interleaved at random), give planes bitwise equal to totals
+    kept in registers (the kernel's schedule before): every run's block
+    written, nothing else, by the same IEEE adds in the same order."""
+    args, nt2 = run_inputs(*full_runs(ksteps, nruns=3), ts=ts, K=K,
+                           seed=ksteps + 1)
+    assert_consumed_is_the_register_schedule(args, nt2, ts=ts, ctas=3,
+                                             seed=ksteps)
+
+
 def boundary_runs():
     """Runs at K1's promotion boundaries: the middle run of three holds
     ``PROMOTE_STEPS`` - 1, ``PROMOTE_STEPS`` and ``PROMOTE_STEPS`` + 1
@@ -364,6 +503,26 @@ def boundary_runs():
 
 
 BOUNDARY = boundary_runs()
+
+
+@pytest.mark.parametrize("case", ["64 in 2 chunks", "65 in 3 chunks"])
+def test_plane_totals_at_a_segment_boundary(case):
+    """A run of exactly one segment of batches (its last batch adds the
+    segment into the plane's totals and then the cleared segment once
+    more, as the register schedule did) and one batch more, beside a run
+    of two empty chunks (an item with no batch: its block holds zeros),
+    as the consumers build them: bitwise equal to the register
+    schedule."""
+    runs, counts = BOUNDARY[case]
+    args, nt2 = run_inputs(runs + [2], counts + [0, 0], ts=32, K=30,
+                           seed=len(counts))
+    planes = assert_consumed_is_the_register_schedule(
+        args, nt2, ts=32, ctas=2, seed=len(counts))
+    colour, rem = divmod(int(args[0][sum(runs)]), nt2 * nt2)  # the empty
+    tv2, tu2 = divmod(rem, nt2)
+    for plane in planes:
+        assert (plane[colour // 2, colour % 2, 0, 64 * tv2:64 * tv2 + 64,
+                      64 * tu2:64 * tu2 + 64] == 0).all()
 
 
 @pytest.mark.parametrize("case", list(BOUNDARY))
