@@ -1,0 +1,6 @@
+"""dirty.idle_share: the share of the traced stretch of dirty steps in
+which no kernel, copy or memset ran on the device (profiler trace), %."""
+
+
+def read(trace):
+    return trace.idle_share()
