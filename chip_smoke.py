@@ -2719,7 +2719,8 @@ def rank_worker(argv) -> None:
     backend ``initialize_distributed`` picks (gloo: the ranks outnumber
     the card), logs the mesh's join line and writes to
     ``OUT/rank<r>.json`` its backend, host layout, device, seconds,
-    all-reduce counts and seconds, and the launches of K1-K7 in the
+    all-reduce counts and seconds (its ``mesh.psum`` spans, taken by a
+    ``CollectProfiler``), and the launches of K1-K7 in the
     timed run (the
     counters set to 0 just before it); rank 0 of the step also the dirty
     images (``OUT/dirty.npy``).  The step's ranks then time 3 all-reduces
@@ -2730,7 +2731,7 @@ def rank_worker(argv) -> None:
 
     import numpy as np
 
-    from katsdpimager_tpu_torch import pipeline
+    from katsdpimager_tpu_torch import pipeline, profiling
     from katsdpimager_tpu_torch.parallel import mesh
     from katsdpimager_tpu_torch.parallel import multichannel as mc
 
@@ -2751,6 +2752,7 @@ def rank_worker(argv) -> None:
             "layout": mesh.local_layout()._asdict(),
             "device": str(mesh.default_device())}
     counters = kernel_counters()
+    prof = profiling.CollectProfiler()
 
     def zero_counts():
         torch.cuda.synchronize()
@@ -2761,8 +2763,9 @@ def rank_worker(argv) -> None:
         dataset, _ = sim_dataset(64, 1024, 2, noise_jy=1.0)
         zero_counts()
         t = time.perf_counter()
-        timings = pipeline.run(args, dataset, pipeline.PipelineWriter(
-            os.path.join(out, "images"), thumbnails=False))
+        with profiling.installed(prof):
+            timings = pipeline.run(args, dataset, pipeline.PipelineWriter(
+                os.path.join(out, "images"), thumbnails=False))
         torch.cuda.synchronize()
         line.update(seconds=time.perf_counter() - t, waves=timings)
         line["launches"] = dict(zip(KERNEL_NAMES,
@@ -2775,10 +2778,11 @@ def rank_worker(argv) -> None:
         step = mc.make_imaging_step(m, bench_config())
         step(local)
         torch.cuda.synchronize()
-        calls, seconds = mesh.psum.calls, mesh.psum.seconds
+        calls = mesh.psum.calls
         zero_counts()
         t = time.perf_counter()
-        dirty = step(local)[0]
+        with profiling.installed(prof):
+            dirty = step(local)[0]
         torch.cuda.synchronize()
         line.update(seconds=time.perf_counter() - t,
                     num_vis=int(local.valid.sum()))
@@ -2786,8 +2790,7 @@ def rank_worker(argv) -> None:
                                     [fn.launches for fn in counters]))
         if rank == 0:
             np.save(os.path.join(out, "dirty.npy"), dirty.cpu().numpy())
-        mesh.psum.calls, mesh.psum.seconds = (mesh.psum.calls - calls,
-                                              mesh.psum.seconds - seconds)
+        mesh.psum.calls -= calls
         N = bench_config().pixels
         pair = [torch.ones((1, N, N), device=m.device) for _ in range(2)]
         idle = []
@@ -2800,7 +2803,7 @@ def rank_worker(argv) -> None:
             torch.cuda.synchronize()
             idle.append(time.perf_counter() - t)
         line["idle_pair_all_reduce_s"] = idle
-    line.update(psum_calls=mesh.psum.calls, psum_s=mesh.psum.seconds)
+    line.update(psum_calls=mesh.psum.calls, psum_s=prof.seconds("mesh.psum"))
     with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
         json.dump(line, f)
     torch.distributed.destroy_process_group()

@@ -40,6 +40,7 @@ from .ops import beam as beam_ops
 from .ops import clean as clean_ops
 from .ops import fourier, gridder, mxu_gridder, predict
 from .ops import weights as weight_ops
+from .profiling import profile_function
 
 logger = logging.getLogger(__name__)
 
@@ -157,6 +158,7 @@ class Imaging:
         fp = int(uv[:: max(1, n // 64)].sum(dtype=np.int64)) if n else 0
         return (w_slice, block, n, fp)
 
+    @profile_function("imaging.slice_plan")
     def _slice_plan(self, chunk, w_slice: int, block: int = 0):
         """(device plan, occupied chunks) of one block, planned on the host
         and uploaded once."""

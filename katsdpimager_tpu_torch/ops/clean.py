@@ -30,6 +30,8 @@ import scipy.stats
 import torch
 import torch.nn.functional as F
 
+from ..profiling import profile
+
 #: Use only Stokes I to find peaks
 CLEAN_I = 0
 #: Use the sum of squares of available Stokes components
@@ -291,7 +293,9 @@ def minor_cycles(cfg: CleanConfig, state: CleanState, psf_patch_arr,
     for the major-gain threshold) and ``last_peak`` the metric that
     stopped the loop (or the last peak examined).  The state is updated
     in place.  Cycles run in batches of :data:`CYCLE_BATCH` with one host
-    read of the stop flag per batch."""
+    read of the stop flag per batch: each batch's enqueue is a
+    ``clean.batch`` span, each read (the host's wait for the device) a
+    ``clean.sync`` span."""
     dev = state.residual.device
     dtype = state.tile_max.dtype
     threshold = torch.as_tensor(threshold, dtype=dtype, device=dev)
@@ -301,11 +305,14 @@ def minor_cycles(cfg: CleanConfig, state: CleanState, psf_patch_arr,
     stop = torch.zeros(1, dtype=torch.bool, device=dev)
     done = 0
     while done < max_cycles:
-        for _ in range(min(CYCLE_BATCH, max_cycles - done)):
-            k, first_peak, last_peak, stop = _cycle(
-                cfg, state, psf_patch_arr, threshold, k, first_peak,
-                last_peak, stop)
+        with profile("clean.batch"):
+            for _ in range(min(CYCLE_BATCH, max_cycles - done)):
+                k, first_peak, last_peak, stop = _cycle(
+                    cfg, state, psf_patch_arr, threshold, k, first_peak,
+                    last_peak, stop)
         done += CYCLE_BATCH
-        if bool(stop):
+        with profile("clean.sync"):
+            stopped = bool(stop)
+        if stopped:
             break
     return state, k[0], first_peak[0], last_peak[0]

@@ -48,6 +48,7 @@ import math
 import numpy as np
 import torch
 
+from ..profiling import profile
 from . import _build
 
 #: Power-of-two sizes the CUDA kernels take.
@@ -118,21 +119,22 @@ def cb_col_fft(gr, gi):
     along k, so each warp writes 128 contiguous bytes of a transposed row
     (N = 256 and 512, without clusters, stage the rows in shared
     memory)."""
-    if gr.device.type == "cpu":
-        return cb_col_fft_plain(gr, gi)
-    P, n, _ = gr.shape
-    _check_kernel_size(n)
-    _build.expect(gr, "gr", torch.float32, (P, n, n), gr.device)
-    _build.expect(gi, "gi", torch.float32, (P, n, n), gr.device)
-    tw = twiddles_full(n, gr.device)
-    yr = torch.empty_like(gr)
-    yi = torch.empty_like(gr)
-    err = _build.load().ktt_cb_col_fft(
-        gr.data_ptr(), gi.data_ptr(), tw.data_ptr(), yr.data_ptr(),
-        yi.data_ptr(), P, n, _build.stream_of(gr))
-    _build.check(err, "ktt_cb_col_fft")
-    cb_col_fft.launches += 1
-    return yr, yi
+    with profile("k3.launch"):
+        if gr.device.type == "cpu":
+            return cb_col_fft_plain(gr, gi)
+        P, n, _ = gr.shape
+        _check_kernel_size(n)
+        _build.expect(gr, "gr", torch.float32, (P, n, n), gr.device)
+        _build.expect(gi, "gi", torch.float32, (P, n, n), gr.device)
+        tw = twiddles_full(n, gr.device)
+        yr = torch.empty_like(gr)
+        yi = torch.empty_like(gr)
+        err = _build.load().ktt_cb_col_fft(
+            gr.data_ptr(), gi.data_ptr(), tw.data_ptr(), yr.data_ptr(),
+            yi.data_ptr(), P, n, _build.stream_of(gr))
+        _build.check(err, "ktt_cb_col_fft")
+        cb_col_fft.launches += 1
+        return yr, yi
 
 
 cb_col_fft.launches = 0
@@ -179,22 +181,23 @@ def epi_col_fft(ar_t, ai_t, imageT, taper, scal):
     The tile core of :func:`col_fft`; each finished value takes the
     epilogue, computed in registers from its indices, and updates the
     image straight from the cluster's finish."""
-    if ar_t.device.type == "cpu":
-        return epi_col_fft_plain(ar_t, ai_t, imageT, taper, scal)
-    dev = ar_t.device
-    P, n, _ = ar_t.shape
-    _check_kernel_size(n)
-    for name, t in (("ar_t", ar_t), ("ai_t", ai_t), ("imageT", imageT)):
-        _build.expect(t, name, torch.float32, (P, n, n), dev)
-    _build.expect(taper, "taper", torch.float32, (n,), dev)
-    _build.expect(scal, "scal", torch.float32, (2,), dev)
-    tw = twiddles_full(n, dev)
-    err = _build.load().ktt_epi_col_fft(
-        ar_t.data_ptr(), ai_t.data_ptr(), tw.data_ptr(), taper.data_ptr(),
-        scal.data_ptr(), imageT.data_ptr(), P, n, _build.stream_of(ar_t))
-    _build.check(err, "ktt_epi_col_fft")
-    epi_col_fft.launches += 1
-    return imageT
+    with profile("k4.launch"):
+        if ar_t.device.type == "cpu":
+            return epi_col_fft_plain(ar_t, ai_t, imageT, taper, scal)
+        dev = ar_t.device
+        P, n, _ = ar_t.shape
+        _check_kernel_size(n)
+        for name, t in (("ar_t", ar_t), ("ai_t", ai_t), ("imageT", imageT)):
+            _build.expect(t, name, torch.float32, (P, n, n), dev)
+        _build.expect(taper, "taper", torch.float32, (n,), dev)
+        _build.expect(scal, "scal", torch.float32, (2,), dev)
+        tw = twiddles_full(n, dev)
+        err = _build.load().ktt_epi_col_fft(
+            ar_t.data_ptr(), ai_t.data_ptr(), tw.data_ptr(), taper.data_ptr(),
+            scal.data_ptr(), imageT.data_ptr(), P, n, _build.stream_of(ar_t))
+        _build.check(err, "ktt_epi_col_fft")
+        epi_col_fft.launches += 1
+        return imageT
 
 
 epi_col_fft.launches = 0

@@ -37,6 +37,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..profiling import profile
 from . import _build
 from .mxu_gridder import colour_tiles, occupied_chunks
 
@@ -159,50 +160,53 @@ def grid_planes(slot, n: int, count, iu, iv, su, sv, sre, sim, table, accr,
     :data:`MAX_TILE` with ``K <= ts + 1``; chunks hold at most
     :data:`MAX_CHUNK` slots.
     """
-    if accr.device.type == "cpu":
+    with profile("k1.launch"):
+        if accr.device.type == "cpu":
+            if stats is not None:
+                raise NotImplementedError(
+                    "stats come from the CUDA kernel only")
+            grid_planes_plain(slot, n, count, iu, iv, su, sv, sre, sim,
+                              table, accr, acci, ts=ts)
+            return
+        dev = accr.device
+        NC, Mc = iu.shape
+        P = sre.shape[1]
+        WO, K = table.shape
+        if not 1 <= ts <= MAX_TILE:
+            raise NotImplementedError(
+                f"K1 takes ts in [1, {MAX_TILE}], not {ts}")
+        if K + ts - 1 > 2 * ts:
+            raise NotImplementedError(f"K1: kernel width {K} > ts + 1")
+        if Mc > MAX_CHUNK:
+            raise NotImplementedError(f"K1 takes chunks of at most "
+                                      f"{MAX_CHUNK} slots, not {Mc}")
+        ext2 = accr.shape[-1]
+        nt2 = ext2 // (2 * ts)
+        _build.expect(slot, "slot", torch.int32, (NC,), dev)
+        _build.expect(count, "count", torch.int32, (NC,), dev)
+        for name, t in (("iu", iu), ("iv", iv), ("su", su), ("sv", sv)):
+            _build.expect(t, name, torch.int32, (NC, Mc), dev)
+        _build.expect(sre, "sre", torch.float32, (NC, P, Mc), dev)
+        _build.expect(sim, "sim", torch.float32, (NC, P, Mc), dev)
+        _build.expect(table, "table", torch.complex64, (WO, K), dev)
+        _build.expect(accr, "accr", torch.float32, (2, 2, P, ext2, ext2), dev)
+        _build.expect(acci, "acci", torch.float32, (2, 2, P, ext2, ext2), dev)
+        if not 0 <= n <= NC:
+            raise ValueError(f"n = {n} outside [0, {NC}]")
         if stats is not None:
-            raise NotImplementedError("stats come from the CUDA kernel only")
-        grid_planes_plain(slot, n, count, iu, iv, su, sv, sre, sim, table,
-                          accr, acci, ts=ts)
-        return
-    dev = accr.device
-    NC, Mc = iu.shape
-    P = sre.shape[1]
-    WO, K = table.shape
-    if not 1 <= ts <= MAX_TILE:
-        raise NotImplementedError(f"K1 takes ts in [1, {MAX_TILE}], not {ts}")
-    if K + ts - 1 > 2 * ts:
-        raise NotImplementedError(f"K1: kernel width {K} > ts + 1")
-    if Mc > MAX_CHUNK:
-        raise NotImplementedError(f"K1 takes chunks of at most {MAX_CHUNK} "
-                                  f"slots, not {Mc}")
-    ext2 = accr.shape[-1]
-    nt2 = ext2 // (2 * ts)
-    _build.expect(slot, "slot", torch.int32, (NC,), dev)
-    _build.expect(count, "count", torch.int32, (NC,), dev)
-    for name, t in (("iu", iu), ("iv", iv), ("su", su), ("sv", sv)):
-        _build.expect(t, name, torch.int32, (NC, Mc), dev)
-    _build.expect(sre, "sre", torch.float32, (NC, P, Mc), dev)
-    _build.expect(sim, "sim", torch.float32, (NC, P, Mc), dev)
-    _build.expect(table, "table", torch.complex64, (WO, K), dev)
-    _build.expect(accr, "accr", torch.float32, (2, 2, P, ext2, ext2), dev)
-    _build.expect(acci, "acci", torch.float32, (2, 2, P, ext2, ext2), dev)
-    if not 0 <= n <= NC:
-        raise ValueError(f"n = {n} outside [0, {NC}]")
-    if stats is not None:
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        _build.expect(stats, "stats", torch.int32, (2 * sms, 2), dev)
-    if n == 0:
-        return
-    lib = _build.load()
-    err = lib.ktt_grid_planes(
-        slot.data_ptr(), n, count.data_ptr(), iu.data_ptr(), iv.data_ptr(),
-        su.data_ptr(), sv.data_ptr(), sre.data_ptr(), sim.data_ptr(),
-        table.data_ptr(), accr.data_ptr(), acci.data_ptr(),
-        None if stats is None else stats.data_ptr(), NC, Mc, P, K, ts, nt2,
-        _build.stream_of(accr))
-    _build.check(err, "ktt_grid_planes")
-    grid_planes.launches += 1
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            _build.expect(stats, "stats", torch.int32, (2 * sms, 2), dev)
+        if n == 0:
+            return
+        lib = _build.load()
+        err = lib.ktt_grid_planes(
+            slot.data_ptr(), n, count.data_ptr(), iu.data_ptr(), iv.data_ptr(),
+            su.data_ptr(), sv.data_ptr(), sre.data_ptr(), sim.data_ptr(),
+            table.data_ptr(), accr.data_ptr(), acci.data_ptr(),
+            None if stats is None else stats.data_ptr(), NC, Mc, P, K, ts, nt2,
+            _build.stream_of(accr))
+        _build.check(err, "ktt_grid_planes")
+        grid_planes.launches += 1
 
 
 grid_planes.launches = 0
@@ -263,35 +267,37 @@ def combine_planes(accr, acci, occ, *, pixels: int, ts: int, out=None):
     coalesced.  CUDA rather than Triton so all four kernels share one
     ``nvcc`` build.
     """
-    if accr.device.type == "cpu":
-        return combine_planes_plain(accr, acci, occ, pixels=pixels, ts=ts,
-                                    out=out)
-    dev = accr.device
-    _, _, P, ext2, _ = accr.shape
-    nt2 = ext2 // (2 * ts)
-    # One thread per output pixel: any N whose shifted planes cover it
-    # (the JAX kernel's ts-row strips also needed N % ts == 0).
-    if pixels + ts > ext2:
-        raise ValueError(f"K2: pixels {pixels} incompatible with ts {ts} "
-                         f"and plane extent {ext2}")
-    _build.expect(accr, "accr", torch.float32, (2, 2, P, ext2, ext2), dev)
-    _build.expect(acci, "acci", torch.float32, (2, 2, P, ext2, ext2), dev)
-    _build.expect(occ, "occ", torch.bool, (2, 2, nt2, nt2), dev)
-    if out is None:
-        gr = torch.empty((P, pixels, pixels), dtype=torch.float32, device=dev)
-        gi = torch.empty_like(gr)
-    else:
-        gr, gi = out
-        _build.expect(gr, "gr", torch.float32, (P, pixels, pixels), dev)
-        _build.expect(gi, "gi", torch.float32, (P, pixels, pixels), dev)
-    lib = _build.load()
-    err = lib.ktt_combine_planes(
-        accr.data_ptr(), acci.data_ptr(), occ.data_ptr(), gr.data_ptr(),
-        gi.data_ptr(), P, pixels, ts, nt2, int(out is not None),
-        _build.stream_of(accr))
-    _build.check(err, "ktt_combine_planes")
-    combine_planes.launches += 1
-    return gr, gi
+    with profile("k2.launch"):
+        if accr.device.type == "cpu":
+            return combine_planes_plain(accr, acci, occ, pixels=pixels, ts=ts,
+                                        out=out)
+        dev = accr.device
+        _, _, P, ext2, _ = accr.shape
+        nt2 = ext2 // (2 * ts)
+        # One thread per output pixel: any N whose shifted planes cover it
+        # (the JAX kernel's ts-row strips also needed N % ts == 0).
+        if pixels + ts > ext2:
+            raise ValueError(f"K2: pixels {pixels} incompatible with ts {ts} "
+                             f"and plane extent {ext2}")
+        _build.expect(accr, "accr", torch.float32, (2, 2, P, ext2, ext2), dev)
+        _build.expect(acci, "acci", torch.float32, (2, 2, P, ext2, ext2), dev)
+        _build.expect(occ, "occ", torch.bool, (2, 2, nt2, nt2), dev)
+        if out is None:
+            gr = torch.empty((P, pixels, pixels), dtype=torch.float32,
+                             device=dev)
+            gi = torch.empty_like(gr)
+        else:
+            gr, gi = out
+            _build.expect(gr, "gr", torch.float32, (P, pixels, pixels), dev)
+            _build.expect(gi, "gi", torch.float32, (P, pixels, pixels), dev)
+        lib = _build.load()
+        err = lib.ktt_combine_planes(
+            accr.data_ptr(), acci.data_ptr(), occ.data_ptr(), gr.data_ptr(),
+            gi.data_ptr(), P, pixels, ts, nt2, int(out is not None),
+            _build.stream_of(accr))
+        _build.check(err, "ktt_combine_planes")
+        combine_planes.launches += 1
+        return gr, gi
 
 
 combine_planes.launches = 0
@@ -414,27 +420,31 @@ def grid_chunks_planes(kernel, weights_grid, plan_uv, plan_sub, plan_wp,
     (unwritten blocks uninitialised) and their occupancy mask.  On the
     CPU the valid slots are checked to be a prefix of every chunk.
     ``plain`` runs K1's plain version whatever the device (the reference
-    that the kernels are checked against on the card)."""
+    that the kernels are checked against on the card).  The prep, every
+    input of K1 and the occupancy mask, is the ``k1.prep`` span."""
     Pp = plan_vis.shape[-1]
     K = kernel.shape[-1]
     nt2 = colour_tiles(pixels, ts)
     ext2 = nt2 * 2 * ts
-    iu, iv, su, sv = tap_indices(kernel, plan_uv, plan_sub, plan_wp,
-                                 plan_anchor, pixels=pixels, ts=ts)
-    sre, sim = samples(plan_vis, plan_valid, weights_grid, dw_chunks,
-                       plan_anchor, su, sv, kernel_width=K, ts=ts)
-    slot = chunk_slots(plan_anchor, n_chunks, ts=ts, nt2=nt2)
-    count = valid_counts(plan_valid)
     dev = plan_vis.device
-    if dev.type == "cpu":
-        check_valid_prefix(plan_valid, count)
-    accr = torch.empty((2, 2, Pp, ext2, ext2), dtype=torch.float32,
-                       device=dev)
-    acci = torch.empty_like(accr)
+    with profile("k1.prep"):
+        iu, iv, su, sv = tap_indices(kernel, plan_uv, plan_sub, plan_wp,
+                                     plan_anchor, pixels=pixels, ts=ts)
+        sre, sim = samples(plan_vis, plan_valid, weights_grid, dw_chunks,
+                           plan_anchor, su, sv, kernel_width=K, ts=ts)
+        slot = chunk_slots(plan_anchor, n_chunks, ts=ts, nt2=nt2)
+        count = valid_counts(plan_valid)
+        if dev.type == "cpu":
+            check_valid_prefix(plan_valid, count)
+        occ = occupancy(slot, n_chunks, nt2)
+        table = conj_table(kernel)
+        accr = torch.empty((2, 2, Pp, ext2, ext2), dtype=torch.float32,
+                           device=dev)
+        acci = torch.empty_like(accr)
     k1 = grid_planes_plain if plain else grid_planes
-    k1(slot, n_chunks, count, iu, iv, su, sv, sre, sim, conj_table(kernel),
-       accr, acci, ts=ts)
-    return accr, acci, occupancy(slot, n_chunks, nt2)
+    k1(slot, n_chunks, count, iu, iv, su, sv, sre, sim, table, accr, acci,
+       ts=ts)
+    return accr, acci, occ
 
 
 def grid_chunks_fused_parts(kernel, weights_grid, plan_uv, plan_sub,

@@ -53,6 +53,7 @@ import torch
 from ..ops import beam as beam_ops
 from ..ops import clean as clean_ops
 from ..ops import fourier, mxu_gridder, predict
+from ..profiling import profile_function
 from . import multichannel
 from .mesh import pmax_ints, psum
 
@@ -211,6 +212,7 @@ def _predict_subtract_slices(cfg: CubeConfig, sky_lmn, sky_flux, uv, sub_uv,
     return torch.stack(out)
 
 
+@profile_function("cube.clean_stage")
 def _clean_stage(cfg: CubeConfig, residual, model, psf_patch_arr):
     """One major cycle's CLEAN: reset the tiles, derive the threshold on
     the device, run the minor cycles.  Updates ``model`` in place.

@@ -27,6 +27,7 @@ import traceback
 import numpy as np
 import torch
 
+from .. import profiling
 from . import mesh as mesh_mod
 
 
@@ -114,23 +115,24 @@ def image_shards(jobs, *, device=None) -> list:
     host batch) and ``vis_shards``.  Each result holds the mesh indices,
     this rank's channels' outputs as numpy (the step's ``(residual,
     model)``, the wave's :class:`.cube.WaveResult` fields) and the job's
-    all-reduce count and host seconds."""
+    all-reduce count and host seconds (its ``mesh.psum`` spans)."""
     from . import cube, multichannel
 
     out = []
     for job in jobs:
         mesh = mesh_mod.make_mesh(job["vis_shards"], device=device)
         local = multichannel.local_batch(mesh, job["batch"])
-        calls, seconds = mesh_mod.psum.calls, mesh_mod.psum.seconds
-        if job["kind"] == "step":
-            outs = multichannel.make_imaging_step(mesh, job["cfg"])(local)
-        else:
-            outs = cube.wave_image(job["cfg"], local, mesh=mesh)
+        calls = mesh_mod.psum.calls
+        with profiling.installed(profiling.CollectProfiler()) as prof:
+            if job["kind"] == "step":
+                outs = multichannel.make_imaging_step(mesh, job["cfg"])(local)
+            else:
+                outs = cube.wave_image(job["cfg"], local, mesh=mesh)
         out.append({"chan_index": mesh.chan_index,
                     "vis_index": mesh.vis_index,
                     "outputs": [np.asarray(x.cpu()) for x in outs],
                     "psum_calls": mesh_mod.psum.calls - calls,
-                    "psum_s": mesh_mod.psum.seconds - seconds})
+                    "psum_s": prof.seconds("mesh.psum")})
     return out
 
 

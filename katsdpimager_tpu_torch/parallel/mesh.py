@@ -31,13 +31,13 @@ import json
 import logging
 import os
 import socket
-import time
 from typing import NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
 
 from .. import device as device_mod
+from ..profiling import profile
 
 logger = logging.getLogger(__name__)
 
@@ -278,23 +278,22 @@ def _comm_device(mesh: Mesh) -> torch.device:
 def psum(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
     """The sum of ``x`` over this rank's vis group (``all_reduce``, in
     place; ``x`` contiguous); the identity where ``vis_size`` is 1.
-    ``psum.calls`` counts the reductions and ``psum.seconds`` the host
-    seconds spent in them.  Under ``gloo`` a CUDA ``x`` is synchronised
-    first (the reduction waits for the stream's work anyway), so the
-    seconds are the reduction's and the wait for the group's other ranks,
-    not this rank's own kernels; under ``nccl`` the call only enqueues."""
+    ``psum.calls`` counts the reductions; each is a ``mesh.psum`` span
+    (:func:`..profiling.profile`).  Under ``gloo`` a CUDA ``x`` is
+    synchronised first (the reduction waits for the stream's work
+    anyway), so the span holds the reduction and the wait for the group's
+    other ranks, not this rank's own kernels; under ``nccl`` the call
+    only enqueues."""
     if mesh is None or mesh.vis_size == 1:
         return x
     if x.is_cuda and dist.get_backend(mesh.vis_group) == "gloo":
         torch.cuda.synchronize(x.device)
-    t0 = time.perf_counter()
-    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=mesh.vis_group)
-    psum.seconds += time.perf_counter() - t0
+    with profile("mesh.psum"):
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=mesh.vis_group)
     psum.calls += 1
     return x
 
 
-psum.seconds = 0.0
 psum.calls = 0
 
 

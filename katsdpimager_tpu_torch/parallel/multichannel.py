@@ -21,6 +21,7 @@ import torch
 from .. import device as device_mod
 from ..ops import clean as clean_ops
 from ..ops import fourier, fused_fft, mxu_gridder
+from ..profiling import profile, profile_function
 from .mesh import pmax_ints, psum
 from .slices import scan_slices
 
@@ -98,6 +99,7 @@ def weight_grid(num_pols: int, pixels: int, uv, valid, weights):
     return wgrid
 
 
+@profile_function("multichannel.weights")
 def _density(cfg: MultiChannelConfig, uv, valid, weights, mesh=None):
     """Uniform density weights ``1 / W`` per occupied cell of the
     (P, N, N) weight grid, summed over the vis group under a mesh."""
@@ -148,22 +150,25 @@ def image_slices(kernel, density, taper1d, pixel_size, mid_w, uv, sub_uv,
         uv_s, sub_s, wp_s, anc_s, val_s, vis_s, w_mid, nc_s, take_s = xs
         if take_s == 0:
             return image
-        if double:
-            gr = torch.zeros((Pp, pixels, pixels), dtype=rdtype, device=dev)
-            gi = torch.zeros_like(gr)
-            mxu_gridder.grid_chunks_onto(
-                (gr, gi), kernel, density, uv_s, sub_s, wp_s, vis_s, anc_s,
-                val_s, None, int(nc_s), pixels=pixels, ts=ts, plain=plain)
-        else:
-            gr, gi = mxu_gridder.grid_chunks_parts(
-                kernel, density, uv_s, sub_s, wp_s, vis_s, anc_s, val_s,
-                None, int(nc_s), pixels=pixels, ts=ts, plain=plain)
-        gr, gi = psum(gr, mesh), psum(gi, mesh)
-        if fused:
-            return fused_fft.grid_to_image_fused_parts(
-                gr, gi, image, taper1d, w_mid, pixel_size, plain=plain)
-        return fourier.grid_to_image_plain(torch.complex(gr, gi), image,
-                                           taper1d, w_mid, pixel_size)
+        with profile("multichannel.slice"):
+            if double:
+                gr = torch.zeros((Pp, pixels, pixels), dtype=rdtype,
+                                 device=dev)
+                gi = torch.zeros_like(gr)
+                mxu_gridder.grid_chunks_onto(
+                    (gr, gi), kernel, density, uv_s, sub_s, wp_s, vis_s,
+                    anc_s, val_s, None, int(nc_s), pixels=pixels, ts=ts,
+                    plain=plain)
+            else:
+                gr, gi = mxu_gridder.grid_chunks_parts(
+                    kernel, density, uv_s, sub_s, wp_s, vis_s, anc_s, val_s,
+                    None, int(nc_s), pixels=pixels, ts=ts, plain=plain)
+            gr, gi = psum(gr, mesh), psum(gi, mesh)
+            if fused:
+                return fused_fft.grid_to_image_fused_parts(
+                    gr, gi, image, taper1d, w_mid, pixel_size, plain=plain)
+            return fourier.grid_to_image_plain(torch.complex(gr, gi), image,
+                                               taper1d, w_mid, pixel_size)
 
     image = torch.zeros((Pp, pixels, pixels), dtype=rdtype, device=dev)
     image = scan_slices(slice_body, image,
@@ -193,6 +198,7 @@ def precision_of(vis, taper1d) -> torch.dtype:
             f"{taper1d.dtype}") from None
 
 
+@profile_function("multichannel.channel")
 def _channel_pipeline(cfg: MultiChannelConfig, kernel, taper1d, pixel_size,
                       mid_w, uv, sub_uv, w_plane, anchor, valid, weights,
                       vis, nc_slices=None, plain: bool = False, mesh=None,

@@ -6,10 +6,21 @@ of stopwatches (contextvars), the ``profile`` context and the
 :class:`Profiler`, :class:`FlamegraphProfiler`, :class:`CollectProfiler`)
 and flamegraph.pl-format output.  Each ``profile`` range is also a
 :func:`torch.profiler.record_function`, so under ``torch.profiler`` it
-shows as a named span around the host calls and the device work they
-enqueue.  The device trace is ``torch.profiler`` with CPU and CUDA
-activities (the JAX package's is XProf); :func:`parse_device_profile`
-sums each device kernel's time by stream and name.
+shows as a named span (a ``user_annotation``) around the host calls and
+the device work they enqueue.  The device trace is ``torch.profiler``
+with CPU and CUDA activities (the JAX package's is XProf);
+:func:`parse_device_profile` sums each device kernel's time by stream
+and name.
+
+With nothing listening (the null :class:`Profiler` installed and
+``torch.profiler`` not recording) :func:`profile` returns one shared
+no-op context: no clock, no contextvar, no ``record_function``, so the
+spans on the imaging path cost a fraction of a microsecond each.  A
+:class:`Record` carries its span's start and end in nanoseconds on
+``time.time_ns()``'s clock, the one a ``torch.profiler`` Chrome trace
+stamps its events on (``baseTimeNanoseconds`` plus ``ts`` microseconds),
+so records a :class:`CollectProfiler` holds can be laid over an exported
+trace.
 """
 
 from __future__ import annotations
@@ -21,9 +32,10 @@ import glob
 import json
 import os
 import time
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 _current_stack: contextvars.ContextVar[Tuple[str, ...]] = \
     contextvars.ContextVar("katsdpimager_tpu_torch_profile_stack",
@@ -36,21 +48,32 @@ _TRACE_FILE = "trace.json"
 
 
 class Record:
-    __slots__ = ("stack", "elapsed")
+    """One span: its stack of names (the last its own, the one before its
+    parent's), host seconds, and start and end on ``time.time_ns()``'s
+    clock (None where not stamped)."""
 
-    def __init__(self, stack: Tuple[str, ...], elapsed: float):
+    __slots__ = ("stack", "elapsed", "start_ns", "end_ns")
+
+    def __init__(self, stack: Tuple[str, ...], elapsed: float,
+                 start_ns: Optional[int] = None,
+                 end_ns: Optional[int] = None):
         self.stack = stack
         self.elapsed = elapsed
+        self.start_ns = start_ns
+        self.end_ns = end_ns
 
 
 class Profiler:
     """Base profiler: does nothing (NullProfiler semantics)."""
 
     _instance: "Profiler" = None  # set below
+    #: Whether the installed profiler is anything but the null one.
+    _listening = False
 
     @classmethod
     def set_profiler(cls, profiler: "Profiler"):
         cls._instance = profiler
+        Profiler._listening = type(profiler) is not Profiler
 
     @classmethod
     def get_profiler(cls) -> "Profiler":
@@ -68,6 +91,10 @@ class CollectProfiler(Profiler):
 
     def record(self, record: Record):
         self.records.append(record)
+
+    def seconds(self, name: str) -> float:
+        """Host seconds in the spans named ``name``."""
+        return sum(r.elapsed for r in self.records if r.stack[-1] == name)
 
 
 class FlamegraphProfiler(Profiler):
@@ -98,21 +125,67 @@ class FlamegraphProfiler(Profiler):
 Profiler._instance = Profiler()
 
 
-@contextlib.contextmanager
+class _Off:
+    """The context :func:`profile` returns when nothing listens."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return None
+
+
+_OFF = _Off()
+
+
+class _Span:
+    """A :func:`profile` range while something listens."""
+
+    __slots__ = ("name", "stack", "token", "start_ns", "range")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.stack = _current_stack.get() + (self.name,)
+        self.token = _current_stack.set(self.stack)
+        self.range = torch.profiler.record_function(self.name)
+        self.start_ns = time.time_ns()
+        self.range.__enter__()
+
+    def __exit__(self, *exc):
+        try:
+            self.range.__exit__(*exc)
+        finally:
+            end_ns = time.time_ns()
+            _current_stack.reset(self.token)
+            Profiler.get_profiler().record(Record(
+                self.stack, (end_ns - self.start_ns) * 1e-9, self.start_ns,
+                end_ns))
+
+
 def profile(name: str):
     """Stopwatch context: times the block on the host clock, names it
     for ``torch.profiler`` (``record_function``) and reports to the
-    active profiler."""
-    stack = _current_stack.get() + (name,)
-    token = _current_stack.set(stack)
-    start = time.monotonic()
+    active profiler; the shared no-op context where neither a profiler
+    other than the null one is installed nor ``torch.profiler`` is
+    recording."""
+    if Profiler._listening or _autograd_profiler._is_profiler_enabled:
+        return _Span(name)
+    return _OFF
+
+
+@contextlib.contextmanager
+def installed(profiler: Profiler):
+    """Install ``profiler`` for the block, then the one it replaced."""
+    old = Profiler.get_profiler()
+    Profiler.set_profiler(profiler)
     try:
-        with torch.profiler.record_function(name):
-            yield
+        yield profiler
     finally:
-        elapsed = time.monotonic() - start
-        _current_stack.reset(token)
-        Profiler.get_profiler().record(Record(stack, elapsed))
+        Profiler.set_profiler(old)
 
 
 def profile_function(name=None):

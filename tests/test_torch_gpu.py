@@ -1159,3 +1159,66 @@ def test_device_plan_grids_as_the_host_plan(cuda, ts, K, P):
     got = grid(dev)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert want[0].abs().max() > 0
+
+
+def test_spans_share_the_device_trace_clock(cuda, tmp_path):
+    """One channel of the step at 256 px on the card, under
+    ``torch.profiler`` with CPU and CUDA activity and a ``CollectProfiler``
+    installed: each record (``time.time_ns()``) encloses its span's
+    ``user_annotation`` in the exported trace (``baseTimeNanoseconds`` +
+    ``ts``), the median gap at each end under 50 us; and K1's kernel is
+    launched by a runtime call inside a ``k1.launch`` span (matched by
+    ``args.correlation``)."""
+    import json
+
+    from katsdpimager_tpu_torch import profiling
+
+    cfg = multichannel.MultiChannelConfig(
+        pixels=256, num_pols=1, kernel_width=16, oversample=8, w_planes=8,
+        w_slices=2, chunks_per_slice=64, chunk_size=128, rv=32, ru=32,
+        weight_type="natural")
+    batch = multichannel.make_example_batch(cfg, 1, seed=3, device=cuda)
+    args = multichannel.channel_args(batch, 0)
+    step = multichannel.single_channel_step(cfg)
+    step(*args)                                   # builds and warms up
+    torch.cuda.synchronize()
+    prof = profiling.CollectProfiler()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with profiling.installed(prof), torch.profiler.profile(
+            activities=acts) as tp:
+        step(*args)
+        torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    tp.export_chrome_trace(str(path))
+    trace = json.loads(path.read_text())
+    base = trace["baseTimeNanoseconds"]
+    events = [ev for ev in trace["traceEvents"] if ev.get("ph") == "X"]
+    annotations = {}
+    for ev in events:
+        if ev.get("cat") == "user_annotation":
+            annotations.setdefault(ev["name"], []).append(ev)
+    heads, tails = [], []
+    for name, evs in annotations.items():
+        recs = sorted((r for r in prof.records if r.stack[-1] == name),
+                      key=lambda r: r.start_ns)
+        evs.sort(key=lambda ev: ev["ts"])
+        assert len(recs) == len(evs), name
+        for rec, ev in zip(recs, evs):
+            start = base + ev["ts"] * 1e3
+            heads.append((start - rec.start_ns) / 1e3)
+            tails.append((rec.end_ns - start - ev["dur"] * 1e3) / 1e3)
+    assert len(heads) == len(prof.records) > 10
+    assert min(heads) >= -1.0 and min(tails) >= -1.0, (heads, tails)
+    heads.sort()
+    tails.sort()
+    assert heads[len(heads) // 2] <= 50 and tails[len(tails) // 2] <= 50
+    k1 = [(ev["ts"], ev["ts"] + ev["dur"]) for ev in annotations["k1.launch"]]
+    launches = {ev["args"]["correlation"]: ev["ts"] for ev in events
+                if ev.get("cat") in ("cuda_runtime", "cuda_driver")}
+    kernels = [ev for ev in events if ev.get("cat") == "kernel"
+               and "grid_planes_kernel" in ev["name"]]
+    assert len(kernels) == 2
+    for ev in kernels:
+        t = launches[ev["args"]["correlation"]]
+        assert any(s <= t <= e for s, e in k1)

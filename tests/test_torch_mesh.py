@@ -129,6 +129,16 @@ def test_sharded_step_matches_one_rank(batch, sharded, one_rank, shape):
     assert np.isfinite(got).all()
 
 
+@pytest.mark.parametrize("shape", MESHES + ["wave"])
+def test_all_reduce_seconds_are_the_mesh_psum_spans(sharded, shape):
+    """Each rank's seconds in its all-reduces come from its ``mesh.psum``
+    spans: none where it made no all-reduce (the chan split), some
+    wherever it made one."""
+    for r in sharded[shape]:
+        assert (r["psum_s"] > 0) == (r["psum_calls"] > 0)
+        assert r["psum_s"] < 60
+
+
 @pytest.fixture(scope="module")
 def jax_steps(batch):
     """The JAX sharded step's dirty images on a JAX mesh of each shape

@@ -162,3 +162,143 @@ def test_cli_writes_both_profiles(tmp_path):
     assert (tmp_path / "d.txt.trace" / "trace.json").exists()
     # the profiler that was installed before the run is back
     assert type(profiling.Profiler.get_profiler()) is profiling.Profiler
+
+
+def test_profile_with_nothing_listening_is_a_shared_noop(monkeypatch):
+    """With the null profiler installed and ``torch.profiler`` off,
+    ``profile`` hands out one shared context that reads no clock, sets no
+    stack, enters no ``record_function`` and records nothing."""
+    assert type(profiling.Profiler.get_profiler()) is profiling.Profiler
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("touched while nothing listens")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(profiling.time, "time_ns", refuse)
+    monkeypatch.setattr(profiling.Profiler, "record", refuse)
+    assert profiling.profile("a") is profiling.profile("b")
+    with profiling.profile("outer"):
+        with profiling.profile("inner"):
+            assert profiling._current_stack.get() == ()
+
+
+def test_records_enclose_their_spans_in_the_trace(installed, tmp_path):
+    """Under ``torch.profiler`` with CPU activity each span's record,
+    stamped on ``time.time_ns()``, encloses the ``user_annotation`` of the
+    same span in the exported trace (``baseTimeNanoseconds`` + ``ts``);
+    the median gap at each end is under 50 us.  The first span of the
+    process's profiler is a warm-up and is not compared."""
+    import json
+
+    prof = installed(profiling.CollectProfiler())
+    x = torch.ones((64, 64))
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as tp:
+        with profiling.profile("warm-up"):
+            x = x @ x
+        for i in range(20):
+            with profiling.profile(f"span{i}"):
+                x = x @ x / 64
+    path = tmp_path / "trace.json"
+    tp.export_chrome_trace(str(path))
+    trace = json.loads(path.read_text())
+    base = trace["baseTimeNanoseconds"]
+    annotations = {ev["name"]: ev for ev in trace["traceEvents"]
+                   if ev.get("cat") == "user_annotation"}
+    heads, tails = [], []
+    for rec in prof.records[1:]:
+        ev = annotations[rec.stack[-1]]
+        start = base + ev["ts"] * 1e3
+        end = start + ev["dur"] * 1e3
+        heads.append((start - rec.start_ns) / 1e3)
+        tails.append((rec.end_ns - end) / 1e3)
+        assert rec.end_ns - rec.start_ns == pytest.approx(rec.elapsed * 1e9)
+    assert len(heads) == 20
+    # enclosed (to the trace's rounding of its microseconds)
+    assert min(heads) >= -1.0 and min(tails) >= -1.0
+    assert sorted(heads)[10] <= 50.0 and sorted(tails)[10] <= 50.0
+
+
+@pytest.mark.parametrize("weight_type", ["natural", "uniform"])
+def test_step_span_tree(installed, weight_type):
+    """One channel of the step at 256 px on the CPU: one
+    ``multichannel.channel`` span; under it the weights (uniform only)
+    and a ``multichannel.slice`` per non-empty slice, each holding K1's
+    prep and the four kernels' wrappers once."""
+    import collections
+
+    from katsdpimager_tpu_torch.parallel import multichannel as mc
+
+    cfg = mc.MultiChannelConfig(
+        pixels=256, num_pols=1, kernel_width=16, oversample=8, w_planes=8,
+        w_slices=4, chunks_per_slice=64, chunk_size=128, rv=32, ru=32,
+        weight_type=weight_type)
+    batch = mc.make_example_batch(cfg, 1, seed=3, vis_per_slice=500,
+                                  device="cpu")
+    *args, nc = mc.channel_args(batch, 0)
+    nc[1] = 0                       # slice 1 is skipped
+    prof = installed(profiling.CollectProfiler())
+    mc.single_channel_step(cfg)(*args, nc)
+    counts = collections.Counter(r.stack for r in prof.records)
+    channel = ("multichannel.channel",)
+    sl = channel + ("multichannel.slice",)
+    want = {channel: 1, sl: 3}
+    want.update({sl + (name,): 3 for name in (
+        "k1.prep", "k1.launch", "k2.launch", "k3.launch", "k4.launch")})
+    if weight_type == "uniform":
+        want[channel + ("multichannel.weights",)] = 1
+    assert counts == want
+    for rec in prof.records:
+        assert rec.start_ns <= rec.end_ns
+    # children lie inside their parents
+    outer = [r for r in prof.records if r.stack == channel][0]
+    assert all(outer.start_ns <= r.start_ns <= r.end_ns <= outer.end_ns
+               for r in prof.records)
+
+
+def test_clean_stage_spans(installed):
+    """A cube CLEAN stage: its span holds each batch of minor cycles
+    (``clean.batch``) and each read of the stop flag (``clean.sync``),
+    one of each per batch."""
+    from katsdpimager_tpu_torch.parallel import cube
+
+    cfg = cube.CubeConfig(
+        pixels=128, num_pols=1, kernel_width=16, oversample=8, w_planes=8,
+        w_slices=2, chunks_per_slice=16, chunk_size=128, rv=32, ru=32,
+        majors=1, minor=150, patch=17, psf_core=32, loop_gain=0.1,
+        threshold_sigma=0.0, major_gain=1.0)
+    gen = torch.Generator().manual_seed(4)
+    residual = torch.randn((1, 128, 128), generator=gen)
+    residual[0, 64, 64] = 50.0
+    psf = torch.zeros((1, 17, 17))
+    psf[0, 8, 8] = 1.0
+    prof = installed(profiling.CollectProfiler())
+    cube._clean_stage(cfg, residual, torch.zeros_like(residual), psf)
+    stacks = [r.stack for r in prof.records]
+    stage = ("cube.clean_stage",)
+    batches = stacks.count(stage + ("clean.batch",))
+    # 1 cycle, then 149 in batches of 64: 1 + 3 batches, none stopped early
+    assert batches == 4
+    assert stacks.count(stage + ("clean.sync",)) == batches
+    assert stacks[-1] == stage and len(stacks) == 2 * batches + 1
+
+
+def test_cli_profile_names_the_programs_spans(tmp_path):
+    """``--write-profile`` names the per-channel path's spans inside the
+    frontend's stages: the slice plans, K1's prep and wrappers, and
+    CLEAN's batches and stop-flag reads."""
+    path = tmp_path / "sim.h5"
+    simulate.make_sim_dataset(str(path), num_antennas=16, num_times=24,
+                              num_channels=1, max_radius=800.0)
+    prof = tmp_path / "p.txt"
+    assert imager.main([str(path), str(tmp_path / "c_%c.fits"), "--pixels",
+                        "256", "--kernel-width", "12", "--major", "1",
+                        "--no-tmp-file", "--host", "--write-profile",
+                        str(prof)]) == 0
+    stacks = {ln.rsplit(" ", 1)[0] for ln in prof.read_text().splitlines()}
+    grid = "process_channel;make_dirty;grid_slice_0"
+    for stack in (grid + ";imaging.slice_plan", grid + ";k1.prep",
+                  grid + ";k1.launch", grid + ";k2.launch",
+                  "process_channel;clean.batch",
+                  "process_channel;clean.sync"):
+        assert stack in stacks, stack
