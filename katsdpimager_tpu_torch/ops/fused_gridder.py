@@ -379,10 +379,18 @@ def check_valid_prefix(plan_valid, count) -> None:
 
 
 def occupancy(slot, n: int, nt2: int):
-    """(2, 2, nt2, nt2) bool: which colour-plane tiles K1 writes."""
-    occ = torch.zeros(4 * nt2 * nt2, dtype=torch.bool, device=slot.device)
-    occ[slot[:n].long()] = True
-    return occ.view(2, 2, nt2, nt2)
+    """(2, 2, nt2, nt2) bool: which colour-plane tiles K1 writes.
+
+    Filled by ``index_fill_``, whose value is a kernel argument: an index
+    assignment (``occ[idx] = True``) copies its value from pageable host
+    memory, which waits for the stream to drain, once a slice, and so
+    ties every slice's enqueue to the device (the ``k1.occupancy``
+    span)."""
+    with profile("k1.occupancy"):
+        occ = torch.zeros(4 * nt2 * nt2, dtype=torch.bool,
+                          device=slot.device)
+        occ.index_fill_(0, slot[:n].long(), True)
+        return occ.view(2, 2, nt2, nt2)
 
 
 def tf32_rna(x):

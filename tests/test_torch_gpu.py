@@ -394,6 +394,29 @@ def test_clean_cycle_never_syncs(cuda):
     assert int(args[0]) == 3
 
 
+def test_natural_step_never_syncs(cuda):
+    """The natural-weight step keeps every value it needs on the card: no
+    host sync from its first slice to its image, so the host can enqueue
+    slices ahead of the device (``fused_gridder.occupancy`` fills its mask
+    with no host value)."""
+    cfg = multichannel.MultiChannelConfig(
+        pixels=512, num_pols=4, kernel_width=16, oversample=8, w_planes=8,
+        w_slices=2, chunks_per_slice=64, chunk_size=256, rv=32, ru=32,
+        weight_type="natural")
+    batch = multichannel.make_example_batch(cfg, 1, seed=5, device=cuda)
+    args = multichannel.channel_args(batch, 0)
+    step = multichannel.single_channel_step(cfg)
+    want = step(*args)[0]                         # builds and warms up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = step(*args)[0]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert sum(args[-1]) > 0
+    assert torch.equal(got, want)
+
+
 def _inside(taper):
     """The anti-aliased field: taper^2 >= 0.2% of its peak."""
     t2 = torch.outer(taper, taper)
@@ -771,7 +794,8 @@ def test_wave_arena_waits_for_its_upload(cuda):
 
 def _k1_err_vs_float64(dev, args, ts, nt2, P=1):
     """K1's largest error over its written blocks over the peak of a
-    float64 run of its plain version, and the plain f32 version's."""
+    float64 run of its plain version, and the plain f32 version's; each
+    polarization against its own peak, the largest of them."""
     slot, n, count, iu, iv, su, sv, sre, sim, table = args
     ext2 = nt2 * 2 * ts
     shape = (2, 2, P, ext2, ext2)
@@ -786,10 +810,12 @@ def _k1_err_vs_float64(dev, args, ts, nt2, P=1):
     occ = fused_gridder.occupancy(slot, n, nt2)
     written = occ.repeat_interleave(2 * ts, -2).repeat_interleave(
         2 * ts, -1)[:, :, None]
-    scale = max(r64.abs().max().item(), i64.abs().max().item())
-    return [max((a.double() - r64).abs().where(written, 0.0).max().item(),
-                (b.double() - i64).abs().where(written, 0.0).max().item())
-            / scale for a, b in ((kr, ki), (pr, pi))]
+    dims = (0, 1, 3, 4)
+    scale = torch.maximum(r64.abs().amax(dim=dims), i64.abs().amax(dim=dims))
+    return [(torch.maximum(
+        (a.double() - r64).abs().where(written, 0.0).amax(dim=dims),
+        (b.double() - i64).abs().where(written, 0.0).amax(dim=dims))
+        / scale).max().item() for a, b in ((kr, ki), (pr, pi))]
 
 
 @pytest.mark.parametrize("ts,K", [(64, 60), (32, 30)])
@@ -831,12 +857,12 @@ def test_k1_tiles_hold_float64(cuda, ts, K):
     assert plain <= 1e-6, plain
 
 
-def _production_slice(dev):
+def _production_slice(dev, P=1):
     """K1's arguments at the production slice (``chip_smoke.py``'s step:
-    4096 px, K = 60, ts 64, channel 0, slice 0 of 2^19 visibilities),
-    its tile size and nt2."""
+    4096 px, K = 60, ts 64, channel 0, slice 0 of 2^19 visibilities) with
+    ``P`` polarizations, its tile size and nt2."""
     cfg = multichannel.MultiChannelConfig(
-        pixels=4096, num_pols=1, kernel_width=60, oversample=8,
+        pixels=4096, num_pols=P, kernel_width=60, oversample=8,
         w_planes=32, w_slices=4, chunks_per_slice=8192, chunk_size=256,
         rv=64, ru=64, minor_cycles=0, weight_type="natural")
     batch = multichannel.make_example_batch(cfg, 1, vis_per_slice=1 << 19,
@@ -858,12 +884,15 @@ def _production_slice(dev):
     return args, ts, nt2
 
 
-def test_k1_production_slice_holds_float64(cuda):
+@pytest.mark.parametrize("P", [1, 4])
+def test_k1_production_slice_holds_float64(cuda, P):
     """K1 at the production slice (``chip_smoke.py``'s step: 4096 px,
-    K = 60, ts 64, channel 0, slice 0 of 2^19 visibilities): within 1e-6
-    of the peak of a float64 run of its plain version."""
-    args, ts, nt2 = _production_slice(cuda)
-    err, _ = _k1_err_vs_float64(cuda, args, ts, nt2)
+    K = 60, ts 64, channel 0, slice 0 of 2^19 visibilities), in Stokes I
+    and in full Stokes: each polarization within 1e-6 of its own peak of
+    a float64 run of its plain version."""
+    args, ts, nt2 = _production_slice(cuda, P)
+    assert args[7].shape[1] == P
+    err, _ = _k1_err_vs_float64(cuda, args, ts, nt2, P)
     assert err <= 1e-6, err
 
 
@@ -947,17 +976,19 @@ def test_k1_adversarial_run_lengths(cuda, ts, K):
     assert err <= 1e-6, err
 
 
-@pytest.mark.parametrize("case", ["production", "adversarial ts 64",
-                                  "adversarial ts 32"])
+@pytest.mark.parametrize("case", ["production", "production P 4",
+                                  "adversarial ts 64", "adversarial ts 32"])
 def test_k1_work_matches_the_schedule_model(cuda, case):
     """Each worker of K1 (lane l of CTA b, worker l x SMs + b) reports
     the items and batches that the schedule's plain model
-    (``tests/test_torch_k1_schedule.py``) deals it, at the production
-    slice and on the adversarial run lengths; workers the instance does
-    not have report nothing; and the planes of the launch that reports
-    are bitwise those of one that does not."""
-    if case == "production":
-        args, ts, nt2 = _production_slice(cuda)
+    (``tests/test_torch_k1_schedule.py``) deals it, over every pass
+    (polarization x tile) of every run, at the production slice in
+    Stokes I and in full Stokes and on the adversarial run lengths;
+    workers the instance does not have report nothing; and the planes of
+    the launch that reports are bitwise those of one that does not."""
+    if case.startswith("production"):
+        args, ts, nt2 = _production_slice(cuda, 4 if case.endswith("4")
+                                          else 1)
     else:
         ts, K = {"adversarial ts 64": (64, 60),
                  "adversarial ts 32": (32, 30)}[case]

@@ -154,6 +154,20 @@ def test_nan_poisoned_planes_do_not_leak():
     assert torch.equal(gr, ref[0]) and torch.equal(gi, ref[1])
 
 
+@pytest.mark.parametrize("n", [0, 1, 37, 64])
+def test_occupancy_marks_the_slots_of_the_first_n_chunks(n):
+    """The occupancy mask holds exactly the slots of the first ``n``
+    chunks, repeats and all, and none past them."""
+    nt2 = 3
+    slot = torch.from_numpy(np.random.default_rng(n).integers(
+        0, 4 * nt2 * nt2, size=64).astype(np.int32))
+    want = np.zeros(4 * nt2 * nt2, bool)
+    want[slot[:n].numpy()] = True
+    occ = fused_gridder.occupancy(slot, n, nt2)
+    assert occ.shape == (2, 2, nt2, nt2) and occ.dtype == torch.bool
+    np.testing.assert_array_equal(occ.reshape(-1).numpy(), want)
+
+
 @pytest.mark.parametrize("empty", ["n_chunks=0", "no visibilities"])
 def test_empty_plan_is_zero(empty):
     case = make_case(3, n=0 if empty == "no visibilities" else 50)
