@@ -35,6 +35,13 @@ per slice, natural weights), then:
   dirty image against the all-plain step; then profiles one more step
   (the device's busy time and idle share, the top kernels by device
   time, and the host's seconds to enqueue it);
+- checks the weight grid's kernel (``csrc/weights.cu``) on channel 0:
+  within 1e-6 of each cell of its plain version, bitwise the float32
+  serial fold and a second launch, timed against its plain version and
+  ``index_put_`` over every slot (padding to cells of its own); then
+  runs the 8-channel step under uniform weights, with the kernel's
+  launch counter reset just before (one launch a channel), and checks
+  channel 0 against the all-plain uniform step;
 - runs the dirty step and a cube wave at 1000 px (no power of two: the
   grid <-> image transforms take ``torch.fft`` by rule, K3 never
   launches) against their all-plain runs;
@@ -584,6 +591,7 @@ def main() -> None:
     if not (err <= 1e-4 and finite and shapes and peak > 0):
         raise AssertionError("step parity failed")
     del dirty, got, ref
+    weights_phase(dev, card, record, rows, mc, batch, num_channels, inside)
     k1_image_phase(card, cfg, batch, inside, mc, parent)
 
     # ---- where the step's time goes: one step under torch.profiler (the
@@ -638,6 +646,124 @@ def main() -> None:
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
+
+
+def weights_phase(dev, card, record, rows, mc, batch, num_channels,
+                  inside) -> None:
+    """The weight grid's kernel (``csrc/weights.cu``) on channel 0 of the
+    production batch (4 slices of 2^19 visibilities in 8192 chunks of
+    256; 4096 px, ts 64, K 60): within 1e-6 of each cell of its plain
+    version (``index_put_`` over the valid slots), bitwise equal to the
+    float32 serial fold of the valid slots in slot order (numpy's
+    ``add.at``) and to a second launch; its time, the plain version's
+    and, as the one-call PyTorch yardstick, ``index_put_`` with
+    accumulation over every slot with each padding slot sent to its own
+    cell past N^2 (so no cell has a long run), in turns, and its device
+    microseconds alone (``kernel_us``: the wrapper launches nothing
+    else); its bound by bytes (the valid slots' uv and weights read once,
+    the grid written once).  Then the main path: the ``num_channels``
+    channels through ``single_channel_step`` under uniform weights (1
+    warm-up, then one timed step with ``weight_grid.launches`` reset just
+    before: one launch a channel, the row's ``launches``), and channel 0
+    against the all-plain uniform step (within 1e-4 of its peak inside
+    the field, as the natural step)."""
+    import numpy as np
+
+    cfg = bench_config()
+    N, ts, K = cfg.pixels, cfg.rv, cfg.kernel_width
+    uv, valid, weights, anchor = (x[0] for x in (
+        batch.uv, batch.valid, batch.weights, batch.anchor))
+    P = weights.shape[-1]
+    kw = dict(anchor=anchor, ts=ts, kernel_width=K)
+    out = {}
+
+    def kernel():
+        out["k"] = mc.weight_grid(P, N, uv, valid, weights, **kw)
+
+    def plain():
+        out["p"] = mc.weight_grid(P, N, uv, valid, weights, **kw,
+                                  plain=True)
+
+    flat_valid = valid.reshape(-1)
+    slots = flat_valid.numel()
+    cell = uv.reshape(-1, 2).long() + N // 2
+    idx = torch.where(flat_valid, cell[:, 1] * N + cell[:, 0],
+                      N * N + torch.arange(slots, device=dev))
+    flat_w = weights.reshape(-1, P)
+
+    def library():
+        g = torch.zeros((P, N * N + slots), device=dev)
+        for p in range(P):
+            g[p].index_put_((idx,), flat_w[:, p], accumulate=True)
+        out["l"] = g
+
+    ms, plain_ms, library_ms = timed_pair(plain, kernel, library=library)
+    k, pl = out["k"], out["p"]
+    again = mc.weight_grid(P, N, uv, valid, weights, **kw)
+    lib_same = torch.equal(out["l"][:, :N * N].view(P, N, N), pl)
+    nz = pl != 0
+    zeros_ok = bool((k[~nz] == 0).all())
+    err = ((k - pl).abs()[nz] / pl[nz].abs()).max().item() if zeros_ok \
+        else float("inf")
+    keep = valid.cpu().numpy().reshape(-1)
+    c = cell.cpu().numpy()[keep]
+    w = flat_w.cpu().numpy()[keep]
+    fold = np.zeros((P, N, N), np.float32)
+    for p in range(P):
+        np.add.at(fold[p], (c[:, 1], c[:, 0]), w[:, p])
+    serial = bool(np.array_equal(k.cpu().numpy(), fold))
+    twice = torch.equal(k.view(torch.int32), again.view(torch.int32))
+    plain_same = torch.equal(k, pl)
+    n_valid = int(keep.sum())
+    device = kernel_us(kernel, 20)
+    del out, k, pl, again, nz, idx, cell, flat_valid, fold
+
+    ucfg = dataclasses.replace(cfg, weight_type="uniform")
+    step = mc.single_channel_step(ucfg)
+    args = [mc.channel_args(batch, ch) for ch in range(num_channels)]
+    for a in args:                                 # warm-up
+        step(*a)
+    torch.cuda.synchronize()
+    mc.weight_grid.launches = 0
+    t0 = time.perf_counter()
+    dirty = [step(*a)[0] for a in args]
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = mc.weight_grid.launches
+    ref = mc.single_channel_step(ucfg, plain=True)(*args[0])[0]
+    peak = ref.abs().max().item()
+    step_err = (dirty[0] - ref).abs()[:, inside].max().item() / peak
+    finite = all(bool(torch.isfinite(d).all()) for d in dirty)
+    num_vis = int(batch.valid.sum())
+    emit({"phase": "uniform_step", "card": card,
+          "num_channels": num_channels, "elapsed_s": elapsed,
+          "mvis_per_s": num_vis / elapsed / 1e6,
+          "weight_grid_launches": launches,
+          "max_err_inside_over_peak": step_err, "tolerance": 1e-4,
+          "peak": peak, "finite": finite})
+    if launches != num_channels:
+        raise AssertionError(f"the uniform step launched the weight grid "
+                             f"{launches} times, expected {num_channels}")
+    if not (step_err <= 1e-4 and finite and peak > 0):
+        raise AssertionError("uniform step parity failed")
+    del dirty, ref
+
+    record("weights grid", "katsdpimager_tpu_torch/csrc/weights.cu",
+           "none (XLA scatter-add, katsdpimager_tpu/parallel/"
+           "multichannel.py:124-130)", err, 1e-6, ms, plain_ms,
+           bound(n_valid * (8 + 4 * P) + P * N * N * 4),
+           library_ms=library_ms,
+           library="index_put_(accumulate=True) over every slot, each "
+                   "padding slot to its own cell past N^2",
+           extra={"bitwise_serial_fold": serial,
+                  "bitwise_two_launches": twice,
+                  "plain_bitwise": plain_same,
+                  "library_bitwise_plain": lib_same},
+           extra_ok=serial and twice,
+           detail={"slots": slots, "valid_slots": n_valid,
+                   "uniform_step_launches": launches,
+                   "device_us": device})
+    rows[-1]["launches"] = launches
 
 
 def wave_phases(mcfg, batch, num_channels, rows, card, mc, cube, fourier,

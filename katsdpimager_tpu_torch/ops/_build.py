@@ -69,6 +69,8 @@ SIGNATURES = {
     # stream
     "ktt_degrid_planes": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _P],
+    # uv, weights, anchor, valid, out, S, NC, Mc, P, N, ts, kb, stream
+    "ktt_weight_grid": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # xr, xi, tw, yr, yi, B, N, M, sign, stream
     "ktt_col_fft": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # idx, tab, out, M, W, L, recombine, stream

@@ -258,8 +258,9 @@ def _channel_density_psf(cfg: CubeConfig, kernel, taper1d, pixel_size,
     # ---- imaging weights (natural / uniform / robust; Briggs formulas,
     # including the robust mean-weight pass)
     if cfg.weight_type in ("uniform", "robust"):
-        wgrid = psum(multichannel.weight_grid(Pp, N, uv, valid, weights),
-                     mesh)
+        wgrid = psum(multichannel.weight_grid(
+            Pp, N, uv, valid, weights, anchor=anchor, ts=cfg.rv,
+            kernel_width=cfg.kernel_width, plain=plain), mesh)
         if cfg.weight_type == "robust":
             w0 = wgrid[0]
             mean_w = (w0 * w0).sum() / w0.sum()

@@ -19,8 +19,10 @@ import numpy as np
 import torch
 
 from .. import device as device_mod
+from ..ops import _build
 from ..ops import clean as clean_ops
 from ..ops import fourier, fused_fft, mxu_gridder
+from ..ops import weights as weights_ops
 from ..profiling import profile, profile_function
 from .mesh import pmax_ints, psum
 from .slices import scan_slices
@@ -80,30 +82,101 @@ class ChannelBatch(NamedTuple):
     n_chunks: torch.Tensor    # (C, S) int64, host: occupied chunks
 
 
-def weight_grid(num_pols: int, pixels: int, uv, valid, weights):
-    """The (P, N, N) grid of summed imaging weights per uv cell; cells
-    outside the grid are dropped."""
+#: The polarizations the weight grid's kernel takes (it holds P planes of
+#: a 64 x 64 region in shared memory), its largest tile size and its
+#: largest chunk (a thread a slot).
+WEIGHT_GRID_MAX_POLS = 4
+WEIGHT_GRID_MAX_TILE = 256
+WEIGHT_GRID_MAX_CHUNK = 256
+
+
+def weight_grid_plain(num_pols: int, pixels: int, uv, valid, weights):
+    """Plain PyTorch version of :func:`weight_grid`: the valid slots'
+    weights summed into their cells by :func:`..ops.weights.grid_weights`
+    (``index_put_`` with accumulation); cells outside the grid are
+    dropped.  Reads no anchor and takes any leading shape (``uv`` (...,
+    2), ``valid`` (...), ``weights`` (..., P))."""
+    keep = valid.reshape(-1)
+    wgrid = torch.zeros((num_pols, pixels, pixels), dtype=torch.float32,
+                        device=uv.device)
+    return weights_ops.grid_weights(wgrid, uv.reshape(-1, 2)[keep],
+                                    weights.reshape(-1, num_pols)[keep])
+
+
+def weight_grid(num_pols: int, pixels: int, uv, valid, weights, *, anchor,
+                ts: int, kernel_width: int, plain: bool = False):
+    """The (P, N, N) grid of summed imaging weights per uv cell of one
+    channel's chunks; cells outside the grid are dropped.
+
+    uv (S, NC, Mc, 2) int32, valid (S, NC, Mc) bool, weights (S, NC, Mc,
+    P) f32 and anchor (S, NC, 2) int32 in the layout of the tile-aligned
+    planner (:func:`..ops.mxu_gridder.plan_chunks_tiled`) at tile size
+    ``ts`` for ``kernel_width``.  CPU tensors, or ``plain``, run
+    :func:`weight_grid_plain`; CUDA tensors launch ``ktt_weight_grid``
+    (``csrc/weights.cu``) or raise.
+
+    The kernel reads the uv and weights of valid slots only, never a
+    padding slot's, and relies on the planner's layout: each chunk's
+    valid slots a prefix, each slice's occupied chunks first, sorted by
+    tile, every valid cell inside its chunk's window
+    ``anchor + (K - 1) // 2`` (the window
+    :func:`..ops.fused_gridder.samples` reads the density from).  A CTA
+    owns a tile's window (or a 64 x 64 part of it), finds the tile's run
+    of chunks in each slice on the device and writes each of its cells
+    once; each cell's sum is the float32 fold of its slots in slot order,
+    with no atomics, so two launches are bitwise equal.  Bound by bytes:
+    the valid slots' uv and weights read once, the grid written once (see
+    the CUDA source)."""
+    if plain or uv.device.type == "cpu":
+        return weight_grid_plain(num_pols, pixels, uv, valid, weights)
+    dev = uv.device
     N, Pp = pixels, num_pols
-    half = N // 2
-    flat_uv = uv.reshape(-1, 2).long()
-    flat_w = (weights * valid[..., None]).reshape(-1, Pp)
-    rows = flat_uv[:, 1] + half
-    cols = flat_uv[:, 0] + half
-    keep = (rows >= 0) & (rows < N) & (cols >= 0) & (cols < N)
-    vals = torch.where(keep[:, None], flat_w, 0.0)
-    rows = rows.clamp(0, N - 1)
-    cols = cols.clamp(0, N - 1)
-    wgrid = torch.zeros((Pp, N, N), dtype=torch.float32, device=uv.device)
-    for p in range(Pp):
-        wgrid[p].index_put_((rows, cols), vals[:, p], accumulate=True)
+    kb = (kernel_width - 1) // 2
+    if Pp > WEIGHT_GRID_MAX_POLS:
+        raise NotImplementedError(f"the weight grid's kernel takes at most "
+                                  f"{WEIGHT_GRID_MAX_POLS} polarizations, "
+                                  f"not {Pp}")
+    if not 1 <= ts <= WEIGHT_GRID_MAX_TILE or not 0 <= kb < ts:
+        raise NotImplementedError(f"the weight grid's kernel takes ts in [1, "
+                                  f"{WEIGHT_GRID_MAX_TILE}] with (K - 1) // 2 "
+                                  f"< ts, not ts {ts}, K {kernel_width}")
+    S, NC, Mc = valid.shape
+    if Mc > WEIGHT_GRID_MAX_CHUNK:
+        raise NotImplementedError(f"the weight grid's kernel takes chunks of "
+                                  f"at most {WEIGHT_GRID_MAX_CHUNK} slots, "
+                                  f"not {Mc}")
+    uv, valid, weights, anchor = (
+        x.contiguous() for x in (uv, valid, weights, anchor))
+    _build.expect(uv, "uv", torch.int32, (S, NC, Mc, 2), dev)
+    _build.expect(valid, "valid", torch.bool, (S, NC, Mc), dev)
+    _build.expect(weights, "weights", torch.float32, (S, NC, Mc, Pp), dev)
+    _build.expect(anchor, "anchor", torch.int32, (S, NC, 2), dev)
+    wgrid = torch.empty((Pp, N, N), dtype=torch.float32, device=dev)
+    lib = _build.load()
+    err = lib.ktt_weight_grid(
+        uv.data_ptr(), weights.data_ptr(), anchor.data_ptr(),
+        valid.data_ptr(), wgrid.data_ptr(), S, NC, Mc, Pp, N, ts, kb,
+        _build.stream_of(wgrid))
+    _build.check(err, "ktt_weight_grid")
+    # Counted on the function itself: a caller may wrap the module's name.
+    _weight_grid.launches += 1
     return wgrid
 
 
+weight_grid.launches = 0
+_weight_grid = weight_grid
+
+
 @profile_function("multichannel.weights")
-def _density(cfg: MultiChannelConfig, uv, valid, weights, mesh=None):
+def _density(cfg: MultiChannelConfig, uv, anchor, valid, weights, mesh=None,
+             plain: bool = False):
     """Uniform density weights ``1 / W`` per occupied cell of the
-    (P, N, N) weight grid, summed over the vis group under a mesh."""
-    wgrid = psum(weight_grid(cfg.num_pols, cfg.pixels, uv, valid, weights),
+    (P, N, N) weight grid, summed over the vis group under a mesh.
+    ``plain`` takes the weight grid's plain version.  It calls
+    :func:`weight_grid` through this module, where a caller may wrap it."""
+    wgrid = psum(weight_grid(cfg.num_pols, cfg.pixels, uv, valid, weights,
+                             anchor=anchor, ts=cfg.rv,
+                             kernel_width=cfg.kernel_width, plain=plain),
                  mesh)
     return torch.where(wgrid > 0,
                        1.0 / torch.where(wgrid > 0, wgrid, 1.0), 0.0)
@@ -221,7 +294,8 @@ def _channel_pipeline(cfg: MultiChannelConfig, kernel, taper1d, pixel_size,
     if cfg.weight_type == "natural":
         density = None
     elif cfg.weight_type == "uniform":
-        density = _density(cfg, uv, valid, weights, mesh)
+        density = _density(cfg, uv, anchor, valid, weights, mesh,
+                           plain=plain)
     else:
         raise ValueError(f"unknown weight_type {cfg.weight_type!r}")
     if nc_slices is None:

@@ -13,6 +13,7 @@ from katsdpimager_tpu_torch.ops import (clean, fused_degrid, fused_fft,
                                         fused_gridder, mxu_gridder)
 from katsdpimager_tpu_torch.parallel import cube, multichannel
 from test_torch_k1_schedule import k1_schedule
+from test_torch_weight_grid import add_at
 
 pytestmark = pytest.mark.gpu
 
@@ -413,6 +414,31 @@ def test_natural_step_never_syncs(cuda):
         got = step(*args)[0]
     finally:
         torch.cuda.set_sync_debug_mode("default")
+    assert sum(args[-1]) > 0
+    assert torch.equal(got, want)
+
+
+def test_uniform_step_never_syncs(cuda):
+    """The uniform-weight step keeps every value it needs on the card: the
+    weight grid's kernel finds each tile's chunks on the device, so no
+    host sync from the weights to the image; the main path launches it
+    once a channel."""
+    cfg = multichannel.MultiChannelConfig(
+        pixels=512, num_pols=4, kernel_width=16, oversample=8, w_planes=8,
+        w_slices=2, chunks_per_slice=64, chunk_size=256, rv=32, ru=32,
+        weight_type="uniform")
+    batch = multichannel.make_example_batch(cfg, 1, seed=5, device=cuda)
+    args = multichannel.channel_args(batch, 0)
+    step = multichannel.single_channel_step(cfg)
+    want = step(*args)[0]                         # builds and warms up
+    torch.cuda.synchronize()
+    launches = multichannel.weight_grid.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = step(*args)[0]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert multichannel.weight_grid.launches == launches + 1
     assert sum(args[-1]) > 0
     assert torch.equal(got, want)
 
@@ -1253,3 +1279,158 @@ def test_spans_share_the_device_trace_clock(cuda, tmp_path):
     for ev in kernels:
         t = launches[ev["args"]["correlation"]]
         assert any(s <= t <= e for s, e in k1)
+
+
+#: The weight grid's kernel at the tile sizes the planners give: one
+#: region a tile (ts <= 64, ts 8 at K = ts + 1), parts of 64 and 32 (ts
+#: 96), of 64 (ts 128), and P up to 4.
+WEIGHT_GRID_CASES = {
+    "512 px, ts 32": dict(pixels=512, K=16, ts=32, P=1),
+    "512 px, ts 32, P 4": dict(pixels=512, K=16, ts=32, P=4),
+    "ts 8, K 9": dict(pixels=256, K=9, ts=8, P=1),
+    "ts 50, K 16, P 3": dict(pixels=400, K=16, ts=50, P=3),
+    "ts 96, P 2": dict(pixels=1024, K=96, ts=96, P=2),
+    "ts 128": dict(pixels=2048, K=96, ts=128, P=1),
+}
+
+
+def _weight_grid_inputs(dev, seed, *, pixels, K, ts, P, S=2, n=20000,
+                        mc=256):
+    """One channel's (uv, valid, weights, anchor) from the planner: S
+    slices of ``n`` visibilities clustered round the centre, 2% of them
+    on cells past the grid's high edge (inside the last tiles' windows),
+    weights U(0.5, 2); then padding slots given far-off uv and weights
+    that would show, were they read."""
+    rng = np.random.default_rng(seed)
+    lim = pixels // 2 - K - 1
+    cfg = multichannel.MultiChannelConfig(
+        pixels=pixels, num_pols=P, kernel_width=K, oversample=8, w_planes=4,
+        w_slices=S, chunks_per_slice=4 * n // mc + 1024, chunk_size=mc,
+        rv=ts, ru=ts)
+    slices, ncs = [], []
+    for _ in range(S):
+        uv = np.clip(rng.normal(scale=lim / 3, size=(n, 2)), -lim, lim)
+        edge = rng.random(n) < 0.02
+        axis = rng.integers(0, 2, size=n)
+        uv[edge, axis[edge]] = rng.integers(
+            pixels // 2, pixels // 2 + ts // 2, size=int(edge.sum()))
+        uv = uv.astype(np.int16)
+        wt = rng.uniform(0.5, 2.0, size=(n, P)).astype(np.float32)
+        planned, nc = multichannel.chunk_channel(
+            cfg, uv, np.zeros_like(uv), np.zeros(n, np.int16),
+            np.ones((n, P), np.complex64), wt)
+        slices.append(planned)
+        ncs.append(nc)
+    NC = max(ncs) + 3
+    uv, anchor, valid, weights = (
+        np.stack([p[i][:NC] for p in slices]) for i in (0, 3, 4, 5))
+    pad = ~valid
+    uv[pad] = rng.integers(-pixels, pixels, size=(int(pad.sum()), 2))
+    weights[pad] = rng.uniform(1.0, 3.0, size=(int(pad.sum()), P))
+    return [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+            for x in (uv, valid, weights, anchor)]
+
+
+def _check_weight_grid(dev, pixels, K, ts, uv, valid, weights, anchor):
+    """The kernel's grid against the float32 serial fold (numpy's
+    ``add.at`` over the valid slots in slot order), bitwise, and against
+    the plain version on the card to 1e-6 of each cell; every cell
+    written (the grid's memory held NaN before); one launch."""
+    P = weights.shape[-1]
+    kw = dict(anchor=anchor, ts=ts, kernel_width=K)
+    nan = torch.full((P, pixels, pixels), float("nan"), device=dev)
+    del nan
+    launches = multichannel.weight_grid.launches
+    got = multichannel.weight_grid(P, pixels, uv, valid, weights, **kw)
+    plain = multichannel.weight_grid(P, pixels, uv, valid, weights, **kw,
+                                     plain=True)
+    torch.cuda.synchronize()
+    assert multichannel.weight_grid.launches == launches + 1
+    assert torch.isfinite(got).all()
+    assert ((got - plain).abs() <= 1e-6 * plain.abs()).all()
+    fold = add_at(pixels, uv.cpu(), valid.cpu(), weights.cpu(), np.float32)
+    np.testing.assert_array_equal(got.cpu().numpy(), fold)
+    assert fold.max() > 0
+    return got
+
+
+@pytest.mark.parametrize("case", list(WEIGHT_GRID_CASES))
+def test_weight_grid_matches_plain(cuda, case):
+    c = WEIGHT_GRID_CASES[case]
+    inputs = _weight_grid_inputs(cuda, 7, **c)
+    _check_weight_grid(cuda, c["pixels"], c["K"], c["ts"], *inputs)
+
+
+@pytest.fixture(scope="module")
+def production_channel():
+    """Channel 0 of the production batch under uniform weights (4096 px,
+    K = 60, ts 64, 4 slices of 2^19 visibilities in 8192 chunks of
+    256): its config and (uv, valid, weights, anchor)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cfg = multichannel.MultiChannelConfig(
+        pixels=4096, num_pols=1, kernel_width=60, oversample=8,
+        w_planes=32, w_slices=4, chunks_per_slice=8192, chunk_size=256,
+        rv=64, ru=64, weight_type="uniform")
+    batch = multichannel.make_example_batch(cfg, 1, vis_per_slice=1 << 19,
+                                            device="cuda")
+    return cfg, [x[0] for x in (batch.uv, batch.valid, batch.weights,
+                                batch.anchor)]
+
+
+def test_weight_grid_production_channel_matches_plain(cuda,
+                                                      production_channel):
+    cfg, inputs = production_channel
+    _check_weight_grid(cuda, cfg.pixels, cfg.kernel_width, cfg.rv, *inputs)
+
+
+def test_weight_grid_two_launches_are_bitwise_equal(cuda,
+                                                    production_channel):
+    """Each cell has one writer that adds its slots in slot order: two
+    launches at the production channel give the same bits."""
+    cfg, (uv, valid, weights, anchor) = production_channel
+    a, b = (multichannel.weight_grid(
+        1, cfg.pixels, uv, valid, weights, anchor=anchor, ts=cfg.rv,
+        kernel_width=cfg.kernel_width) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(a), _bits(b))
+    assert int((a > 0).sum()) > 0
+
+
+def test_weight_grid_counts_its_launches_when_wrapped(cuda, monkeypatch):
+    """A caller that wraps the module's ``weight_grid`` (as a benchmark's
+    timer does) still runs the kernel, and the function's own
+    ``launches`` counts it."""
+    original = multichannel.weight_grid
+    calls = []
+
+    def wrapped(*args, **kwargs):
+        calls.append(1)
+        return original(*args, **kwargs)
+
+    monkeypatch.setattr(multichannel, "weight_grid", wrapped)
+    cfg = multichannel.MultiChannelConfig(
+        pixels=256, num_pols=1, kernel_width=16, oversample=8, w_planes=8,
+        w_slices=2, chunks_per_slice=64, chunk_size=128, rv=32, ru=32,
+        weight_type="uniform")
+    batch = multichannel.make_example_batch(cfg, 2, seed=3, device=cuda)
+    step = multichannel.make_imaging_step(None, cfg)
+    launches = original.launches
+    step(batch)
+    torch.cuda.synchronize()
+    assert len(calls) == 2
+    assert original.launches == launches + 2
+
+
+def test_weight_grid_rejects_unsupported(cuda):
+    uv, valid, weights, anchor = _weight_grid_inputs(
+        cuda, 3, pixels=256, K=16, ts=32, P=1, n=2000)
+    kw = dict(anchor=anchor, kernel_width=16)
+    with pytest.raises(NotImplementedError):
+        multichannel.weight_grid(5, 256, uv, valid, weights.repeat(
+            1, 1, 1, 5), ts=32, **kw)
+    with pytest.raises(NotImplementedError):
+        multichannel.weight_grid(1, 256, uv, valid, weights, ts=300, **kw)
+    with pytest.raises(TypeError):
+        multichannel.weight_grid(1, 256, uv.long(), valid, weights, ts=32,
+                                 **kw)
