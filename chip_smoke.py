@@ -141,6 +141,14 @@ import time
 
 import torch
 
+from katsdpimager_tpu_torch.device import plain_versions
+
+
+def versions(plain: bool):
+    """A block in which every kernel wrapper runs its plain version where
+    ``plain`` (the all-plain reference), else one that changes nothing."""
+    return plain_versions() if plain else contextlib.nullcontext()
+
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense, at its
 # 700 W limit): the least time a kernel could take is the larger of its
@@ -577,8 +585,8 @@ def main() -> None:
 
     # ---- step parity: channel 0 against the all-plain step on the card
     got = dirty[0]
-    ref = mc.single_channel_step(cfg, plain=True)(
-        *mc.channel_args(batch, 0))[0]
+    with plain_versions():
+        ref = mc.single_channel_step(cfg)(*mc.channel_args(batch, 0))[0]
     t2 = torch.outer(taper, taper)
     inside = t2 >= 0.002 * t2.max()
     peak = ref.abs().max().item()
@@ -681,8 +689,8 @@ def weights_phase(dev, card, record, rows, mc, batch, num_channels,
         out["k"] = mc.weight_grid(P, N, uv, valid, weights, **kw)
 
     def plain():
-        out["p"] = mc.weight_grid(P, N, uv, valid, weights, **kw,
-                                  plain=True)
+        with plain_versions():
+            out["p"] = mc.weight_grid(P, N, uv, valid, weights, **kw)
 
     flat_valid = valid.reshape(-1)
     slots = flat_valid.numel()
@@ -730,7 +738,8 @@ def weights_phase(dev, card, record, rows, mc, batch, num_channels,
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = mc.weight_grid.launches
-    ref = mc.single_channel_step(ucfg, plain=True)(*args[0])[0]
+    with plain_versions():
+        ref = mc.single_channel_step(ucfg)(*args[0])[0]
     peak = ref.abs().max().item()
     step_err = (dirty[0] - ref).abs()[:, inside].max().item() / peak
     finite = all(bool(torch.isfinite(d).all()) for d in dirty)
@@ -881,7 +890,8 @@ def wave_phases(mcfg, batch, num_channels, rows, card, mc, cube, fourier,
                      fused_degrid)
 
     # ---- wave parity: channel 0 against the all-plain wave on the card
-    ref = cube.wave_image(cfg, b0, plain=True)
+    with plain_versions():
+        ref = cube.wave_image(cfg, b0)
     dirty = cube._grid_slices(cfg, kern, None, uv, sub, wp, anc, val, vis,
                               tap, ps, midw, b0.n_chunks[0].tolist())
     dirty_peak = (dirty / ref.psf_peak[0][:, None, None]).abs().max().item()
@@ -926,9 +936,11 @@ def wave_phases(mcfg, batch, num_channels, rows, card, mc, cube, fourier,
     parity("wave_parity", cfg.border_pixels, res, ref, everywhere=False)
     del ref
     cfg_in = dataclasses.replace(cfg, border_pixels=field_border(tap))
-    parity("wave_parity_border", cfg_in.border_pixels,
-           cube.wave_image(cfg_in, b0),
-           cube.wave_image(cfg_in, b0, plain=True), everywhere=True)
+    got = cube.wave_image(cfg_in, b0)
+    with plain_versions():
+        ref = cube.wave_image(cfg_in, b0)
+    parity("wave_parity_border", cfg_in.border_pixels, got, ref,
+           everywhere=True)
 
 
 def route_phase(dev, mc, cube, fused_fft) -> None:
@@ -948,14 +960,16 @@ def route_phase(dev, mc, cube, fused_fft) -> None:
     fused_fft.cb_col_fft.launches = fused_fft.pre_col_fft.launches = 0
     args = mc.channel_args(batch, 0)
     got = mc.single_channel_step(mcfg)(*args)[0]
-    ref = mc.single_channel_step(mcfg, plain=True)(*args)[0]
+    with plain_versions():
+        ref = mc.single_channel_step(mcfg)(*args)[0]
     step_err = (got - ref).abs()[:, inside].max().item() \
         / ref.abs().max().item()
     cfg = cube.CubeConfig(**small, majors=2, minor=500, patch=33,
                           psf_core=32)
     batch, _, flux = cube.with_point_sources(cfg, batch, seed=1)
     wave = cube.wave_image(cfg, batch)
-    wave_ref = cube.wave_image(cfg, batch, plain=True)
+    with plain_versions():
+        wave_ref = cube.wave_image(cfg, batch)
     wave_err = max((a - b).abs()[..., inside].max().item() for a, b in (
         (wave.model, wave_ref.model), (wave.residual, wave_ref.residual))) \
         / float(flux.max())
@@ -1398,7 +1412,8 @@ def cli_run(dataset, args, dev, *, plain=False, timed=("clean_cycles",)):
         fn.launches = 0
     t = time.perf_counter()
     try:
-        frontend.run(args, dataset, Capture(), device=dev, plain=plain)
+        with versions(plain):
+            frontend.run(args, dataset, Capture(), device=dev)
         torch.cuda.synchronize()
     finally:
         frontend.preprocess_visibilities = pre
@@ -1549,8 +1564,9 @@ def pipeline_phase(dev, card, rows) -> None:
                 fn.launches = 0
             t = time.perf_counter()
             try:
-                cap["timings"] = pipeline.run(args, dataset, writer,
-                                              device=dev, plain=plain)
+                with versions(plain):
+                    cap["timings"] = pipeline.run(args, dataset, writer,
+                                                  device=dev)
                 torch.cuda.synchronize()
             finally:
                 cube_frontend.batch_from_arrays = to_batch
@@ -2323,9 +2339,10 @@ def tiles_runs_phase(dev, card, dataset, vis_block: int) -> None:
             for fn in counters:
                 fn.launches = 0
             t = time.perf_counter()
-            pipeline.run(args, dataset,
-                         pipeline.PipelineWriter(out, thumbnails=False),
-                         device=dev, plain=plain)
+            with versions(plain):
+                pipeline.run(args, dataset,
+                             pipeline.PipelineWriter(out, thumbnails=False),
+                             device=dev)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t
             _, data = io.read_fits(os.path.join(out,
@@ -2671,17 +2688,18 @@ def k1_swapped(run):
         fused_gridder.grid_planes = saved
 
 
-def float64_grid_onto(grid, kernel, weights_grid, plan_uv, plan_sub,
-                      plan_wp, plan_vis, plan_anchor, plan_valid,
-                      dw_chunks=None, n_chunks=None, *, pixels: int, ts: int,
-                      plain: bool = False):
-    """``mxu_gridder.grid_chunks_onto`` at float64 throughout, for natural
-    weights: K1's plain version on float64 samples into float64 colour
-    planes, each occupied block added onto the float64 grid."""
+def float64_grid_slice(kernel, density, plan_uv, plan_sub, plan_wp,
+                       plan_vis, plan_anchor, plan_valid, n_chunks, *,
+                       pixels: int, ts: int, dw_chunks=None, out=None):
+    """``fused_gridder.grid_slice`` onto float64 grid planes ``out`` at
+    float64 throughout, for natural weights: K1's plain version on
+    float64 samples into float64 colour planes, each occupied block added
+    onto the float64 grid."""
     from katsdpimager_tpu_torch.ops import fused_gridder, mxu_gridder
 
-    if weights_grid is not None or dw_chunks is not None:
-        raise NotImplementedError("natural weights only")
+    if density is not None or dw_chunks is not None or out is None:
+        raise NotImplementedError("natural weights onto given planes only")
+    grid = out
     nt2 = mxu_gridder.colour_tiles(pixels, ts)
     iu, iv, su, sv = fused_gridder.tap_indices(
         kernel, plan_uv, plan_sub, plan_wp, plan_anchor, pixels=pixels,
@@ -2712,14 +2730,14 @@ def float64_grid_onto(grid, kernel, weights_grid, plan_uv, plan_sub,
 def k1_image_phase(card, cfg, batch, inside, mc, parent) -> None:
     """K1's error as the dirty image sees it: channel 0 of the step's
     batch imaged at float64 throughout (K1's plain version at float64,
-    :func:`float64_grid_onto`, then the double route: grids, transforms
+    :func:`float64_grid_slice`, then the double route: grids, transforms
     and taper at float64) as the reference; against it, the float32 step
     and the double route as the port runs it (K1's float32 planes, the
     rest at float64: K1's own share), over the reference's peak inside
     the field; with the parent's K1 (``parent``) beside.  Printed, not
     gated: the batch is noise, whose dirty peak is low (the step's gate
     against its plain version is ``step_parity``'s)."""
-    from katsdpimager_tpu_torch.ops import mxu_gridder
+    from katsdpimager_tpu_torch.ops import fused_gridder
 
     db = batch._replace(taper1d=batch.taper1d.double(),
                         pixel_size=batch.pixel_size.double(),
@@ -2730,12 +2748,12 @@ def k1_image_phase(card, cfg, batch, inside, mc, parent) -> None:
     def image(b):
         return step(*mc.channel_args(b, 0))[0].double()
 
-    saved = mxu_gridder.grid_chunks_onto
-    mxu_gridder.grid_chunks_onto = float64_grid_onto
+    saved = fused_gridder.grid_slice
+    fused_gridder.grid_slice = float64_grid_slice
     try:
         ref = image(db)
     finally:
-        mxu_gridder.grid_chunks_onto = saved
+        fused_gridder.grid_slice = saved
     peak = ref.abs().max().item()
 
     def errors():
@@ -2972,7 +2990,7 @@ def device_plan_phase(dev, card, cfg, batch, rows) -> None:
 
     import numpy as np
 
-    from katsdpimager_tpu_torch import native
+    from katsdpimager_tpu_torch import imaging, native
     from katsdpimager_tpu_torch.ops import fused_gridder, mxu_gridder
 
     raw = production_slice(cfg)
@@ -2992,9 +3010,8 @@ def device_plan_phase(dev, card, cfg, batch, rows) -> None:
         for f in ("uv", "sub_uv", "w_plane", "vis", "weights", "anchor",
                   "valid"))}
 
-    gridder = mxu_gridder.MxuGridder(pixels=cfg.pixels,
-                                     kernel_width=cfg.kernel_width,
-                                     device=dev)
+    gridder = imaging.MxuGridder(pixels=cfg.pixels,
+                                 kernel_width=cfg.kernel_width, device=dev)
     upload_s = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -3042,8 +3059,8 @@ def device_plan_phase(dev, card, cfg, batch, rows) -> None:
     fields = ("uv", "sub_uv", "w_plane", "vis", "anchor", "valid")
 
     def grid(p):
-        return mxu_gridder.grid_chunks_parts(
-            kern, None, *(p[f] for f in fields), None, n_chunks,
+        return fused_gridder.grid_slice(
+            kern, None, *(p[f] for f in fields), n_chunks,
             pixels=cfg.pixels, ts=cfg.rv)
 
     want = grid({f: torch.from_numpy(getattr(host, f)).to(dev)

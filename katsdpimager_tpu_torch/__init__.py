@@ -5,7 +5,8 @@ it is tested against).  Plain tensor code is PyTorch; every kernel that
 the JAX package wrote in Pallas is a hand-written CUDA C++ kernel under
 ``csrc/``, built with ``nvcc`` for ``sm_90a`` at first use
 (:mod:`.ops._build`).  Each kernel wrapper launches its kernel for CUDA
-tensors and runs the kernel's plain PyTorch version for CPU tensors.
+tensors and runs the kernel's plain PyTorch version for CPU tensors, or
+for any tensor inside :func:`.device.plain_versions`.
 
 The package imports no JAX and nothing of the JAX package.  Its host
 modules (``units``, ``polarization``, ``parameters``, ``arguments``,

@@ -340,12 +340,11 @@ def pack_agreed(pack, cfg, mesh) -> tuple:
         logger.info("Growing chunk capacity to %d", cfg.chunks_per_slice)
 
 
-def run_cube(args, dataset, writer, *, device=None,
-             plain: bool = False) -> list:
+def run_cube(args, dataset, writer, *, device=None) -> list:
     """Image the requested channel range in waves of ``mesh.shape["chan"]``
     channels on ``device`` (None: this rank's card under a process group,
-    else the CUDA device, which must exist); ``plain`` runs every
-    kernel's plain version.  Only rank 0 writes through ``writer``.
+    else the CUDA device, which must exist).  Only rank 0 writes
+    through ``writer``.
     Returns one dict per wave run of this rank: its channel, its host
     seconds (``host_s``: preprocess and pack in the worker;
     ``blocked_s``: the wait for it; ``device_write_s``: the device
@@ -545,7 +544,7 @@ def run_cube(args, dataset, writer, *, device=None,
                                  grid_ps, [mine], mine, pol_index, device)
 
             if auto_patch:
-                psf_res = cube.wave_psf(cfg, batch, plain=plain, mesh=mesh)
+                psf_res = cube.wave_psf(cfg, batch, mesh=mesh)
                 psf_np = psf_res.psf.cpu().numpy()
                 box = clean_ops.psf_patch(psf_np[0], args.psf_cutoff,
                                           args.psf_limit)
@@ -556,7 +555,7 @@ def run_cube(args, dataset, writer, *, device=None,
                 logger.info("Wave %s: PSF patch %dx%d (need %d)",
                             wave_channels, patch, patch, need)
                 residual, model, noise_t, minor_t = cube.wave_clean(
-                    cfg, batch, psf_res, patch, sky, plain=plain, mesh=mesh)
+                    cfg, batch, psf_res, patch, sky, mesh=mesh)
                 half = cfg.pixels // 2
                 c0 = half - cfg.psf_core // 2
                 cores = psf_np[:, :, c0:c0 + cfg.psf_core,
@@ -568,8 +567,7 @@ def run_cube(args, dataset, writer, *, device=None,
                     psf_res.normalized_noise)
                 patch_used = patch
             else:
-                result = cube.wave_image(cfg, batch, sky, plain=plain,
-                                         mesh=mesh)
+                result = cube.wave_image(cfg, batch, sky, mesh=mesh)
                 ms, fitted_beams = cube.fit_wave_beams(result.psf_core)
                 patch_used = cfg.patch
             image_p = image_ps[0]

@@ -6,9 +6,9 @@ Counterpart of :mod:`katsdpimager_tpu.frontend`, with the same flag
 surface (:func:`add_options`), ``Writer`` contract and per-channel
 processing order.  The imaging state of a channel lives on one torch
 device (:class:`.imaging.Imaging`): CUDA, where every kernel of the path
-runs, or the CPU, where the kernels' plain versions run.  ``plain`` runs
-the plain versions on CUDA too (the reference the kernels are checked
-against).
+runs, or the CPU, where the kernels' plain versions run (and on CUDA
+too inside :func:`.device.plain_versions`: the reference the kernels are
+checked against).
 """
 
 from __future__ import annotations
@@ -359,10 +359,9 @@ class Writer:
 @profile_function
 def process_channel(dataset, args, start_channel, reader, writer,
                     channel_p, array_p, weight_p, clean_p,
-                    subtract_model, *, device=None,
-                    plain: bool = False) -> Optional[dict]:
+                    subtract_model, *, device=None) -> Optional[dict]:
     """Image one channel on ``device`` (None: the CUDA device, which must
-    exist); ``plain`` runs every kernel's plain version."""
+    exist)."""
     device = device_mod.resolve(device)
     channel = channel_p.channel
     rel_channel = channel - start_channel
@@ -383,7 +382,7 @@ def process_channel(dataset, args, start_channel, reader, writer,
 
     logger.info("Processing channel %d", channel)
     imager = imaging.Imaging(image_p, grid_p, weight_p, clean_p,
-                             device=device, plain=plain)
+                             device=device)
     imager.clear_model()
 
     # Imaging weights
@@ -527,10 +526,9 @@ def process_channel(dataset, args, start_channel, reader, writer,
 # ---------------------------------------------------------------------------
 # Top level
 
-def run(args, dataset, writer, *, device=None, plain: bool = False):
+def run(args, dataset, writer, *, device=None):
     """Run the whole pipeline on ``device`` (default: by ``--host``, see
-    :func:`.device.select`); ``plain`` runs every kernel's plain version
-    whatever the device."""
+    :func:`.device.select`)."""
     if device is None:
         device = device_mod.select(getattr(args, "host", False))
     input_polarizations = dataset.polarizations()
@@ -599,7 +597,6 @@ def run(args, dataset, writer, *, device=None, plain: bool = False):
         for channel_p in params:
             results.append(process_channel(
                 dataset, args, start_channel, reader, writer, channel_p,
-                array_p, weight_p, clean_p, subtract_model, device=device,
-                plain=plain))
+                array_p, weight_p, clean_p, subtract_model, device=device))
         reader.close()
     return results

@@ -12,9 +12,9 @@ surface that the frontend calls.  The state lives on one device:
 
 The W-slice loop runs through kernels K1 + K2 (grid onto the running
 grid), K3 + K4 (grid -> dirty image) and, for the degridding major cycle,
-K6 + K7 (model -> grid) and K5 (degrid); ``plain`` runs every kernel's
-plain version whatever the device.  Chunk plans are cached per (w_slice,
-block): coordinates are fixed across major cycles, only vis change.
+K6 + K7 (model -> grid) and K5 (degrid), planned and dispatched by
+:class:`MxuGridder`.  Chunk plans are cached per (w_slice, block):
+coordinates are fixed across major cycles, only vis change.
 
 ``--precision double`` follows the JAX package's route on its chip: the
 grid, the images, the taper, CLEAN and the beam at float64; K1 still
@@ -38,7 +38,8 @@ from .ops import wkernel
 
 from .ops import beam as beam_ops
 from .ops import clean as clean_ops
-from .ops import fourier, gridder, mxu_gridder, predict
+from .ops import fourier, fused_degrid, fused_gridder, gridder, mxu_gridder
+from .ops import predict
 from .ops import weights as weight_ops
 from .profiling import profile_function
 
@@ -47,12 +48,89 @@ logger = logging.getLogger(__name__)
 _logged_double = False
 
 
+class MxuGridder:
+    """Plan on the host, grid and degrid on the device (dense mode).
+
+    Counterpart of :class:`katsdpimager_tpu.ops.mxu_gridder.MxuGridder`
+    for a (channel, w_slice) visibility set whose coordinates are fixed
+    across major cycles.  Plans are the tile-aligned layout of
+    :func:`.ops.mxu_gridder.plan_chunks_tiled` at the tile size of
+    :func:`.ops.mxu_gridder.tile_size`; :meth:`upload_plan` moves one to
+    ``device`` once (None: the CUDA device, which must exist)."""
+
+    def __init__(self, *, pixels: int, kernel_width: int, device=None):
+        self.pixels = pixels
+        self.K = kernel_width
+        self.ts = mxu_gridder.tile_size(pixels, kernel_width)
+        self.device = device_mod.resolve(device)
+
+    def plan(self, uv, sub_uv, w_plane, vis, weights) -> mxu_gridder.ChunkPlan:
+        """The host plan of one block of visibilities (numpy)."""
+        return mxu_gridder.plan_chunks_tiled(
+            np.asarray(uv), np.asarray(sub_uv), np.asarray(w_plane),
+            np.asarray(vis), np.asarray(weights), pixels=self.pixels,
+            kernel_width=self.K, ts=self.ts, mc=mxu_gridder.CHUNK_SIZE)
+
+    def upload_plan(self, plan: mxu_gridder.ChunkPlan
+                    ) -> mxu_gridder.ChunkPlan:
+        """The plan's coordinate fields, weights and row mapping as
+        tensors on the device, uploaded once (the vis payload stays
+        behind: grid and degrid take ``vis_chunked``)."""
+        def dev(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+        return plan._replace(
+            uv=dev(plan.uv), sub_uv=dev(plan.sub_uv),
+            w_plane=dev(plan.w_plane), vis=None, weights=dev(plan.weights),
+            anchor=dev(plan.anchor), valid=dev(plan.valid),
+            row_chunk=dev(np.asarray(plan.row_chunk, np.int64)),
+            row_slot=dev(np.asarray(plan.row_slot, np.int64)))
+
+    def grid(self, grid, kernel, weights_grid, plan: mxu_gridder.ChunkPlan,
+             vis_chunked, dw_chunks=None, n_chunks=None):
+        """Add the planned chunks onto ``grid`` (a ``(gr, gi)`` pair of
+        (P, N, N) planes) in place; returns it.  ``dw_chunks``
+        (NC, Mc, P) gives each visibility's density weight (skipping the
+        gather from ``weights_grid``); ``n_chunks`` (host int) the
+        occupied chunks, else counted with a device sync."""
+        if plan.uv.shape[0] == 0:
+            return grid
+        return fused_gridder.grid_slice(
+            kernel, weights_grid, plan.uv, plan.sub_uv, plan.w_plane,
+            vis_chunked, plan.anchor, plan.valid, n_chunks,
+            pixels=self.pixels, ts=self.ts, dw_chunks=dw_chunks, out=grid)
+
+    def degrid(self, grid, kernel, plan: mxu_gridder.ChunkPlan, vis_chunked,
+               n_chunks=None):
+        """``vis_chunked - weights * prediction`` (NC, Mc, P) from the
+        ``(gr, gi)`` model grid planes.  The JAX method pads the grid by
+        (ts, ts) first; K5 reads cells outside the planes as zero, which
+        is what that padding gave."""
+        if plan.uv.shape[0] == 0:
+            return vis_chunked
+        return fused_degrid.degrid_slice(
+            grid, kernel, plan.uv, plan.sub_uv, plan.w_plane, plan.weights,
+            vis_chunked, plan.anchor, plan.valid, n_chunks,
+            pixels=self.pixels, ts=self.ts)
+
+    def chunk_vis(self, plan: mxu_gridder.ChunkPlan, vis):
+        """A flat (n, P) complex64 vis tensor in the (NC, Mc, P) chunk
+        layout (zero in padding slots)."""
+        out = torch.zeros(plan.weights.shape, dtype=torch.complex64,
+                          device=vis.device)
+        out[plan.row_chunk, plan.row_slot] = vis.to(torch.complex64)
+        return out
+
+    def unchunk_vis(self, plan: mxu_gridder.ChunkPlan, vis_chunked):
+        """Inverse of :meth:`chunk_vis`: the flat (n, P) vis."""
+        return vis_chunked[plan.row_chunk, plan.row_slot]
+
+
 class Imaging:
     """Imaging state and operations for one channel on ``device`` (None:
     the CUDA device, which must exist; see :mod:`.device`)."""
 
-    def __init__(self, image_p, grid_p, weight_p, clean_p, *, device=None,
-                 plain: bool = False):
+    def __init__(self, image_p, grid_p, weight_p, clean_p, *, device=None):
         global _logged_double
         double = image_p.fixed.real_dtype == np.float64
         self._rdtype = rdtype = torch.float64 if double else torch.float32
@@ -66,7 +144,6 @@ class Imaging:
         self.weight_p = weight_p
         self.clean_p = clean_p
         self.device = dev = device_mod.resolve(device)
-        self.plain = plain
 
         N = image_p.pixels
         P = image_p.fixed.num_polarizations
@@ -103,9 +180,8 @@ class Imaging:
         self._model_lmn = self._model_flux = None
         self._model_xi = self._model_yi = None
 
-        self._mxu = mxu_gridder.MxuGridder(
-            pixels=N, kernel_width=fixed.kernel_width, device=dev,
-            plain=plain)
+        self._mxu = MxuGridder(pixels=N, kernel_width=fixed.kernel_width,
+                               device=dev)
         self._plans: dict = {}
         self._dw_cache: dict = {}
 
@@ -277,8 +353,7 @@ class Imaging:
         """The model image's grid at W ``w`` as (gr, gi) planes, for
         degridding."""
         return fourier.image_to_grid_parts(
-            self.model, self.taper1d, float(w), self.image_p.pixel_size,
-            plain=self.plain)
+            self.model, self.taper1d, float(w), self.image_p.pixel_size)
 
     def continuum_predict(self, chunk, vis, w_slice: int):
         return self.predict_chunk(chunk, vis, w_slice, self._sky_lmn,
@@ -313,7 +388,7 @@ class Imaging:
         gr, gi = self.grid
         self.dirty = fourier.grid_to_image_parts(
             gr, gi, self.dirty, self.taper1d, float(self.mid_w[w_slice]),
-            self.image_p.pixel_size, plain=self.plain)
+            self.image_p.pixel_size)
 
     # ------------------------------------------------------------------
     # normalisation / PSF

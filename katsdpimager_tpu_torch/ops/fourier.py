@@ -104,19 +104,17 @@ def grid_to_image_plain(grid, image, kernel1d, w, pixel_size):
     return image + (layer.real * a + layer.imag * b).to(rdtype)
 
 
-def grid_to_image_parts(gr, gi, image, kernel1d, w, pixel_size, *,
-                        plain: bool = False):
+def grid_to_image_parts(gr, gi, image, kernel1d, w, pixel_size):
     """:func:`grid_to_image` taking the grid as (P, N, N) f32 re/im planes.
 
     Where :func:`use_fused_fft` holds, kernels K3 and K4 run on the
-    transposed image (their plain versions with ``plain``); elsewhere the
-    plain formula.  Returns the new image."""
+    transposed image; elsewhere the plain formula.  Returns the new
+    image."""
     if not use_fused_fft(image.shape[-1], gr.device, image.dtype, gr.dtype):
         return grid_to_image_plain(torch.complex(gr, gi), image, kernel1d, w,
                                    pixel_size)
     imageT = image.transpose(-1, -2).contiguous()
-    grid_to_image_fused_parts(gr, gi, imageT, kernel1d, w, pixel_size,
-                              plain=plain)
+    grid_to_image_fused_parts(gr, gi, imageT, kernel1d, w, pixel_size)
     return imageT.transpose(-1, -2).contiguous()
 
 
@@ -148,21 +146,18 @@ def image_to_grid_plain(image, kernel1d, w, pixel_size):
     return torch.fft.fft2(layer) * cb
 
 
-def image_to_grid_parts(image, kernel1d, w, pixel_size, *,
-                        plain: bool = False):
+def image_to_grid_parts(image, kernel1d, w, pixel_size):
     """:func:`image_to_grid` returning the grid as (P, N, N) f32 re/im
     planes (the fused degridder's input layout).
 
     Where :func:`use_fused_fft` holds, kernels K6 and K7 run on the
-    transposed image (their plain versions with ``plain``); elsewhere the
-    plain formula."""
+    transposed image; elsewhere the plain formula."""
     if not use_fused_fft(image.shape[-1], image.device, image.dtype):
         g = image_to_grid_plain(image, kernel1d, w, pixel_size)
         return (g.real.to(torch.float32).contiguous(),
                 g.imag.to(torch.float32).contiguous())
     imageT = image.transpose(-1, -2).contiguous()
-    return image_to_grid_fused_parts(imageT, kernel1d, w, pixel_size,
-                                     plain=plain)
+    return image_to_grid_fused_parts(imageT, kernel1d, w, pixel_size)
 
 
 def scale_image(image, scale):

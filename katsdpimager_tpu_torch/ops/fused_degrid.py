@@ -1,9 +1,9 @@
 r"""Fused degridder: kernel K5 and its prep.
 
-Counterpart of :func:`katsdpimager_tpu.ops.pallas_gridder.degrid_chunks_fused`.
-For each of the first ``count[c]`` slots ``m`` of every occupied chunk
-``c`` (its valid slots: the planner puts them first), the model
-prediction
+Counterpart of :func:`katsdpimager_tpu.ops.pallas_gridder.degrid_chunks_fused`,
+with one entry point for a slice, :func:`degrid_slice`.  For each of the
+first ``count[c]`` slots ``m`` of every occupied chunk ``c`` (its valid
+slots: the planner puts them first), the model prediction
 
     pred[p, m] = sum_j sum_k kv[m, j] G[p, av + sv[m] + j, au + su[m] + k] ku[m, k]
 
@@ -23,7 +23,7 @@ The kernel is hand-written CUDA (``csrc/degrid.cu``): valid slots only,
 sorted by row shift, the footprint streamed through a ring of row blocks
 whose layout ``csrc/degrid_layout.h`` chooses from (ts, K, Mc, P).  Its
 plain PyTorch version here gathers the windows in groups of chunks, as
-the plain K1 does, and CPU tensors run it.
+the plain K1 does, and runs where :func:`..device.runs_plain` says.
 """
 
 from __future__ import annotations
@@ -31,9 +31,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..device import runs_plain
 from . import _build
 from .fused_gridder import _shifted_rows, tap_indices, valid_counts
-from .mxu_gridder import dense_pad_size
+from .mxu_gridder import dense_pad_size, occupied_chunks
 
 #: Chunks per group in the plain K5 (bounds its (P, G, Mc, W) products).
 _PLAIN_GROUP = 256
@@ -107,10 +108,10 @@ def degrid_planes(gr, gi, av, au, count, iu, iv, su, sv, table, n: int, *,
     table (W*O, K) complex64, the unconjugated kernel rows.  The ranges
     are :func:`degrid_taps`' invariants; the kernel does not check them.
 
-    CPU tensors run :func:`degrid_planes_plain`; CUDA tensors launch
-    ``ktt_degrid_planes`` (``csrc/degrid.cu``) or raise, also where no
-    layout fits: K > ts + 1, K > 256, or Mc * P accumulators beyond a CUDA
-    block's shared memory.
+    Runs :func:`degrid_planes_plain` where :func:`..device.runs_plain`
+    holds; otherwise launches ``ktt_degrid_planes`` (``csrc/degrid.cu``)
+    or raises, also where no layout fits: K > ts + 1, K > 256, or Mc * P
+    accumulators beyond a CUDA block's shared memory.
 
     Replaces ``katsdpimager_tpu/ops/pallas_gridder.py:_make_degrid_kernel``.
     Bound by shared-memory reads (one 8-byte window value per complex
@@ -119,7 +120,7 @@ def degrid_planes(gr, gi, av, au, count, iu, iv, su, sv, table, n: int, *,
     ring of row blocks, a warp per visibility with all its rows present
     (details in the CUDA source).
     """
-    if gr.device.type == "cpu":
+    if runs_plain(gr):
         return degrid_planes_plain(gr, gi, av, au, count, iu, iv, su, sv,
                                    table, n, ts=ts)
     dev = gr.device
@@ -153,15 +154,32 @@ def degrid_planes(gr, gi, av, au, count, iu, iv, su, sv, table, n: int, *,
 degrid_planes.launches = 0
 
 
-def degrid_chunks_fused(gr, gi, kernel, plan_uv, plan_sub, plan_wp,
-                        plan_anchor, plan_valid, n_chunks: int, *,
-                        pixels: int, ts: int, plain: bool = False):
-    """Prep plus K5: predicted (NC, Mc, P) complex64 for the valid slots
-    of the first ``n_chunks`` chunks (zero elsewhere) from the (P, N, N)
-    f32 grid planes.  Callers apply weights.  ``plain`` runs K5's plain
-    version whatever the device."""
+def degrid_slice(grid, kernel, plan_uv, plan_sub, plan_wp, plan_wt,
+                 plan_vis, plan_anchor, plan_valid, n_chunks=None, *,
+                 pixels: int, ts: int):
+    """Predict and subtract: one slice's visibilities less the weighted
+    model prediction, ``vis - wt * (pred * valid)`` (NC, Mc, P).
+
+    ``grid`` is the (P, N, N) f32 ``(gr, gi)`` pair of grid planes
+    (:func:`..fourier.image_to_grid_parts`).  Counterpart of
+    ``mxu_gridder.degrid_chunks_impl(..., assembly="pallas",
+    tile_aligned=True)`` (tile-aligned plans of square ``ts`` tiles,
+    :func:`.mxu_gridder.plan_chunks_tiled`): the prep plus K5.  Where the
+    JAX package falls back to an XLA assembly (a kernel wider than
+    ``ts + 1``) this raises.  ``n_chunks`` (host int) bounds the chunks
+    predicted; None counts the occupied chunks (a device sync).  Padding
+    chunks pass their visibilities through unchanged."""
+    K = kernel.shape[-1]
+    if K > ts + 1:
+        raise NotImplementedError(
+            f"the fused degridder takes K <= ts + 1, not ts={ts}, K={K}; "
+            f"no other degridder is ported")
+    if n_chunks is None:
+        n_chunks = occupied_chunks(plan_valid)
+    gr, gi = grid
     av, au, iu, iv, su, sv = degrid_taps(kernel, plan_uv, plan_sub, plan_wp,
                                          plan_anchor, pixels=pixels, ts=ts)
-    k5 = degrid_planes_plain if plain else degrid_planes
-    return k5(gr, gi, av, au, valid_counts(plan_valid), iu, iv, su, sv,
-              degrid_table(kernel), n_chunks, ts=ts)
+    pred = degrid_planes(gr, gi, av, au, valid_counts(plan_valid), iu, iv,
+                         su, sv, degrid_table(kernel), n_chunks, ts=ts)
+    pred = torch.where(plan_valid[..., None], pred, 0)
+    return plan_vis - plan_wt * pred

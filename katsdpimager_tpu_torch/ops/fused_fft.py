@@ -37,7 +37,7 @@ The kernels are hand-written CUDA (``csrc/fft.cu``) for power-of-two N
 from 256 to 8192; other sizes raise on CUDA.  Each has a plain PyTorch
 version here (``torch.fft.ifft(..., norm="forward")`` is the
 unnormalised inverse, ``torch.fft.fft`` the unnormalised forward), which
-CPU tensors run at any even N.
+runs at any even N where :func:`..device.runs_plain` says.
 """
 
 from __future__ import annotations
@@ -48,6 +48,7 @@ import math
 import numpy as np
 import torch
 
+from ..device import runs_plain
 from ..profiling import profile
 from . import _build
 
@@ -109,8 +110,9 @@ def cb_col_fft(gr, gi):
     """K3: checkerboard, unnormalised inverse DFT of every column,
     transposed store.  gr/gi (P, N, N) f32 -> new (P, N, N) f32 pair.
 
-    CPU tensors run :func:`cb_col_fft_plain`; CUDA tensors launch
-    ``ktt_cb_col_fft`` (``csrc/fft.cu``) or raise.
+    Runs :func:`cb_col_fft_plain` where
+    :func:`..device.runs_plain` holds; otherwise launches
+    ``ktt_cb_col_fft`` (``csrc/fft.cu``) or raises.
 
     Replaces ``katsdpimager_tpu/ops/pallas_fft.py:_make_cb_col_kernel``
     and the transpose after it.  Bound by device memory (one read and one
@@ -120,7 +122,7 @@ def cb_col_fft(gr, gi):
     (N = 256 and 512, without clusters, stage the rows in shared
     memory)."""
     with profile("k3.launch"):
-        if gr.device.type == "cpu":
+        if runs_plain(gr):
             return cb_col_fft_plain(gr, gi)
         P, n, _ = gr.shape
         _check_kernel_size(n)
@@ -173,8 +175,9 @@ def epi_col_fft(ar_t, ai_t, imageT, taper, scal):
     the slice's mid-w and the pixel size (on the device, so no sync).
     Returns ``imageT``.
 
-    CPU tensors run :func:`epi_col_fft_plain`; CUDA tensors launch
-    ``ktt_epi_col_fft`` (``csrc/fft.cu``) or raise.
+    Runs :func:`epi_col_fft_plain` where
+    :func:`..device.runs_plain` holds; otherwise launches
+    ``ktt_epi_col_fft`` (``csrc/fft.cu``) or raises.
 
     Replaces ``katsdpimager_tpu/ops/pallas_fft.py:_make_epi_col_kernel``.
     Bound by device memory: both planes read, the image read and written.
@@ -182,7 +185,7 @@ def epi_col_fft(ar_t, ai_t, imageT, taper, scal):
     epilogue, computed in registers from its indices, and updates the
     image straight from the cluster's finish."""
     with profile("k4.launch"):
-        if ar_t.device.type == "cpu":
+        if runs_plain(ar_t):
             return epi_col_fft_plain(ar_t, ai_t, imageT, taper, scal)
         dev = ar_t.device
         P, n, _ = ar_t.shape
@@ -210,17 +213,13 @@ def scalars(w, pixel_size, device) -> torch.Tensor:
                                         device=device)])
 
 
-def grid_to_image_fused_parts(gr, gi, imageT, kernel1d, w, pixel_size, *,
-                              plain: bool = False):
+def grid_to_image_fused_parts(gr, gi, imageT, kernel1d, w, pixel_size):
     """K3 then K4: accumulate one W slice's (P, N, N) f32 grid planes into
-    the TRANSPOSED dirty image ``imageT`` (in place; returned).
-    ``plain`` runs both kernels' plain versions whatever the device."""
+    the TRANSPOSED dirty image ``imageT`` (in place; returned)."""
     scal = scalars(w, pixel_size, gr.device)
     taper = kernel1d.to(device=gr.device, dtype=torch.float32).contiguous()
-    k3 = cb_col_fft_plain if plain else cb_col_fft
-    k4 = epi_col_fft_plain if plain else epi_col_fft
-    ar_t, ai_t = k3(gr, gi)
-    return k4(ar_t, ai_t, imageT, taper, scal)
+    ar_t, ai_t = cb_col_fft(gr, gi)
+    return epi_col_fft(ar_t, ai_t, imageT, taper, scal)
 
 
 # ---------------------------------------------------------------------------
@@ -255,8 +254,9 @@ def pre_col_fft(imageT, taper, scal):
     scal (2,) f32 ``[w, pixel_size]`` on the device.  Returns a new
     (P, N, N) f32 pair.
 
-    CPU tensors run :func:`pre_col_fft_plain`; CUDA tensors launch
-    ``ktt_pre_col_fft`` (``csrc/fft.cu``) or raise.
+    Runs :func:`pre_col_fft_plain` where
+    :func:`..device.runs_plain` holds; otherwise launches
+    ``ktt_pre_col_fft`` (``csrc/fft.cu``) or raises.
 
     Replaces ``katsdpimager_tpu/ops/pallas_fft.py:_make_pre_col_kernel``
     and the transpose after it.  Bound by device memory (one plane read,
@@ -265,7 +265,7 @@ def pre_col_fft(imageT, taper, scal):
     the indices, runs once all of a thread's loads are in flight, so its
     branches never hold a load back; the transposed store is
     :func:`cb_col_fft`'s."""
-    if imageT.device.type == "cpu":
+    if runs_plain(imageT):
         return pre_col_fft_plain(imageT, taper, scal)
     dev = imageT.device
     P, n, _ = imageT.shape
@@ -304,15 +304,16 @@ def cbout_col_fft(xr, xi):
     checkerboard, stored in place of its column.  xr/xi (P, N, N) f32
     (K6's transposed output) -> the (P, N, N) f32 grid planes.
 
-    CPU tensors run :func:`cbout_col_fft_plain`; CUDA tensors launch
-    ``ktt_cbout_col_fft`` (``csrc/fft.cu``) or raise.
+    Runs :func:`cbout_col_fft_plain` where
+    :func:`..device.runs_plain` holds; otherwise launches
+    ``ktt_cbout_col_fft`` (``csrc/fft.cu``) or raises.
 
     Replaces ``katsdpimager_tpu/ops/pallas_fft.py:_make_cbout_col_kernel``.
     Bound by device memory (one read and one write of both planes).  The
     tile core of :func:`col_fft` at sign -1; the checkerboard is moved to
     the load, exactly: the input shifted by N/2 rows (which makes
     ``(-1)^k``), odd columns negated."""
-    if xr.device.type == "cpu":
+    if runs_plain(xr):
         return cbout_col_fft_plain(xr, xi)
     P, n, _ = xr.shape
     _check_kernel_size(n)
@@ -332,19 +333,15 @@ def cbout_col_fft(xr, xi):
 cbout_col_fft.launches = 0
 
 
-def image_to_grid_fused_parts(imageT, kernel1d, w, pixel_size, *,
-                              plain: bool = False):
+def image_to_grid_fused_parts(imageT, kernel1d, w, pixel_size):
     """K6 then K7: the TRANSPOSED real (P, N, N) model image to the
     untransposed (P, N, N) f32 grid planes ``(gr, gi)``, centre at the
-    middle (K5's input).  ``plain`` runs both kernels' plain versions
-    whatever the device."""
+    middle (K5's input)."""
     scal = scalars(w, pixel_size, imageT.device)
     taper = kernel1d.to(device=imageT.device,
                         dtype=torch.float32).contiguous()
-    k6 = pre_col_fft_plain if plain else pre_col_fft
-    k7 = cbout_col_fft_plain if plain else cbout_col_fft
-    ar_t, ai_t = k6(imageT, taper, scal)
-    return k7(ar_t, ai_t)
+    ar_t, ai_t = pre_col_fft(imageT, taper, scal)
+    return cbout_col_fft(ar_t, ai_t)
 
 
 # ---------------------------------------------------------------------------
@@ -370,9 +367,11 @@ def col_fft(xr, xi, sign: int):
     planes, sign -1 (forward) or +1 (inverse), stored in natural
     orientation.  Returns a new (..., N, M) f32 pair.
 
-    CPU tensors run :func:`col_fft_plain`; CUDA tensors launch
-    ``ktt_col_fft`` (``csrc/fft.cu``) or raise.  N must be a power of two
-    in [256, 8192]; M is free (a ragged last column tile is masked).
+    Runs :func:`col_fft_plain` where
+    :func:`..device.runs_plain` holds; otherwise launches
+    ``ktt_col_fft`` (``csrc/fft.cu``) or raises.  N must be a power of
+    two in [256, 8192]; M is free (a ragged last column tile is
+    masked).
 
     Replaces ``katsdpimager_tpu/ops/pallas_fft.py:_make_col_kernel``
     (``col_fft``).  Bound by device memory (one read and one write of both
@@ -380,7 +379,7 @@ def col_fft(xr, xi, sign: int):
     N = Q R four-step, each CTA doing a length-R DFT in two
     register-resident radix passes and the cluster a length-Q DFT over
     its shared memory (``csrc/col_fft_tile.cuh``)."""
-    if xr.device.type == "cpu":
+    if runs_plain(xr):
         return col_fft_plain(xr, xi, sign)
     if sign not in (1, -1):
         raise ValueError(f"sign must be +1 or -1, not {sign}")

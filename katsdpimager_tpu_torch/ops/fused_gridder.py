@@ -2,14 +2,15 @@ r"""Fused gridder: kernels K1 (band accumulation) and K2 (colour combine).
 
 Counterpart of :mod:`katsdpimager_tpu.ops.pallas_gridder`'s gridding half
 (``_grid_chunks_planes``, ``combine_planes_fused``,
-``grid_chunks_fused_parts``).  The wrapper prep is plain PyTorch: tap
-row indices ``iu/iv`` and in-window shifts ``su/sv``, the sample
+``grid_chunks_fused_parts``, ``grid_chunks_fused``), with one entry
+point for a slice, :func:`grid_slice`.  The wrapper prep is plain
+PyTorch: tap row indices ``iu/iv`` and in-window shifts ``su/sv``, the sample
 ``vis * valid * density``, each chunk's valid ``count`` (its valid slots
 are a prefix, the planner's invariant, so K1 grids slots below the count
 and nothing else), the colour-plane ``slot`` of each chunk and the
 per-tile occupancy mask.  The two kernels are hand-written CUDA
-(``csrc/gridder.cu``); each has a plain PyTorch version here, which CPU
-tensors run.
+(``csrc/gridder.cu``); each has a plain PyTorch version here, which runs
+where :func:`..device.runs_plain` says.
 
 Geometry.  A chunk anchored at tile ``(tv, tu)`` (pixels ``(tv ts,
 tu ts)``) contributes a ``2ts x 2ts`` band
@@ -37,9 +38,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..device import runs_plain
 from ..profiling import profile
 from . import _build
-from .mxu_gridder import colour_tiles, occupied_chunks
+from .mxu_gridder import colour_tiles, occupied_chunks, pol_groups
 
 #: Chunks per group in the plain K1 (bounds its (G, P, Mc, 2ts) factors).
 _PLAIN_GROUP = 256
@@ -137,8 +139,9 @@ def grid_planes(slot, n: int, count, iu, iv, su, sv, sre, sim, table, accr,
     card's SMs, 2) into which each worker of the schedule (lane l of CTA
     b is worker l x SMs + b) writes the items and the batches it took.
 
-    CPU tensors run :func:`grid_planes_plain`; CUDA tensors launch
-    ``ktt_grid_planes`` (``csrc/gridder.cu``) or raise.
+    Runs :func:`grid_planes_plain` where :func:`..device.runs_plain`
+    holds; otherwise launches ``ktt_grid_planes`` (``csrc/gridder.cu``)
+    or raises.
 
     Replaces ``katsdpimager_tpu/ops/pallas_gridder.py:_make_kernel``.
     Bound by the band products (a dense 2ts x 2ts window per valid
@@ -161,7 +164,7 @@ def grid_planes(slot, n: int, count, iu, iv, su, sv, sre, sim, table, accr,
     :data:`MAX_CHUNK` slots.
     """
     with profile("k1.launch"):
-        if accr.device.type == "cpu":
+        if runs_plain(accr):
             if stats is not None:
                 raise NotImplementedError(
                     "stats come from the CUDA kernel only")
@@ -259,8 +262,9 @@ def combine_planes(accr, acci, occ, *, pixels: int, ts: int, out=None):
     combine ``grid_chunks_fused``: ``(((g + p00) + p01) + p10) + p11``;
     ``out`` is returned.
 
-    CPU tensors run the plain version; CUDA tensors launch
-    ``ktt_combine_planes`` (``csrc/gridder.cu``) or raise.
+    Runs the plain version where :func:`..device.runs_plain` holds;
+    otherwise launches ``ktt_combine_planes`` (``csrc/gridder.cu``) or
+    raises.
 
     Replaces ``katsdpimager_tpu/ops/pallas_gridder.py:_make_combine_kernel``.
     Bound by device memory bandwidth; one thread per output pixel,
@@ -268,7 +272,7 @@ def combine_planes(accr, acci, occ, *, pixels: int, ts: int, out=None):
     ``nvcc`` build.
     """
     with profile("k2.launch"):
-        if accr.device.type == "cpu":
+        if runs_plain(accr):
             return combine_planes_plain(accr, acci, occ, pixels=pixels, ts=ts,
                                         out=out)
         dev = accr.device
@@ -422,14 +426,12 @@ def conj_table(kernel):
 
 def grid_chunks_planes(kernel, weights_grid, plan_uv, plan_sub, plan_wp,
                        plan_vis, plan_anchor, plan_valid, dw_chunks,
-                       n_chunks: int, *, pixels: int, ts: int,
-                       plain: bool = False):
+                       n_chunks: int, *, pixels: int, ts: int):
     """Prep plus K1: returns ``(accr, acci, occ)`` — the colour planes
     (unwritten blocks uninitialised) and their occupancy mask.  On the
-    CPU the valid slots are checked to be a prefix of every chunk.
-    ``plain`` runs K1's plain version whatever the device (the reference
-    that the kernels are checked against on the card).  The prep, every
-    input of K1 and the occupancy mask, is the ``k1.prep`` span."""
+    CPU the valid slots are checked to be a prefix of every chunk.  The
+    prep, every input of K1 and the occupancy mask, is the ``k1.prep``
+    span."""
     Pp = plan_vis.shape[-1]
     K = kernel.shape[-1]
     nt2 = colour_tiles(pixels, ts)
@@ -449,25 +451,56 @@ def grid_chunks_planes(kernel, weights_grid, plan_uv, plan_sub, plan_wp,
         accr = torch.empty((2, 2, Pp, ext2, ext2), dtype=torch.float32,
                            device=dev)
         acci = torch.empty_like(accr)
-    k1 = grid_planes_plain if plain else grid_planes
-    k1(slot, n_chunks, count, iu, iv, su, sv, sre, sim, table, accr, acci,
-       ts=ts)
+    grid_planes(slot, n_chunks, count, iu, iv, su, sv, sre, sim, table, accr,
+                acci, ts=ts)
     return accr, acci, occ
 
 
-def grid_chunks_fused_parts(kernel, weights_grid, plan_uv, plan_sub,
-                            plan_wp, plan_vis, plan_anchor, plan_valid,
-                            dw_chunks=None, n_chunks=None, *, pixels: int,
-                            ts: int, plain: bool = False):
-    """K1 then K2: one slice's chunks to cropped (P, N, N) f32
-    ``(gr, gi)`` planes.  ``n_chunks`` (host int) bounds the chunks
-    gridded; None counts the occupied chunks (a device sync).  ``plain``
-    runs both kernels' plain versions whatever the device."""
+def grid_slice(kernel, density, plan_uv, plan_sub, plan_wp, plan_vis,
+               plan_anchor, plan_valid, n_chunks=None, *, pixels: int,
+               ts: int, dw_chunks=None, out=None):
+    """Grid one slice's chunks: prep plus K1, then K2, for each group of
+    polarizations whose colour planes fit the accumulator cap
+    (:func:`.mxu_gridder.pol_groups`).
+
+    ``density`` (P, N, N) or ``dw_chunks`` (NC, Mc, P) gives each
+    visibility's density weight (:func:`samples`; neither: natural).
+    ``n_chunks`` (host int) bounds the chunks gridded; None counts the
+    occupied chunks (a device sync).  With ``out=None`` returns fresh
+    cropped (P, N, N) f32 ``(gr, gi)`` planes (the JAX
+    ``grid_chunks_parts_impl(..., assembly="pallas")``).  With ``out``, a
+    ``(gr, gi)`` pair of (P, N, N) running grid planes, adds onto them in
+    place in the JAX order ``(((g + p00) + p01) + p10) + p11`` and
+    returns them (the JAX ``grid_chunks_fused``): K2's accumulating form
+    at float32, its plain version at float64 (``--precision double``, as
+    XLA does it in the JAX package).  Kernels wider than ``ts + 1`` do
+    not fit K1's ``2 ts`` window (the JAX package falls back to XLA
+    there): they raise."""
+    K = kernel.shape[-1]
+    if K > ts + 1:
+        raise NotImplementedError(
+            f"kernel width {K} > ts + 1 = {ts + 1}: the fused gridder's "
+            "2-tile window cannot hold it, and no other gridder is ported")
     if n_chunks is None:
         n_chunks = occupied_chunks(plan_valid)
-    accr, acci, occ = grid_chunks_planes(
-        kernel, weights_grid, plan_uv, plan_sub, plan_wp, plan_vis,
-        plan_anchor, plan_valid, dw_chunks, n_chunks, pixels=pixels, ts=ts,
-        plain=plain)
-    k2 = combine_planes_plain if plain else combine_planes
-    return k2(accr, acci, occ, pixels=pixels, ts=ts)
+    parts = []
+    for p0, p1 in pol_groups(plan_vis.shape[-1], pixels, ts):
+        accr, acci, occ = grid_chunks_planes(
+            kernel, None if density is None else density[p0:p1], plan_uv,
+            plan_sub, plan_wp, plan_vis[..., p0:p1], plan_anchor, plan_valid,
+            None if dw_chunks is None else dw_chunks[..., p0:p1], n_chunks,
+            pixels=pixels, ts=ts)
+        if out is None:
+            parts.append(combine_planes(accr, acci, occ, pixels=pixels,
+                                        ts=ts))
+        else:
+            k2 = (combine_planes if out[0].dtype == torch.float32
+                  else combine_planes_plain)
+            k2(accr, acci, occ, pixels=pixels, ts=ts,
+               out=(out[0][p0:p1], out[1][p0:p1]))
+    if out is not None:
+        return out
+    if len(parts) == 1:
+        return parts[0]
+    return (torch.cat([p[0] for p in parts]),
+            torch.cat([p[1] for p in parts]))

@@ -1,13 +1,12 @@
-"""Host-side chunk planning and the gridder dispatch.
+"""Host-side chunk planning and the fused gridder's layout helpers.
 
 Counterpart of the host half of :mod:`katsdpimager_tpu.ops.mxu_gridder`
 (numpy, no JAX): the tile-aligned chunk plan that both packages grid from
 (the layout is bit-identical, so one batch feeds both), the padded grid
-extent, :func:`grid_chunks_parts` (a slice to fresh grid planes) and
-:func:`grid_chunks_onto` (onto a running grid), which split a call into
-polarization groups that fit the accumulator cap and run the fused
-gridder (:mod:`.fused_gridder`, kernels K1 and K2) on each, the fused
-degridder's dispatch, and the per-channel path's :class:`MxuGridder`.
+extent, the colour-plane tiles, the per-channel tile size and the
+polarization groups that fit the accumulator cap.  The kernel modules
+(:mod:`.fused_gridder`, :mod:`.fused_degrid`) import these helpers; this
+module imports no kernel module.
 
 Visibilities are sorted by UV tile and cut into chunks of at most ``mc``
 visibilities that share one tile anchor (a multiple of ``ts``), so every
@@ -288,12 +287,12 @@ CHUNK_SIZE = 256
 MAX_ACC_GB = 5.0
 
 
-def pol_groups(num_pols: int, pixels: int, ts: int,
-               max_acc_gb: float = MAX_ACC_GB) -> list[tuple[int, int]]:
+def pol_groups(num_pols: int, pixels: int, ts: int) -> list[tuple[int, int]]:
     """Split polarizations into groups whose colour-plane accumulators
     (four re/im planes of ``ext2**2`` f32 per polarization) fit
-    ``max_acc_gb``.  Returns ``[(start, stop), ...]``; raises when one
-    polarization alone does not fit."""
+    :data:`MAX_ACC_GB` (read at the call).  Returns ``[(start, stop),
+    ...]``; raises when one polarization alone does not fit."""
+    max_acc_gb = MAX_ACC_GB
     ext2 = colour_tiles(pixels, ts) * 2 * ts
     per_pol_gb = 4 * ext2 * ext2 * 4 * 2 / 1e9
     if per_pol_gb * num_pols <= max_acc_gb:
@@ -306,109 +305,6 @@ def pol_groups(num_pols: int, pixels: int, ts: int,
     return [(p, min(p + pg, num_pols)) for p in range(0, num_pols, pg)]
 
 
-def grid_chunks_parts(kernel, weights_grid, plan_uv, plan_sub, plan_wp,
-                      plan_vis, plan_anchor, plan_valid, dw_chunks=None,
-                      n_chunks=None, *, pixels: int, ts: int,
-                      max_acc_gb: float = MAX_ACC_GB, plain: bool = False):
-    """Grid one slice's chunks straight to cropped (P, N, N) f32
-    ``(gr, gi)`` planes (the FFT's input layout), zero base grid.
-
-    Counterpart of ``mxu_gridder.grid_chunks_parts_impl(...,
-    assembly="pallas")``.  Kernels wider than ``ts + 1`` have no kernel
-    (the JAX package falls back to an XLA assembly there): they raise.
-    ``plain`` runs the kernels' plain versions whatever the device.
-    """
-    from .fused_gridder import grid_chunks_fused_parts
-
-    K = kernel.shape[-1]
-    if K + ts - 1 > 2 * ts:
-        raise NotImplementedError(
-            f"kernel width {K} > ts + 1 = {ts + 1}: the fused gridder's "
-            "2-tile window cannot hold it, and no other gridder is ported")
-    groups = pol_groups(plan_vis.shape[-1], pixels, ts, max_acc_gb)
-    if n_chunks is None:
-        n_chunks = occupied_chunks(plan_valid)
-    outs = [grid_chunks_fused_parts(
-        kernel, None if weights_grid is None else weights_grid[p0:p1],
-        plan_uv, plan_sub, plan_wp, plan_vis[..., p0:p1], plan_anchor,
-        plan_valid, None if dw_chunks is None else dw_chunks[..., p0:p1],
-        n_chunks, pixels=pixels, ts=ts, plain=plain) for p0, p1 in groups]
-    if len(outs) == 1:
-        return outs[0]
-    return (torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]))
-
-
-def degrid_chunks_parts(grid, kernel, plan_uv, plan_sub, plan_wp, plan_wt,
-                        plan_vis, plan_anchor, plan_valid, n_chunks=None, *,
-                        pixels: int, rv: int, ru: int, plain: bool = False):
-    """Predict and subtract: one slice's visibilities less the weighted
-    model prediction, ``vis - wt * (pred * valid)`` (NC, Mc, P).
-
-    ``grid`` is the (P, N, N) f32 ``(gr, gi)`` pair of grid planes
-    (:func:`..fourier.image_to_grid_parts`).  Counterpart of
-    ``mxu_gridder.degrid_chunks_impl(..., assembly="pallas",
-    tile_aligned=True)`` (tile-aligned plans, :func:`plan_chunks_tiled`):
-    the fused degridder, kernel K5 (:mod:`.fused_degrid`).  Where the
-    JAX package falls back to an XLA assembly (``rv != ru``, or a kernel
-    wider than ``rv + 1``) this raises.  ``n_chunks`` (host int) bounds
-    the chunks predicted; None counts the occupied chunks (a device
-    sync).  Padding chunks pass their visibilities through unchanged.
-    ``plain`` runs K5's plain version whatever the device."""
-    from .fused_degrid import degrid_chunks_fused
-
-    K = kernel.shape[-1]
-    if rv != ru or K + rv - 1 > 2 * rv:
-        raise NotImplementedError(
-            f"the fused degridder takes rv == ru and K <= rv + 1, not "
-            f"rv={rv}, ru={ru}, K={K}; no other degridder is ported")
-    if n_chunks is None:
-        n_chunks = occupied_chunks(plan_valid)
-    gr, gi = grid
-    pred = degrid_chunks_fused(gr, gi, kernel, plan_uv, plan_sub, plan_wp,
-                               plan_anchor, plan_valid, n_chunks,
-                               pixels=pixels, ts=rv, plain=plain)
-    pred = torch.where(plan_valid[..., None], pred, 0)
-    return plan_vis - plan_wt * pred
-
-
-def grid_chunks_onto(grid, kernel, weights_grid, plan_uv, plan_sub, plan_wp,
-                     plan_vis, plan_anchor, plan_valid, dw_chunks=None,
-                     n_chunks=None, *, pixels: int, ts: int,
-                     max_acc_gb: float = MAX_ACC_GB, plain: bool = False):
-    """Grid one slice's chunks ONTO a running grid, in place: ``grid`` is
-    the ``(gr, gi)`` pair of (P, N, N) f32 or f64 planes; returns it.
-
-    Counterpart of the JAX ``grid_chunks_fused`` (the fused gridder onto
-    the padded complex working grid): K1 fills the f32 colour planes,
-    then K2's accumulating form adds them onto the grid in the JAX order
-    ``(((g + p00) + p01) + p10) + p11``, select-masked.  Onto an f64
-    grid (``--precision double``) that add is K2's plain version, as it
-    is XLA in the JAX package, each plane upcast exactly.  Polarizations
-    run in groups that fit the accumulator cap (:func:`pol_groups`).
-    ``plain`` runs both kernels' plain versions whatever the device."""
-    from .fused_gridder import (combine_planes, combine_planes_plain,
-                                grid_chunks_planes)
-
-    K = kernel.shape[-1]
-    if K + ts - 1 > 2 * ts:
-        raise NotImplementedError(
-            f"kernel width {K} > ts + 1 = {ts + 1}: the fused gridder's "
-            "2-tile window cannot hold it, and no other gridder is ported")
-    if n_chunks is None:
-        n_chunks = occupied_chunks(plan_valid)
-    gr, gi = grid
-    k2 = (combine_planes_plain if plain or gr.dtype != torch.float32
-          else combine_planes)
-    for p0, p1 in pol_groups(plan_vis.shape[-1], pixels, ts, max_acc_gb):
-        accr, acci, occ = grid_chunks_planes(
-            kernel, None if weights_grid is None else weights_grid[p0:p1],
-            plan_uv, plan_sub, plan_wp, plan_vis[..., p0:p1], plan_anchor,
-            plan_valid, None if dw_chunks is None else dw_chunks[..., p0:p1],
-            n_chunks, pixels=pixels, ts=ts, plain=plain)
-        k2(accr, acci, occ, pixels=pixels, ts=ts, out=(gr[p0:p1], gi[p0:p1]))
-    return grid
-
-
 def tile_size(pixels: int, kernel_width: int) -> int:
     """The per-channel path's square tile size: ``max(min(64, max(8,
     N // 8)), K)`` (the JAX ``Imaging`` window, raised to cover the
@@ -416,83 +312,3 @@ def tile_size(pixels: int, kernel_width: int) -> int:
     256 px with K = 16, 50 at 400 px, 8-31 below 256 px and K for every
     K > 64; K1 and K5 take every ts up to 256 with K <= ts + 1."""
     return max(min(64, max(8, pixels // 8)), kernel_width)
-
-
-class MxuGridder:
-    """Plan on the host, grid and degrid on the device (dense mode).
-
-    Counterpart of :class:`katsdpimager_tpu.ops.mxu_gridder.MxuGridder`
-    for a (channel, w_slice) visibility set whose coordinates are fixed
-    across major cycles.  Plans are the tile-aligned layout of
-    :func:`plan_chunks_tiled` at the tile size of :func:`tile_size`;
-    :meth:`upload_plan` moves one to ``device`` once (None: the CUDA
-    device, which must exist).  ``plain`` runs every kernel's plain
-    version whatever the device."""
-
-    def __init__(self, *, pixels: int, kernel_width: int, device=None,
-                 plain: bool = False):
-        self.pixels = pixels
-        self.K = kernel_width
-        self.ts = tile_size(pixels, kernel_width)
-        self.device = device_mod.resolve(device)
-        self.plain = plain
-
-    def plan(self, uv, sub_uv, w_plane, vis, weights) -> ChunkPlan:
-        """The host plan of one block of visibilities (numpy)."""
-        return plan_chunks_tiled(
-            np.asarray(uv), np.asarray(sub_uv), np.asarray(w_plane),
-            np.asarray(vis), np.asarray(weights), pixels=self.pixels,
-            kernel_width=self.K, ts=self.ts, mc=CHUNK_SIZE)
-
-    def upload_plan(self, plan: ChunkPlan) -> ChunkPlan:
-        """The plan's coordinate fields, weights and row mapping as
-        tensors on the device, uploaded once (the vis payload stays
-        behind: grid and degrid take ``vis_chunked``)."""
-        def dev(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-
-        return plan._replace(
-            uv=dev(plan.uv), sub_uv=dev(plan.sub_uv),
-            w_plane=dev(plan.w_plane), vis=None, weights=dev(plan.weights),
-            anchor=dev(plan.anchor), valid=dev(plan.valid),
-            row_chunk=dev(np.asarray(plan.row_chunk, np.int64)),
-            row_slot=dev(np.asarray(plan.row_slot, np.int64)))
-
-    def grid(self, grid, kernel, weights_grid, plan: ChunkPlan, vis_chunked,
-             dw_chunks=None, n_chunks=None):
-        """Add the planned chunks onto ``grid`` (a ``(gr, gi)`` pair of
-        (P, N, N) f32 planes) in place; returns it.  ``dw_chunks``
-        (NC, Mc, P) gives each visibility's density weight (skipping the
-        gather from ``weights_grid``); ``n_chunks`` (host int) the
-        occupied chunks, else counted with a device sync."""
-        if plan.uv.shape[0] == 0:
-            return grid
-        return grid_chunks_onto(
-            grid, kernel, weights_grid, plan.uv, plan.sub_uv, plan.w_plane,
-            vis_chunked, plan.anchor, plan.valid, dw_chunks, n_chunks,
-            pixels=self.pixels, ts=self.ts, plain=self.plain)
-
-    def degrid(self, grid, kernel, plan: ChunkPlan, vis_chunked,
-               n_chunks=None):
-        """``vis_chunked - weights * prediction`` (NC, Mc, P) from the
-        ``(gr, gi)`` model grid planes.  The JAX method pads the grid by
-        (ts, ts) first; K5 reads cells outside the planes as zero, which
-        is what that padding gave."""
-        if plan.uv.shape[0] == 0:
-            return vis_chunked
-        return degrid_chunks_parts(
-            grid, kernel, plan.uv, plan.sub_uv, plan.w_plane, plan.weights,
-            vis_chunked, plan.anchor, plan.valid, n_chunks,
-            pixels=self.pixels, rv=self.ts, ru=self.ts, plain=self.plain)
-
-    def chunk_vis(self, plan: ChunkPlan, vis):
-        """A flat (n, P) complex64 vis tensor in the (NC, Mc, P) chunk
-        layout (zero in padding slots)."""
-        out = torch.zeros(plan.weights.shape, dtype=torch.complex64,
-                          device=vis.device)
-        out[plan.row_chunk, plan.row_slot] = vis.to(torch.complex64)
-        return out
-
-    def unchunk_vis(self, plan: ChunkPlan, vis_chunked):
-        """Inverse of :meth:`chunk_vis`: the flat (n, P) vis."""
-        return vis_chunked[plan.row_chunk, plan.row_slot]

@@ -28,9 +28,7 @@ and runs the same CLEAN, as each JAX vis shard does.  Degridding,
 prediction and CLEAN need no collective.  Each slice's occupied-chunk
 count is a host int (:attr:`ChannelBatch.n_chunks`), so empty slices are
 skipped without a device sync; the skip follows the group's maximum of
-the counts (:func:`.mesh.pmax_ints`).  ``plain`` runs every kernel's
-plain version whatever the device: the reference the kernels are held
-to on the card.
+the counts (:func:`.mesh.pmax_ints`).
 
 The precision follows the batch's dtypes
 (:func:`.multichannel.precision_of`): complex64 visibilities and a
@@ -52,7 +50,7 @@ import torch
 
 from ..ops import beam as beam_ops
 from ..ops import clean as clean_ops
-from ..ops import fourier, mxu_gridder, predict
+from ..ops import fourier, fused_degrid, predict
 from ..profiling import profile_function
 from . import multichannel
 from .mesh import pmax_ints, psum
@@ -146,7 +144,7 @@ def _wave_sky(cfg: CubeConfig, sky):
 
 def _grid_slices(cfg: CubeConfig, kernel, density, uv, sub_uv, w_plane,
                  anchor, valid, vis, taper1d, pixel_size, mid_w, nc_slices,
-                 plain: bool = False, mesh=None, take=None):
+                 mesh=None, take=None):
     """W-stacked image of chunked visibilities (K1, K2 and the routed
     grid -> image transform per slice, each slice's grid summed over the
     vis group: :func:`multichannel.image_slices`)."""
@@ -155,25 +153,30 @@ def _grid_slices(cfg: CubeConfig, kernel, density, uv, sub_uv, w_plane,
     return multichannel.image_slices(
         kernel, density, taper1d, pixel_size, mid_w, uv, sub_uv, w_plane,
         anchor, valid, vis, nc_slices, pixels=cfg.pixels, ts=cfg.rv,
-        plain=plain, mesh=mesh, take=take)
+        mesh=mesh, take=take)
 
 
 def _degrid_slices(cfg: CubeConfig, kernel, model, uv, sub_uv, w_plane,
                    anchor, valid, weights, vis, taper1d, pixel_size, mid_w,
-                   nc_slices, plain: bool = False):
+                   nc_slices):
     """Every slice's visibilities less the degridded model (K6, K7, K5
-    per non-empty slice); an empty slice keeps its visibilities."""
+    per non-empty slice); an empty slice keeps its visibilities.  K5
+    takes square tiles: ``rv != ru`` (an XLA assembly in the JAX
+    package) raises."""
+    if cfg.rv != cfg.ru:
+        raise NotImplementedError(
+            f"the fused degridder takes rv == ru, not rv={cfg.rv}, "
+            f"ru={cfg.ru}; no other degridder is ported")
     out = []
     for s, nc_s in enumerate(nc_slices):
         if nc_s == 0:
             out.append(vis[s])
             continue
         grid = fourier.image_to_grid_parts(model, taper1d, mid_w[s],
-                                           pixel_size, plain=plain)
-        out.append(mxu_gridder.degrid_chunks_parts(
+                                           pixel_size)
+        out.append(fused_degrid.degrid_slice(
             grid, kernel, uv[s], sub_uv[s], w_plane[s], weights[s], vis[s],
-            anchor[s], valid[s], int(nc_s), pixels=cfg.pixels, rv=cfg.rv,
-            ru=cfg.ru, plain=plain))
+            anchor[s], valid[s], int(nc_s), pixels=cfg.pixels, ts=cfg.rv))
     return torch.stack(out)
 
 
@@ -244,8 +247,7 @@ def _clean_stage(cfg: CubeConfig, residual, model, psf_patch_arr):
 
 def _channel_density_psf(cfg: CubeConfig, kernel, taper1d, pixel_size,
                          mid_w, uv, sub_uv, w_plane, anchor, valid, weights,
-                         nc_slices, plain: bool = False, mesh=None,
-                         take=None):
+                         nc_slices, mesh=None, take=None):
     """Imaging weights and the normalized PSF of one channel (this rank's
     chunks of it under a ``mesh``: the weight grid and the PSF's grids
     are summed over the vis group)."""
@@ -260,7 +262,7 @@ def _channel_density_psf(cfg: CubeConfig, kernel, taper1d, pixel_size,
     if cfg.weight_type in ("uniform", "robust"):
         wgrid = psum(multichannel.weight_grid(
             Pp, N, uv, valid, weights, anchor=anchor, ts=cfg.rv,
-            kernel_width=cfg.kernel_width, plain=plain), mesh)
+            kernel_width=cfg.kernel_width), mesh)
         if cfg.weight_type == "robust":
             w0 = wgrid[0]
             mean_w = (w0 * w0).sum() / w0.sum()
@@ -290,8 +292,8 @@ def _channel_density_psf(cfg: CubeConfig, kernel, taper1d, pixel_size,
     # ---- PSF: grid the weights as visibilities
     psf = _grid_slices(cfg, kernel, density, uv, sub_uv, w_plane, anchor,
                        valid, weights.to(cdtype) * valid[..., None],
-                       taper1d, pixel_size, mid_w, nc_slices, plain=plain,
-                       mesh=mesh, take=take)
+                       taper1d, pixel_size, mid_w, nc_slices, mesh=mesh,
+                       take=take)
     psf_peak = psf[:, half, half]
     scale = torch.where(psf_peak != 0,
                         1.0 / torch.where(psf_peak != 0, psf_peak, 1.0), 0.0)
@@ -302,7 +304,7 @@ def _channel_density_psf(cfg: CubeConfig, kernel, taper1d, pixel_size,
 def _channel_majors(cfg: CubeConfig, kernel, taper1d, pixel_size, mid_w,
                     uv, sub_uv, w_plane, anchor, valid, weights, vis,
                     density, scale, patch, nc_slices, sky=None,
-                    plain: bool = False, mesh=None, take=None):
+                    mesh=None, take=None):
     """Major cycles of one channel given its density weights and PSF
     patch; with ``sky`` (this channel's ``(lmn, flux, uvw_scales)``) the
     sky model is subtracted first, once: every major cycle degrids
@@ -323,12 +325,10 @@ def _channel_majors(cfg: CubeConfig, kernel, taper1d, pixel_size, mid_w,
         if major > 0:
             cur_vis = _degrid_slices(cfg, kernel, model, uv, sub_uv,
                                      w_plane, anchor, valid, weights, vis,
-                                     taper1d, pixel_size, mid_w, nc_slices,
-                                     plain=plain)
+                                     taper1d, pixel_size, mid_w, nc_slices)
         dirty = _grid_slices(cfg, kernel, density, uv, sub_uv, w_plane,
                              anchor, valid, cur_vis, taper1d, pixel_size,
-                             mid_w, nc_slices, plain=plain, mesh=mesh,
-                             take=take)
+                             mid_w, nc_slices, mesh=mesh, take=take)
         dirty = fourier.scale_image(dirty, scale)
         residual, model, noise, cycles = _clean_stage(cfg, dirty, model,
                                                       patch)
@@ -351,7 +351,7 @@ def _channel(batch: multichannel.ChannelBatch, c: int):
 
 
 def wave_psf(cfg: CubeConfig, batch: multichannel.ChannelBatch, *,
-             plain: bool = False, mesh=None) -> PsfWaveResult:
+             mesh=None) -> PsfWaveResult:
     """Phase A of the auto-patch route: density weights and the full
     normalized PSF of every channel of the wave (of this rank's chunks
     under a ``mesh``, summed over its vis group)."""
@@ -361,8 +361,7 @@ def wave_psf(cfg: CubeConfig, batch: multichannel.ChannelBatch, *,
         (kern, tap, ps, midw, uv, sub, wp, anc, val, wt, _), nc = _channel(
             batch, c)
         outs.append(_channel_density_psf(cfg, kern, tap, ps, midw, uv, sub,
-                                         wp, anc, val, wt, nc, plain=plain,
-                                         mesh=mesh,
+                                         wp, anc, val, wt, nc, mesh=mesh,
                                          take=pmax_ints(nc, mesh)))
     return PsfWaveResult(*(torch.stack(x) for x in zip(*outs)))
 
@@ -375,7 +374,7 @@ def _sky_of(sky, c: int):
 
 def wave_clean(cfg: CubeConfig, batch: multichannel.ChannelBatch,
                psf_result: PsfWaveResult, patch: int,
-               sky: SkyBatch = None, *, plain: bool = False, mesh=None):
+               sky: SkyBatch = None, *, mesh=None):
     """Phase B of the auto-patch route: the major cycles with a CLEAN
     patch of ``patch`` pixels cut from phase A's PSFs, after the
     continuum subtraction of ``sky`` where ``cfg.num_sources > 0`` (this
@@ -392,13 +391,12 @@ def wave_clean(cfg: CubeConfig, batch: multichannel.ChannelBatch,
             cfgp, kern, tap, ps, midw, uv, sub, wp, anc, val, wt, vis,
             psf_result.density[c], psf_result.scale[c],
             _centre(psf_result.psf[c], patch), nc, sky=_sky_of(sky, c),
-            plain=plain, mesh=mesh, take=pmax_ints(nc, mesh)))
+            mesh=mesh, take=pmax_ints(nc, mesh)))
     return tuple(torch.stack(x) for x in zip(*outs))
 
 
 def wave_image(cfg: CubeConfig, batch: multichannel.ChannelBatch,
-               sky: SkyBatch = None, *, plain: bool = False,
-               mesh=None) -> WaveResult:
+               sky: SkyBatch = None, *, mesh=None) -> WaveResult:
     """A wave of channels through everything before the restore: weights,
     PSF, the continuum subtraction of ``sky`` where ``cfg.num_sources >
     0``, the major cycles and their CLEAN stages.  Under a ``mesh``,
@@ -413,11 +411,11 @@ def wave_image(cfg: CubeConfig, batch: multichannel.ChannelBatch,
         kern, tap, ps, midw, uv, sub, wp, anc, val, wt, vis = args
         density, psf, psf_peak, scale, w_rms, w_norm = _channel_density_psf(
             cfg, kern, tap, ps, midw, uv, sub, wp, anc, val, wt, nc,
-            plain=plain, mesh=mesh, take=take)
+            mesh=mesh, take=take)
         residual, model, noise, minor = _channel_majors(
             cfg, kern, tap, ps, midw, uv, sub, wp, anc, val, wt, vis,
             density, scale, _centre(psf, cfg.patch), nc,
-            sky=_sky_of(sky, c), plain=plain, mesh=mesh, take=take)
+            sky=_sky_of(sky, c), mesh=mesh, take=take)
         outs.append((residual, model, _centre(psf, cfg.psf_core), noise,
                      psf_peak, minor, w_rms, w_norm))
     return WaveResult(*(torch.stack(x) for x in zip(*outs)))

@@ -12,6 +12,7 @@ tables, taper, pixel size, mid-w values) are tensor inputs.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import NamedTuple
 
@@ -21,7 +22,7 @@ import torch
 from .. import device as device_mod
 from ..ops import _build
 from ..ops import clean as clean_ops
-from ..ops import fourier, fused_fft, mxu_gridder
+from ..ops import fourier, fused_fft, fused_gridder, mxu_gridder
 from ..ops import weights as weights_ops
 from ..profiling import profile, profile_function
 from .mesh import pmax_ints, psum
@@ -104,16 +105,16 @@ def weight_grid_plain(num_pols: int, pixels: int, uv, valid, weights):
 
 
 def weight_grid(num_pols: int, pixels: int, uv, valid, weights, *, anchor,
-                ts: int, kernel_width: int, plain: bool = False):
+                ts: int, kernel_width: int):
     """The (P, N, N) grid of summed imaging weights per uv cell of one
     channel's chunks; cells outside the grid are dropped.
 
     uv (S, NC, Mc, 2) int32, valid (S, NC, Mc) bool, weights (S, NC, Mc,
     P) f32 and anchor (S, NC, 2) int32 in the layout of the tile-aligned
     planner (:func:`..ops.mxu_gridder.plan_chunks_tiled`) at tile size
-    ``ts`` for ``kernel_width``.  CPU tensors, or ``plain``, run
-    :func:`weight_grid_plain`; CUDA tensors launch ``ktt_weight_grid``
-    (``csrc/weights.cu``) or raise.
+    ``ts`` for ``kernel_width``.  Runs :func:`weight_grid_plain` where
+    :func:`..device.runs_plain` holds; otherwise launches
+    ``ktt_weight_grid`` (``csrc/weights.cu``) or raises.
 
     The kernel reads the uv and weights of valid slots only, never a
     padding slot's, and relies on the planner's layout: each chunk's
@@ -127,7 +128,7 @@ def weight_grid(num_pols: int, pixels: int, uv, valid, weights, *, anchor,
     with no atomics, so two launches are bitwise equal.  Bound by bytes:
     the valid slots' uv and weights read once, the grid written once (see
     the CUDA source)."""
-    if plain or uv.device.type == "cpu":
+    if device_mod.runs_plain(uv):
         return weight_grid_plain(num_pols, pixels, uv, valid, weights)
     dev = uv.device
     N, Pp = pixels, num_pols
@@ -168,30 +169,28 @@ _weight_grid = weight_grid
 
 
 @profile_function("multichannel.weights")
-def _density(cfg: MultiChannelConfig, uv, anchor, valid, weights, mesh=None,
-             plain: bool = False):
+def _density(cfg: MultiChannelConfig, uv, anchor, valid, weights,
+             mesh=None):
     """Uniform density weights ``1 / W`` per occupied cell of the
-    (P, N, N) weight grid, summed over the vis group under a mesh.
-    ``plain`` takes the weight grid's plain version.  It calls
-    :func:`weight_grid` through this module, where a caller may wrap it."""
+    (P, N, N) weight grid, summed over the vis group under a mesh.  It
+    calls :func:`weight_grid` through this module, where a caller may
+    wrap it."""
     wgrid = psum(weight_grid(cfg.num_pols, cfg.pixels, uv, valid, weights,
                              anchor=anchor, ts=cfg.rv,
-                             kernel_width=cfg.kernel_width, plain=plain),
-                 mesh)
+                             kernel_width=cfg.kernel_width), mesh)
     return torch.where(wgrid > 0,
                        1.0 / torch.where(wgrid > 0, wgrid, 1.0), 0.0)
 
 
 def image_slices(kernel, density, taper1d, pixel_size, mid_w, uv, sub_uv,
                  w_plane, anchor, valid, vis, nc_slices, *, pixels: int,
-                 ts: int, plain: bool = False, mesh=None, take=None):
+                 ts: int, mesh=None, take=None):
     """The W-stacked (P, N, N) image of one channel's chunked ``vis``:
     per W slice the fused gridder (K1, K2) with the ``density`` weights
     (None: natural), then the grid -> image transform accumulating into
     the image.  ``nc_slices`` (S host ints) bounds each slice's gridder;
     slices whose count in ``take`` (default ``nc_slices``) is 0 skip the
-    gridder and the transform (a zero grid adds exactly zero).  ``plain``
-    runs every kernel's plain version whatever the device.
+    gridder and the transform (a zero grid adds exactly zero).
 
     Under a ``mesh`` with ``vis_size > 1`` each rank grids its own chunks
     and the slice's grid planes are summed over the vis group
@@ -202,7 +201,8 @@ def image_slices(kernel, density, taper1d, pixel_size, mid_w, uv, sub_uv,
     The precision follows the dtypes (:func:`precision_of`): at float64
     (``--precision double``) K1 still fills float32 colour planes, added
     onto a float64 grid by K2's plain version
-    (:func:`..ops.mxu_gridder.grid_chunks_onto`), and the transform is
+    (:func:`..ops.fused_gridder.grid_slice` with ``out``), and the
+    transform is
     :func:`fourier.grid_to_image_plain` at complex128, the JAX package's
     complex path.  At float32 the transform's route is chosen once, by
     the rule of :func:`fourier.grid_to_image_parts`: where
@@ -224,22 +224,18 @@ def image_slices(kernel, density, taper1d, pixel_size, mid_w, uv, sub_uv,
         if take_s == 0:
             return image
         with profile("multichannel.slice"):
+            out = None
             if double:
                 gr = torch.zeros((Pp, pixels, pixels), dtype=rdtype,
                                  device=dev)
-                gi = torch.zeros_like(gr)
-                mxu_gridder.grid_chunks_onto(
-                    (gr, gi), kernel, density, uv_s, sub_s, wp_s, vis_s,
-                    anc_s, val_s, None, int(nc_s), pixels=pixels, ts=ts,
-                    plain=plain)
-            else:
-                gr, gi = mxu_gridder.grid_chunks_parts(
-                    kernel, density, uv_s, sub_s, wp_s, vis_s, anc_s, val_s,
-                    None, int(nc_s), pixels=pixels, ts=ts, plain=plain)
+                out = (gr, torch.zeros_like(gr))
+            gr, gi = fused_gridder.grid_slice(
+                kernel, density, uv_s, sub_s, wp_s, vis_s, anc_s, val_s,
+                int(nc_s), pixels=pixels, ts=ts, out=out)
             gr, gi = psum(gr, mesh), psum(gi, mesh)
             if fused:
                 return fused_fft.grid_to_image_fused_parts(
-                    gr, gi, image, taper1d, w_mid, pixel_size, plain=plain)
+                    gr, gi, image, taper1d, w_mid, pixel_size)
             return fourier.grid_to_image_plain(torch.complex(gr, gi), image,
                                                taper1d, w_mid, pixel_size)
 
@@ -274,8 +270,7 @@ def precision_of(vis, taper1d) -> torch.dtype:
 @profile_function("multichannel.channel")
 def _channel_pipeline(cfg: MultiChannelConfig, kernel, taper1d, pixel_size,
                       mid_w, uv, sub_uv, w_plane, anchor, valid, weights,
-                      vis, nc_slices=None, plain: bool = False, mesh=None,
-                      take=None):
+                      vis, nc_slices=None, mesh=None, take=None):
     """One channel's ``(residual, model)``: the dirty image and a zero
     model, or with ``minor_cycles > 0`` the CLEANed residual and model.
 
@@ -285,17 +280,14 @@ def _channel_pipeline(cfg: MultiChannelConfig, kernel, taper1d, pixel_size,
     zero).  Under a ``mesh`` this rank holds a block of the channel's
     chunks: the weight grid and each slice's grid are summed over the vis
     group, and ``take`` (the group's maximum of the counts) decides the
-    skip (:func:`image_slices`).  ``plain`` runs every kernel's plain
-    version whatever the device: the reference the kernels are held to
-    on the card.  The precision follows the dtypes of ``vis`` and
-    ``taper1d`` (:func:`precision_of`)."""
+    skip (:func:`image_slices`).  The precision follows the dtypes of
+    ``vis`` and ``taper1d`` (:func:`precision_of`)."""
     precision_of(vis, taper1d)
     N, Pp = cfg.pixels, cfg.num_pols
     if cfg.weight_type == "natural":
         density = None
     elif cfg.weight_type == "uniform":
-        density = _density(cfg, uv, anchor, valid, weights, mesh,
-                           plain=plain)
+        density = _density(cfg, uv, anchor, valid, weights, mesh)
     else:
         raise ValueError(f"unknown weight_type {cfg.weight_type!r}")
     if nc_slices is None:
@@ -304,8 +296,8 @@ def _channel_pipeline(cfg: MultiChannelConfig, kernel, taper1d, pixel_size,
     def image_of(vis_like):
         return image_slices(kernel, density, taper1d, pixel_size, mid_w, uv,
                             sub_uv, w_plane, anchor, valid, vis_like,
-                            nc_slices, pixels=N, ts=cfg.rv, plain=plain,
-                            mesh=mesh, take=take)
+                            nc_slices, pixels=N, ts=cfg.rv, mesh=mesh,
+                            take=take)
 
     dirty = image_of(vis)
     if cfg.minor_cycles == 0:
@@ -327,23 +319,30 @@ def _channel_pipeline(cfg: MultiChannelConfig, kernel, taper1d, pixel_size,
     return clean_ops.residual_image(ccfg, state), state.model
 
 
-def single_channel_step(cfg: MultiChannelConfig, plain: bool = False):
+def single_channel_step(cfg: MultiChannelConfig, all_plain: bool = False,
+                        /):
     """Unsharded single-channel step.
 
     Returns ``fn(kernel, taper1d, pixel_size, mid_w, uv, sub_uv, w_plane,
     anchor, valid, weights, vis, nc_slices=None) -> (residual, model)``,
-    the JAX function's signature plus the host occupied-chunk counts."""
+    the JAX function's signature plus the host occupied-chunk counts.
+    ``all_plain`` true runs each call inside
+    :func:`..device.plain_versions`; it keeps the two-argument form of
+    this entry point (``single_channel_step(cfg, False)``, as the
+    benchmark's tests call it) working."""
 
     def fn(kernel, taper1d, pixel_size, mid_w, uv, sub_uv, w_plane, anchor,
            valid, weights, vis, nc_slices=None):
-        return _channel_pipeline(cfg, kernel, taper1d, pixel_size, mid_w,
-                                 uv, sub_uv, w_plane, anchor, valid,
-                                 weights, vis, nc_slices, plain=plain)
+        with (device_mod.plain_versions() if all_plain
+              else contextlib.nullcontext()):
+            return _channel_pipeline(cfg, kernel, taper1d, pixel_size,
+                                     mid_w, uv, sub_uv, w_plane, anchor,
+                                     valid, weights, vis, nc_slices)
 
     return fn
 
 
-def make_imaging_step(mesh, cfg: MultiChannelConfig, plain: bool = False):
+def make_imaging_step(mesh, cfg: MultiChannelConfig):
     """The sharded multi-channel imaging step of this rank.
 
     Counterpart of the JAX ``make_imaging_step``.  Returns ``step(batch)
@@ -354,16 +353,14 @@ def make_imaging_step(mesh, cfg: MultiChannelConfig, plain: bool = False):
     collective; within a channel the weight grid and each slice's grid
     planes are summed over the vis group, and each slice's occupied-chunk
     count is maxed over the group (the JAX ``pmax``), so every rank of
-    the group skips the same empty slices and joins every sum.  ``plain``
-    runs every kernel's plain version whatever the device."""
+    the group skips the same empty slices and joins every sum."""
 
     def step(batch: ChannelBatch):
         outs = []
         for c in range(batch.kernel.shape[0]):
             *args, nc = channel_args(batch, c)
             outs.append(_channel_pipeline(
-                cfg, *args, nc, plain=plain, mesh=mesh,
-                take=pmax_ints(nc, mesh)))
+                cfg, *args, nc, mesh=mesh, take=pmax_ints(nc, mesh)))
         return tuple(torch.stack(x) for x in zip(*outs))
 
     return step

@@ -11,9 +11,9 @@ temporary name, then renamed).
 Run it as ``python -m katsdpimager_tpu_torch.pipeline INPUT OUTPUT_DIR
 [--cube] ...``.  The imaging runs on the CUDA device, where every kernel
 of the path runs: :func:`main` and :func:`run` take ``device=None``,
-which means the CUDA device and raises without one, and ``plain=True``
-runs every kernel's plain version (the parity reference).  Tests pass
-``device="cpu"``.  :func:`run` takes a loaded dataset, so an in-memory
+which means the CUDA device and raises without one; inside
+:func:`.device.plain_versions` every kernel's plain version runs (the
+parity reference).  Tests pass ``device="cpu"``.  :func:`run` takes a loaded dataset, so an in-memory
 dataset needs no file format.
 
 ``--cube`` runs on several processes (ranks), one card each, on one host
@@ -229,15 +229,15 @@ def get_parser():
     return parser
 
 
-def run(args, dataset, writer, *, device=None, plain: bool = False):
+def run(args, dataset, writer, *, device=None):
     """Image ``dataset`` into ``writer`` (a :class:`PipelineWriter`) on
     ``device`` (None: the CUDA device, which must exist): with
     ``args.cube`` in waves (:func:`.cube_frontend.run_cube`, whose
     per-wave timings are returned), else channel by channel
     (:func:`.frontend.run`, whose per-channel statistics are returned);
-    then the observation summary and ``metadata.json``.  ``plain`` runs
-    every kernel's plain version.  Under a process group (``--cube``
-    only) ``device`` None is this rank's card, and only rank 0 writes."""
+    then the observation summary and ``metadata.json``.  Under a process
+    group (``--cube`` only) ``device`` None is this rank's card, and only
+    rank 0 writes."""
     from .parallel import mesh as mesh_mod
 
     device = mesh_mod.default_device(device)
@@ -248,11 +248,9 @@ def run(args, dataset, writer, *, device=None, plain: bool = False):
     if args.cube:
         from . import cube_frontend
 
-        result = cube_frontend.run_cube(args, dataset, writer, device=device,
-                                        plain=plain)
+        result = cube_frontend.run_cube(args, dataset, writer, device=device)
     else:
-        result = frontend.run(args, dataset, writer, device=device,
-                              plain=plain)
+        result = frontend.run(args, dataset, writer, device=device)
     stop = (args.stop_channel if args.stop_channel is not None
             else dataset.num_channels())
     if mesh_mod.rank() == 0:
@@ -260,7 +258,7 @@ def run(args, dataset, writer, *, device=None, plain: bool = False):
     return result
 
 
-def main(argv=None, *, device=None, plain: bool = False) -> int:
+def main(argv=None, *, device=None) -> int:
     """Batch pipeline CLI: parse ``argv``, load the dataset and
     :func:`run` it on ``device`` (None: the CUDA device, which must
     exist)."""
@@ -295,7 +293,7 @@ def main(argv=None, *, device=None, plain: bool = False) -> int:
         parser.error(f"cannot open {args.input_file}: {exc}")
     try:
         writer = PipelineWriter(args.output_dir, args.prefix, args.thumbnails)
-        run(args, dataset, writer, device=device, plain=plain)
+        run(args, dataset, writer, device=device)
     finally:
         dataset.close()
     return 0

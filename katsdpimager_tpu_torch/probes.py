@@ -27,8 +27,9 @@ tensor-core route a kernel of the port takes:
 - **E**: the recombine with no dot.  Exact.
 - **F**: the raw selected thirds against the host's split.  Exact.
 
-Each kernel wrapper runs its plain PyTorch version for CPU tensors and
-launches its kernel for CUDA tensors, or raises.  The plain versions do
+Each kernel wrapper runs its plain PyTorch version where
+:func:`.device.runs_plain` holds and otherwise launches its kernel, or
+raises.  The plain versions do
 each kernel's arithmetic: the same splits, f32 products of the pieces.
 ``python -m katsdpimager_tpu_torch.probes`` prints the scripts' lines
 (``--host``: the plain versions on the CPU).
@@ -41,6 +42,7 @@ import argparse
 import numpy as np
 import torch
 
+from .device import runs_plain
 from .ops import _build
 from .ops.fused_gridder import tf32_rna
 
@@ -177,8 +179,8 @@ def select_bf16_recombined(idx, tab):
     """Probe A: bf16 tensor-core one-hot selection of the (W, 3L) split
     table, recombined ``(hi + mid) + lo`` in registers.  (M,) int32 and
     (W, 3L) bf16 -> (M, L) f32; M and L multiples of 64, W of 16, W <=
-    256.  CPU tensors run the plain version."""
-    if idx.device.type == "cpu":
+    256."""
+    if runs_plain(idx):
         return select_bf16_plain(idx, tab, True)
     out = _select_bf16(idx, tab, True)
     select_bf16_recombined.launches += 1
@@ -189,9 +191,8 @@ select_bf16_recombined.launches = 0
 
 
 def select_bf16_raw(idx, tab):
-    """Probe F: the same selection stored raw, (M, 3L) f32.  CPU tensors
-    run the plain version."""
-    if idx.device.type == "cpu":
+    """Probe F: the same selection stored raw, (M, 3L) f32."""
+    if runs_plain(idx):
         return select_bf16_plain(idx, tab, False)
     out = _select_bf16(idx, tab, False)
     select_bf16_raw.launches += 1
@@ -204,9 +205,8 @@ select_bf16_raw.launches = 0
 def select_tf32x3(idx, table):
     """Probe B: one-hot selection on the TF32 tensor cores from the
     table's three TF32 pieces.  (M,) int32 and (W, L) f32 -> (M, L) f32;
-    M and L multiples of 64, W of 32, W <= 256.  CPU tensors run the plain
-    version."""
-    if idx.device.type == "cpu":
+    M and L multiples of 64, W of 32, W <= 256."""
+    if runs_plain(idx):
         return select_tf32x3_plain(idx, table)
     _check(idx, "idx", torch.int32, 1)
     _check(table, "table", torch.float32, 2)
@@ -247,9 +247,8 @@ def _band_dot(xs, ys, split: bool):
 def dot_3xtf32(x, y):
     """Probe C, stacked: ``x^T y`` by 3xTF32 ``wgmma`` with K1's split and
     accumulation, x (Mk, I), y (Mk, J) f32 -> (I, J); Mk a multiple of 32
-    up to 256, I and J multiples of 64.  CPU tensors run the plain
-    version."""
-    if x.device.type == "cpu":
+    up to 256, I and J multiples of 64."""
+    if runs_plain(x):
         return dot_3xtf32_plain(x, y)
     out = _band_dot((x,), (y,), True)
     dot_3xtf32.launches += 1
@@ -262,9 +261,8 @@ dot_3xtf32.launches = 0
 def dot_3xtf32_separate(a, b, c, d):
     """Probe C, separate: the (2I, 2J) output of the four block dots
     ``a^T c``, ``a^T d``, ``b^T c``, ``b^T d`` by 3xTF32, in one launch
-    that writes each block in place; a, b (Mk, I), c, d (Mk, J) f32.  CPU
-    tensors run the plain version."""
-    if a.device.type == "cpu":
+    that writes each block in place; a, b (Mk, I), c, d (Mk, J) f32."""
+    if runs_plain(a):
         return dot_3xtf32_separate_plain(a, b, c, d)
     out = _band_dot((a, b), (c, d), True)
     dot_3xtf32_separate.launches += 1
@@ -276,8 +274,8 @@ dot_3xtf32_separate.launches = 0
 
 def dot_tf32(x, y):
     """Probe C in one TF32 ``wgmma`` pass, no split: ``x^T y`` as
-    :func:`dot_3xtf32` takes it.  CPU tensors run the plain version."""
-    if x.device.type == "cpu":
+    :func:`dot_3xtf32` takes it."""
+    if runs_plain(x):
         return dot_tf32_plain(x, y)
     out = _band_dot((x,), (y,), False)
     dot_tf32.launches += 1
@@ -289,8 +287,8 @@ dot_tf32.launches = 0
 
 def recombine(tab):
     """Probe E: ``(hi + mid) + lo`` of the (W, 3L) bf16 table, no dot ->
-    (W, L) f32; L a multiple of 8.  CPU tensors run the plain version."""
-    if tab.device.type == "cpu":
+    (W, L) f32; L a multiple of 8."""
+    if runs_plain(tab):
         return recombine_plain(tab)
     _check(tab, "tab", torch.bfloat16, 2)
     w, l3 = tab.shape

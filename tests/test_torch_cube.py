@@ -23,7 +23,7 @@ from katsdpimager_tpu.ops import beam as jax_beam
 from katsdpimager_tpu.parallel import cube as jax_cube
 from katsdpimager_tpu.parallel import make_mesh
 from katsdpimager_tpu.parallel import multichannel as jax_mc
-from katsdpimager_tpu_torch import convert
+from katsdpimager_tpu_torch import convert, device
 from katsdpimager_tpu_torch.ops import beam
 from katsdpimager_tpu_torch.parallel import cube, multichannel
 
@@ -386,7 +386,8 @@ def test_wave_at_double_matches_jax(batches):
     np.testing.assert_array_equal(got.model.numpy() != 0, ref.model != 0)
     assert int(got.minor[0]) == int(ref.minor[0]) > 0
     # The plain route is the same at double: K1 and K5 are float32 there.
-    plain = cube.wave_image(CFG, db, plain=True)
+    with device.plain_versions():
+        plain = cube.wave_image(CFG, db)
     assert all(torch.equal(a, b) for a, b in zip(plain, got))
 
 

@@ -1,6 +1,6 @@
 """The port's image -> grid transform (K6 + K7 plain versions, and the
 plain formula) and fused degridder (K5 plain version,
-``degrid_chunks_parts``) against the JAX fused Pallas kernels
+``degrid_slice``) against the JAX fused Pallas kernels
 (interpret mode) and the numpy scatter degrid oracle.
 
 Tolerances: 1e-5 of peak throughout.  Measured here: K6 + K7 within
@@ -25,6 +25,7 @@ from katsdpimager_tpu.ops import mxu_gridder as jax_mxu
 from katsdpimager_tpu.ops import pallas_fft, pallas_gridder
 from katsdpimager_tpu_torch.ops import (fourier, fused_degrid, fused_fft,
                                         fused_gridder, mxu_gridder)
+from katsdpimager_tpu_torch.parallel import cube
 
 torch.set_num_threads(2)
 
@@ -154,16 +155,15 @@ def plan_arrays(plan):
             plan.anchor, plan.valid)
 
 
-def port_degrid(case, n_chunks="count", **kw):
+def port_degrid(case, n_chunks="count"):
     t = [torch.from_numpy(np.ascontiguousarray(a))
          for a in plan_arrays(case["plan"])]
     g = case["grid"]
     grid = (torch.from_numpy(np.ascontiguousarray(g.real)),
             torch.from_numpy(np.ascontiguousarray(g.imag)))
     nc = case["nc"] if n_chunks == "count" else n_chunks
-    return mxu_gridder.degrid_chunks_parts(
-        grid, torch.from_numpy(case["kernel"]), *t, nc, pixels=N, rv=TS,
-        ru=TS, **kw)
+    return fused_degrid.degrid_slice(
+        grid, torch.from_numpy(case["kernel"]), *t, nc, pixels=N, ts=TS)
 
 
 @pytest.fixture(scope="module")
@@ -217,10 +217,14 @@ def test_plain_k5_matches_jax_kernel_output(jax_degrid):
     t = [torch.from_numpy(np.ascontiguousarray(a)) for a in
          (plan.uv, plan.sub_uv, plan.w_plane, plan.anchor, plan.valid)]
     g = case["grid"]
-    pred = fused_degrid.degrid_chunks_fused(
+    kernel = torch.from_numpy(case["kernel"])
+    av, au, iu, iv, su, sv = fused_degrid.degrid_taps(kernel, *t[:4],
+                                                      pixels=N, ts=TS)
+    pred = fused_degrid.degrid_planes(
         torch.from_numpy(np.ascontiguousarray(g.real)),
-        torch.from_numpy(np.ascontiguousarray(g.imag)),
-        torch.from_numpy(case["kernel"]), *t, case["nc"], pixels=N, ts=TS)
+        torch.from_numpy(np.ascontiguousarray(g.imag)), av, au,
+        fused_gridder.valid_counts(t[4]), iu, iv, su, sv,
+        fused_degrid.degrid_table(kernel), case["nc"], ts=TS)
     assert not pred[case["nc"]:].any()
     assert not pred.numpy()[~plan.valid].any()
     got = plan.vis - plan.weights * (pred.numpy() * plan.valid[..., None])
@@ -259,16 +263,24 @@ def test_shifts_and_anchors_in_range():
 @pytest.mark.parametrize("rv,ru,width", [(32, 16, 16), (32, 32, 40)])
 def test_unported_layouts_raise(rv, ru, width):
     """Where the JAX package falls back to an XLA assembly, the port
-    raises."""
+    raises: the cube's degridding stage for ``rv != ru``, the slice's
+    entry point for a kernel wider than ``ts + 1``."""
+    if rv != ru:
+        cfg = cube.CubeConfig(
+            pixels=N, num_pols=1, kernel_width=width, oversample=O,
+            w_planes=WP, w_slices=1, chunks_per_slice=1, chunk_size=1,
+            rv=rv, ru=ru)
+        with pytest.raises(NotImplementedError):
+            cube._degrid_slices(cfg, *[None] * 13)
+        return
     case = degrid_case(13, 1, n=50)
     case["kernel"] = np.zeros((WP, O, width), np.complex64)
     t = [torch.from_numpy(np.ascontiguousarray(a))
          for a in plan_arrays(case["plan"])]
     g = torch.zeros((1, N, N))
     with pytest.raises(NotImplementedError):
-        mxu_gridder.degrid_chunks_parts(
-            (g, g), torch.from_numpy(case["kernel"]), *t, pixels=N, rv=rv,
-            ru=ru)
+        fused_degrid.degrid_slice(
+            (g, g), torch.from_numpy(case["kernel"]), *t, pixels=N, ts=rv)
 
 
 @pytest.mark.parametrize("P", [1, 2])

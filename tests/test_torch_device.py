@@ -8,7 +8,7 @@ import torch
 
 from katsdpimager_tpu_torch import device, frontend, imaging, parameters
 from katsdpimager_tpu_torch import preprocess
-from katsdpimager_tpu_torch.ops import clean, mxu_gridder, weights
+from katsdpimager_tpu_torch.ops import clean, weights
 from katsdpimager_tpu_torch.parallel import multichannel
 
 SMALL = dict(pixels=256, num_pols=1, kernel_width=16, oversample=8,
@@ -63,7 +63,7 @@ def _hdf5_collector(dev, tmp_path):
 ENTRY_POINTS = {
     "Imaging": lambda dev, tmp: _imaging(dev),
     "process_channel": lambda dev, tmp: _process_channel(dev),
-    "MxuGridder": lambda dev, tmp: mxu_gridder.MxuGridder(
+    "MxuGridder": lambda dev, tmp: imaging.MxuGridder(
         pixels=256, kernel_width=16, **dev),
     "make_example_batch": lambda dev, tmp: multichannel.make_example_batch(
         multichannel.MultiChannelConfig(**SMALL), 1, vis_per_slice=500,
@@ -100,8 +100,46 @@ def test_resolve(no_cuda):
 
 
 def test_cpu_objects_live_on_cpu():
-    g = mxu_gridder.MxuGridder(pixels=256, kernel_width=16, device="cpu")
+    g = imaging.MxuGridder(pixels=256, kernel_width=16, device="cpu")
     w = weights.Weights(weights.WeightType.UNIFORM, 1, 64, device="cpu")
     assert g.device == torch.device("cpu")
     assert w.grid.device == torch.device("cpu")
     assert np.all(w.grid.numpy() == 0)
+
+
+def test_plain_versions_switch():
+    """:func:`device.runs_plain` is false for a non-CPU tensor outside
+    :func:`device.plain_versions` and true inside it, nested blocks
+    included; it is false again after a block, also one left by an
+    exception.  A CPU tensor always runs plain."""
+    meta = torch.empty(1, device="meta")
+    assert device.runs_plain(torch.zeros(1))
+    assert not device.runs_plain(meta)
+    with device.plain_versions():
+        assert device.runs_plain(meta)
+        with device.plain_versions():
+            assert device.runs_plain(meta)
+        assert device.runs_plain(meta)
+    assert not device.runs_plain(meta)
+    with pytest.raises(ValueError):
+        with device.plain_versions():
+            assert device.runs_plain(meta)
+            raise ValueError
+    assert not device.runs_plain(meta)
+    assert device.runs_plain(torch.zeros(1))
+
+
+@pytest.mark.parametrize("all_plain", [False, True])
+def test_two_argument_step_form(all_plain, monkeypatch):
+    """``single_channel_step(cfg, flag)`` runs each call of its step
+    inside :func:`device.plain_versions` exactly when ``flag`` is true;
+    ``single_channel_step(cfg)`` never does."""
+    meta = torch.empty(1, device="meta")
+    seen = []
+    monkeypatch.setattr(multichannel, "_channel_pipeline",
+                        lambda *args: seen.append(device.runs_plain(meta)))
+    cfg = multichannel.MultiChannelConfig(**SMALL)
+    multichannel.single_channel_step(cfg, all_plain)(*[None] * 11)
+    multichannel.single_channel_step(cfg)(*[None] * 11)
+    assert seen == [all_plain, False]
+    assert not device.runs_plain(meta)

@@ -5,10 +5,13 @@ machine with one, without the JAX test configuration (that machine has
 no JAX): ``python -m pytest tests/test_torch_gpu.py -m gpu --noconftest``.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
 
+from katsdpimager_tpu_torch import device
 from katsdpimager_tpu_torch.ops import (clean, fused_degrid, fused_fft,
                                         fused_gridder, mxu_gridder)
 from katsdpimager_tpu_torch.parallel import cube, multichannel
@@ -45,13 +48,20 @@ def _plan_case(seed, *, pixels, K, ts, P, n, mc=256, w_planes=4, O=8):
     return kernel, wg, plan
 
 
+def _versions(plain):
+    """The block in which the plain versions run (``plain``), or the
+    kernels."""
+    return device.plain_versions() if plain else contextlib.nullcontext()
+
+
 def _planes(dev, kernel, wg, plan, *, pixels, ts, plain):
     t = [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in
          (kernel, wg, plan.uv, plan.sub_uv, plan.w_plane, plan.vis,
           plan.anchor, plan.valid)]
     n = int(plan.valid.any(axis=1).sum())
-    return fused_gridder.grid_chunks_planes(
-        *t, None, n, pixels=pixels, ts=ts, plain=plain)
+    with _versions(plain):
+        return fused_gridder.grid_chunks_planes(*t, None, n, pixels=pixels,
+                                                ts=ts)
 
 
 #: K1's tile sizes beyond 32 and 64, each with K = ts + 1 (K <= 256) and
@@ -244,7 +254,8 @@ def test_step_matches_plain(cuda, weight_type):
     batch = multichannel.make_example_batch(cfg, 1, seed=3, device=cuda)
     args = multichannel.channel_args(batch, 0)
     got = multichannel.single_channel_step(cfg)(*args)[0]
-    ref = multichannel.single_channel_step(cfg, plain=True)(*args)[0]
+    with device.plain_versions():
+        ref = multichannel.single_channel_step(cfg)(*args)[0]
     taper = batch.taper1d[0]
     t2 = torch.outer(taper, taper)
     inside = t2 >= 0.002 * t2.max()
@@ -308,9 +319,14 @@ def test_k5_matches_plain(cuda, ts, K, P):
     is gone; windows at the grid's edge read zero beyond it."""
     pixels = 1024
     kernel, plan = _k5_plan(4, pixels=pixels, K=K, ts=ts, P=P, n=20000)
-    t = [torch.from_numpy(np.ascontiguousarray(x)).to(cuda) for x in
-         (kernel, plan.uv, plan.sub_uv, plan.w_plane, plan.anchor,
-          plan.valid)]
+    kern, uv, sub, wp, anc, val = (
+        torch.from_numpy(np.ascontiguousarray(x)).to(cuda) for x in
+        (kernel, plan.uv, plan.sub_uv, plan.w_plane, plan.anchor,
+         plan.valid))
+    av, au, iu, iv, su, sv = fused_degrid.degrid_taps(
+        kern, uv, sub, wp, anc, pixels=pixels, ts=ts)
+    count = fused_gridder.valid_counts(val)
+    table = fused_degrid.degrid_table(kern)
     occupied = int(plan.valid.any(axis=1).sum())
     valid = torch.from_numpy(plan.valid).to(cuda)
     assert plan.anchor.max() + ts + K - 1 > pixels
@@ -319,10 +335,11 @@ def test_k5_matches_plain(cuda, ts, K, P):
     gi = torch.randn((P, pixels, pixels), generator=gen).to(cuda)
     for n in sorted({occupied, len(plan.valid)}):
         launches = fused_degrid.degrid_planes.launches
-        k = fused_degrid.degrid_chunks_fused(gr, gi, *t, n, pixels=pixels,
-                                             ts=ts)
-        p = fused_degrid.degrid_chunks_fused(gr, gi, *t, n, pixels=pixels,
-                                             ts=ts, plain=True)
+        k = fused_degrid.degrid_planes(gr, gi, av, au, count, iu, iv, su,
+                                       sv, table, n, ts=ts)
+        with device.plain_versions():
+            p = fused_degrid.degrid_planes(gr, gi, av, au, count, iu, iv,
+                                           su, sv, table, n, ts=ts)
         torch.cuda.synchronize()
         assert fused_degrid.degrid_planes.launches == launches + 1
         assert torch.isfinite(k).all() and not k[n:].any()
@@ -466,7 +483,8 @@ def test_step_at_1000px_matches_plain(cuda, weight_type):
     got = multichannel.single_channel_step(cfg)(*args)[0]
     assert fused_gridder.grid_planes.launches > launches
     assert fused_fft.cb_col_fft.launches == 0
-    ref = multichannel.single_channel_step(cfg, plain=True)(*args)[0]
+    with device.plain_versions():
+        ref = multichannel.single_channel_step(cfg)(*args)[0]
     peak = ref.abs().max().item()
     assert got.shape == (1, 1000, 1000) and torch.isfinite(got).all()
     inside = _inside(batch.taper1d[0])
@@ -487,7 +505,8 @@ def test_wave_matches_plain(cuda):
         seed=3, device=cuda)
     batch, pos, flux = cube.with_point_sources(cfg, batch, seed=1)
     got = cube.wave_image(cfg, batch)
-    ref = cube.wave_image(cfg, batch, plain=True)
+    with device.plain_versions():
+        ref = cube.wave_image(cfg, batch)
     taper = batch.taper1d[0]
     t2 = torch.outer(taper, taper)
     inside = t2 >= 0.002 * t2.max()
@@ -517,7 +536,8 @@ def test_wave_at_1000px_matches_plain(cuda):
     got = cube.wave_image(cfg, batch)
     assert fused_fft.cb_col_fft.launches == 0
     assert fused_degrid.degrid_planes.launches > 0
-    ref = cube.wave_image(cfg, batch, plain=True)
+    with device.plain_versions():
+        ref = cube.wave_image(cfg, batch)
     inside = _inside(batch.taper1d[0])
     peak = float(flux.max())
     assert torch.equal((got.model != 0)[..., inside],
@@ -626,7 +646,8 @@ def test_per_channel_run_matches_plain(cuda, pixels):
             def write_fits_grid(self, *a, **k):
                 pass
 
-        frontend.run(args, dataset, Capture(), device=cuda, plain=plain)
+        with _versions(plain):
+            frontend.run(args, dataset, Capture(), device=cuda)
         return cap
 
     fused_degrid.degrid_planes.launches = 0
@@ -760,8 +781,8 @@ def test_cube_pipeline_matches_plain(cuda, tmp_path):
             return write(name, desc, ds, image, ip, ch, *a, **k)
 
         writer.write_fits_image = capture
-        timings = pipeline.run(args, dataset, writer, device=cuda,
-                               plain=plain)
+        with _versions(plain):
+            timings = pipeline.run(args, dataset, writer, device=cuda)
         assert len(timings) == 2
         return images, json.loads((out / "state.json").read_text())
 
@@ -1124,7 +1145,8 @@ def test_wave_at_double_matches_plain(cuda):
     got = cube.wave_image(cfg, batch)
     assert fused_gridder.grid_planes.launches > launches[0]
     assert fused_degrid.degrid_planes.launches > launches[1]
-    ref = cube.wave_image(cfg, batch, plain=True)
+    with device.plain_versions():
+        ref = cube.wave_image(cfg, batch)
     assert got.residual.dtype == got.model.dtype == torch.float64
     inside = _inside(batch.taper1d[0])
     assert torch.equal((got.model != 0)[..., inside],
@@ -1207,10 +1229,10 @@ def test_device_plan_grids_as_the_host_plan(cuda, ts, K, P):
         return torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
 
     def grid(plan):
-        return mxu_gridder.grid_chunks_parts(
+        return fused_gridder.grid_slice(
             up(kernel), up(wg), *(plan[f] for f in (
                 "uv", "sub_uv", "w_plane", "vis", "anchor", "valid")),
-            None, n_chunks, pixels=pixels, ts=ts)
+            n_chunks, pixels=pixels, ts=ts)
 
     want = grid({f: up(getattr(host, f)) for f in host._fields})
     got = grid(dev)
@@ -1342,8 +1364,8 @@ def _check_weight_grid(dev, pixels, K, ts, uv, valid, weights, anchor):
     del nan
     launches = multichannel.weight_grid.launches
     got = multichannel.weight_grid(P, pixels, uv, valid, weights, **kw)
-    plain = multichannel.weight_grid(P, pixels, uv, valid, weights, **kw,
-                                     plain=True)
+    with device.plain_versions():
+        plain = multichannel.weight_grid(P, pixels, uv, valid, weights, **kw)
     torch.cuda.synchronize()
     assert multichannel.weight_grid.launches == launches + 1
     assert torch.isfinite(got).all()

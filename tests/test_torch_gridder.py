@@ -45,12 +45,12 @@ def plan_arrays(case):
     return (p.uv, p.sub_uv, p.w_plane, p.vis, p.anchor, p.valid)
 
 
-def port_grid(case, *, density=True, n_chunks=None, **kw):
+def port_grid(case, *, density=True, n_chunks=None):
     t = [torch.from_numpy(np.ascontiguousarray(a)) for a in plan_arrays(case)]
     wg = torch.from_numpy(case["wg"]) if density else None
-    return mxu_gridder.grid_chunks_parts(
-        torch.from_numpy(case["kernel"]), wg, *t, None, n_chunks,
-        pixels=PIXELS, ts=TS, **kw)
+    return fused_gridder.grid_slice(
+        torch.from_numpy(case["kernel"]), wg, *t, n_chunks, pixels=PIXELS,
+        ts=TS)
 
 
 #: (num_pols, density grid, n_chunks given): every value of each axis
@@ -176,12 +176,14 @@ def test_empty_plan_is_zero(empty):
     assert not gr.any() and not gi.any()
 
 
-def test_pol_split_matches_joint():
+def test_pol_split_matches_joint(monkeypatch):
     """The polarization-group split (accumulators over the cap) equals
     the joint call: each polarization's sums are independent."""
     case = make_case(23, num_pols=4, n=500)
     joint = port_grid(case)
-    split = port_grid(case, max_acc_gb=0.01)
+    monkeypatch.setattr(mxu_gridder, "MAX_ACC_GB", 0.01)
+    assert len(mxu_gridder.pol_groups(4, PIXELS, TS)) > 1
+    split = port_grid(case)
     for a, b in zip(joint, split):
         assert torch.equal(a, b)
 
@@ -191,8 +193,8 @@ def test_wide_kernel_raises():
     wide = np.zeros((4, 8, TS + 2), np.complex64)
     t = [torch.from_numpy(np.ascontiguousarray(a)) for a in plan_arrays(case)]
     with pytest.raises(NotImplementedError):
-        mxu_gridder.grid_chunks_parts(torch.from_numpy(wide), None, *t,
-                                      pixels=PIXELS, ts=TS)
+        fused_gridder.grid_slice(torch.from_numpy(wide), None, *t,
+                                 pixels=PIXELS, ts=TS)
 
 
 def _tile_case(seed, pixels, ts, n=600, w_planes=4, oversample=8):
@@ -219,7 +221,7 @@ def test_tile_sizes_match_jax_fused(pixels):
     """K1 at the per-channel planner's tile sizes other than 32 and 64
     (ts = N / 8: 16 at 128 px, 33 at 264 px, 50 at 400 px; K = 16): the
     port's plain K1 colour planes (written blocks) and its
-    ``grid_chunks_parts`` (plain K1 + K2) against the JAX Pallas gridder
+    ``grid_slice`` (plain K1 + K2) against the JAX Pallas gridder
     in interpret mode, within 2e-5 of the largest value."""
     ts = mxu_gridder.tile_size(pixels, K)
     assert ts == pixels // 8
@@ -246,8 +248,8 @@ def test_tile_sizes_match_jax_fused(pixels):
         want = np.where(written, np.asarray(want), 0)
         got = np.where(written, got.numpy(), 0)
         assert np.abs(got - want).max() <= 2e-5 * np.abs(want).max()
-    gr, gi = mxu_gridder.grid_chunks_parts(
-        torch.from_numpy(kernel), torch.from_numpy(wg), *t, None, nc,
+    gr, gi = fused_gridder.grid_slice(
+        torch.from_numpy(kernel), torch.from_numpy(wg), *t, nc,
         pixels=pixels, ts=ts)
     scale = max(np.abs(jr).max(), np.abs(ji).max())
     np.testing.assert_allclose(gr.numpy(), np.asarray(jr), atol=2e-5 * scale)

@@ -207,7 +207,7 @@ def test_k1_f32_band_sets_the_double_gate():
     than 1e-6 of the peak and less than the gate."""
     from katsdpimager_tpu.ops import gridder as jax_gridder
     from katsdpimager_tpu_torch import parameters, polarization
-    from katsdpimager_tpu_torch.ops import fourier, mxu_gridder
+    from katsdpimager_tpu_torch.ops import fourier, fused_gridder, mxu_gridder
     from katsdpimager_tpu_torch.ops import wkernel as twkernel
 
     K = 12
@@ -239,10 +239,10 @@ def test_k1_f32_band_sets_the_double_gate():
 
     gr = torch.zeros((1, N, N), dtype=torch.float64)
     gi = torch.zeros_like(gr)
-    mxu_gridder.grid_chunks_onto(
-        (gr, gi), t(kern.astype(np.complex64)), None, t(plan.uv),
-        t(plan.sub_uv), t(plan.w_plane), t(plan.vis), t(plan.anchor),
-        t(plan.valid), pixels=N, ts=ts)
+    fused_gridder.grid_slice(
+        t(kern.astype(np.complex64)), None, t(plan.uv), t(plan.sub_uv),
+        t(plan.w_plane), t(plan.vis), t(plan.anchor), t(plan.valid),
+        pixels=N, ts=ts, out=(gr, gi))
     oracle = jax_gridder.grid_vis_reference(
         np.zeros((1, N, N), np.complex128), kern, np.ones((1, N, N)), uv,
         sub, wp, vis.astype(np.complex128))

@@ -223,10 +223,10 @@ def test_running_grid_matches_jax_fused():
         ts=ts, interpret=True))[:, :pixels, :pixels]
     grid = (torch.from_numpy(base.real.copy()),
             torch.from_numpy(base.imag.copy()))
-    mxu_gridder.grid_chunks_onto(grid, torch.from_numpy(kern), None,
-                                 *(torch.from_numpy(np.ascontiguousarray(f))
-                                   for f in fields),
-                                 n_chunks=nch, pixels=pixels, ts=ts)
+    fused_gridder.grid_slice(torch.from_numpy(kern), None,
+                             *(torch.from_numpy(np.ascontiguousarray(f))
+                               for f in fields),
+                             n_chunks=nch, pixels=pixels, ts=ts, out=grid)
     got = torch.complex(*grid).numpy()
     assert np.abs(got - want).max() <= 2e-5 * np.abs(want - base).max()
 

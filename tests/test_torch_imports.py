@@ -3,6 +3,7 @@ modules, nor ``chip_smoke.py``, nor ``tests/test_torch_gpu.py`` (the one
 test file that runs on the card), may import JAX or anything of the JAX
 package ``katsdpimager_tpu`` (the port has its own host modules)."""
 
+import ast
 import os
 import pathlib
 import re
@@ -57,3 +58,56 @@ def test_sources_name_no_jax_package():
     for path in SOURCES:
         for line in path.read_text().splitlines():
             assert not pattern.match(line), (path, line)
+
+
+def test_no_function_takes_plain():
+    """Which version of a kernel runs is decided in one place,
+    ``device.runs_plain`` (switched by ``device.plain_versions``): no
+    function of the port takes a ``plain`` parameter."""
+    for path in sorted(PKG.rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                 ast.Lambda)):
+                a = node.args
+                names = [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs]
+                assert "plain" not in names, (path.name, node.lineno)
+
+
+#: The gridding modules of ``ops``: the planner and layout helpers, and
+#: the two kernel modules that import them.
+_GRIDDING = ("mxu_gridder", "fused_gridder", "fused_degrid")
+
+
+def _imported_gridding_modules(node) -> set:
+    """The modules of :data:`_GRIDDING` that an import statement names."""
+    if isinstance(node, ast.Import):
+        names = [a.name for a in node.names]
+    elif node.level == 0:
+        names = [node.module or ""]
+    elif node.module is None:
+        names = [a.name for a in node.names]
+    else:
+        names = [node.module] + [f"{node.module}.{a.name}"
+                                 for a in node.names]
+    return {m for m in _GRIDDING for name in names
+            if name == m or name.endswith("." + m)
+            or name.startswith(m + ".")}
+
+
+def test_gridding_modules_import_in_one_direction():
+    """``ops.mxu_gridder`` imports neither kernel module, and the three
+    import each other at module level only (no hidden cycle through a
+    function body)."""
+    for name in _GRIDDING:
+        tree = ast.parse((PKG / "ops" / f"{name}.py").read_text())
+        top = set()
+        for node in tree.body:
+            if isinstance(node, (ast.Import, ast.ImportFrom)):
+                top |= _imported_gridding_modules(node)
+        every = set()
+        for node in ast.walk(tree):
+            if isinstance(node, (ast.Import, ast.ImportFrom)):
+                every |= _imported_gridding_modules(node)
+        assert every == top, (name, every - top)
+        if name == "mxu_gridder":
+            assert not every, every

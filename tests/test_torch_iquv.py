@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from katsdpimager_tpu_torch.ops import mxu_gridder
+from katsdpimager_tpu_torch.ops import fused_gridder, mxu_gridder
 from katsdpimager_tpu_torch.parallel import multichannel as mc
 from portbench import manifest
 from portbench.common.trace import Trace
@@ -98,28 +98,29 @@ def per_pol_gb(ts):
 
 @pytest.mark.parametrize("size", [1, 2, 3])
 @pytest.mark.parametrize("route", ["parts", "onto"])
-def test_pol_groups_grid_as_one_group(size, route):
+def test_pol_groups_grid_as_one_group(size, route, monkeypatch):
     """With the accumulator cap forced down to ``size`` polarisations,
     the groups of :func:`mxu_gridder.pol_groups` grid the same planes,
-    bitwise, as one group of all four."""
+    bitwise, as one group of all four: into fresh planes (``out=None``,
+    route ``parts``) and onto given ones (``out=planes``, ``onto``)."""
     ts = SMALL_CONFIG["tile_size"]
     cap = per_pol_gb(ts) * (size + 0.5)
-    groups = mxu_gridder.pol_groups(P, N, ts, cap)
-    assert groups == [(p, min(p + size, P)) for p in range(0, P, size)]
+    groups = [(p, min(p + size, P)) for p in range(0, P, size)]
     assert mxu_gridder.pol_groups(P, N, ts) == [(0, P)]
     (kernel, uv, sub, wp, vis, anc, val), density, n = slice_inputs()
 
-    def grid(max_acc_gb):
-        if route == "parts":
-            return mxu_gridder.grid_chunks_parts(
-                kernel, density, uv, sub, wp, vis, anc, val, None, n,
-                pixels=N, ts=ts, max_acc_gb=max_acc_gb)
-        planes = tuple(torch.zeros((P, N, N)) for _ in range(2))
-        return mxu_gridder.grid_chunks_onto(
-            planes, kernel, density, uv, sub, wp, vis, anc, val, None, n,
-            pixels=N, ts=ts, max_acc_gb=max_acc_gb)
+    def grid():
+        out = None
+        if route == "onto":
+            out = tuple(torch.zeros((P, N, N)) for _ in range(2))
+        return fused_gridder.grid_slice(
+            kernel, density, uv, sub, wp, vis, anc, val, n, pixels=N,
+            ts=ts, out=out)
 
-    split, whole = grid(cap), grid(mxu_gridder.MAX_ACC_GB)
+    whole = grid()
+    monkeypatch.setattr(mxu_gridder, "MAX_ACC_GB", cap)
+    assert mxu_gridder.pol_groups(P, N, ts) == groups
+    split = grid()
     for a, b in zip(split, whole):
         assert a.shape == (P, N, N)
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
@@ -208,8 +209,8 @@ def run_small(monkeypatch=None, swap=None):
         order = list(range(P))
         order[swap[0]], order[swap[1]] = swap[1], swap[0]
 
-        def patched(cfg, plain=False):
-            fn = original(cfg, plain)
+        def patched(cfg):
+            fn = original(cfg)
 
             def step(*args):
                 image, model = fn(*args)

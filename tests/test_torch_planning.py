@@ -92,15 +92,16 @@ def test_dense_pad_size_matches_jax(pixels, ts):
             == jax_mxu.dense_pad_size(pixels, ts))
 
 
-def test_pol_groups():
+def test_pol_groups(monkeypatch):
     """One group under the cap; JAX's polarization-group split over it."""
     assert mxu_gridder.pol_groups(4, 4096, 64) == [(0, 4)]
     # 8k full Stokes: 2.28 GB per polarization against the 5 GB cap
     assert mxu_gridder.pol_groups(4, 8192, 64) == [(0, 2), (2, 4)]
-    assert mxu_gridder.pol_groups(3, 512, 64, max_acc_gb=0.04) == [
-        (0, 2), (2, 3)]
+    monkeypatch.setattr(mxu_gridder, "MAX_ACC_GB", 0.04)
+    assert mxu_gridder.pol_groups(3, 512, 64) == [(0, 2), (2, 3)]
+    monkeypatch.setattr(mxu_gridder, "MAX_ACC_GB", 1.0)
     with pytest.raises(ValueError):
-        mxu_gridder.pol_groups(1, 8192, 64, max_acc_gb=1.0)
+        mxu_gridder.pol_groups(1, 8192, 64)
 
 
 @pytest.mark.parametrize("weight_type", ["natural", "uniform"])
