@@ -11,13 +11,13 @@ Run from the repository root on a machine with a CUDA card:
 (``chip_smoke.py --rank-worker ...`` is one rank of the ``distributed``
 phase, which starts it through ``torchrun`` and with ``--coordinator``.)
 
-It builds the port's CUDA kernels (K1-K8 and the probes P1/P2) from
+It builds the port's CUDA kernels (K1-K8, K23 and the probes P1/P2) from
 ``katsdpimager_tpu_torch/csrc`` and the production batch (8 channels,
 4096 px, K=60, oversample 8, 32 W planes, 4 W slices, 2^19 visibilities
 per slice, natural weights), then:
 
 - prints what ``ptxas -v`` reported for K1, K3, K4, K5 (its instance for
-  the production K), K6, K7 and K8 (registers, spills, stack frame,
+  the production K), K6, K7, K8 and K23 (registers, spills, stack frame,
   shared memory), and K1's accumulation schedule with its instances'
   registers (one ``ptxas`` count shared by the CTA's producer and
   consumer threads) and, at the production slice, the items and batches
@@ -28,10 +28,15 @@ per slice, natural weights), then:
   both, and the column DFTs (K3, K4, K6, K7, K8) also against
   ``torch.fft.ifft`` or ``torch.fft.fft`` along dim -2, in turns;
   computes each kernel's roofline bound from its inputs (H100 SXM peaks);
-  ``fft2`` (two K8 passes) against ``torch.fft.fft2``;
+  ``fft2`` (two K8 passes) against ``torch.fft.fft2``; K23 bitwise K3 on
+  K2's grid, and (``k23_turns``) at the production batch's four slices
+  of channel 0, P = 1 and 4, with NaN in the unwritten colour-plane
+  blocks: bitwise again, and 20 launches of each in turns against K2
+  then K3, with its byte bound from the occupied blocks;
 - runs the 8-channel dirty-image step through
   ``multichannel.single_channel_step`` (1 warm-up, 3 timed iterations)
-  with the launch counters reset just before, and checks channel 0's
+  with the launch counters reset just before (K1, K23 and K4 once a
+  non-empty slice, K2 and K3 never), and checks channel 0's
   dirty image against the all-plain step; then profiles one more step
   (the device's busy time and idle share, the top kernels by device
   time, and the host's seconds to enqueue it);
@@ -43,8 +48,8 @@ per slice, natural weights), then:
   launch counter reset just before (one launch a channel), and checks
   channel 0 against the all-plain uniform step;
 - runs the dirty step and a cube wave at 1000 px (no power of two: the
-  grid <-> image transforms take ``torch.fft`` by rule, K3 never
-  launches) against their all-plain runs;
+  grid <-> image transforms take ``torch.fft`` by rule, K3 and K23 never
+  launch) against their all-plain runs;
 - adds 5 bright point sources to the batch (predicted through the degrid
   path) and runs the 8-channel cube wave once at full width
   (``cube.wave_image``: weights, PSF, 2 major cycles of grid, FFT, CLEAN
@@ -188,6 +193,28 @@ def fft_flops(n: int, columns: int) -> float:
     return 5.0 * n * math.log2(n) * columns
 
 
+def k23_present(occ, pixels: int, ts: int) -> int:
+    """The colour-plane values K2 and K23 read for each polarization: for
+    each plane (a, b), the pixels of the N x N grid that its occupied
+    blocks cover (the plane placed at (a ts, b ts), as K2 places it)."""
+    total = 0
+    for a in range(2):
+        for b in range(2):
+            m = occ[a, b].repeat_interleave(2 * ts, 0).repeat_interleave(
+                2 * ts, 1)
+            total += int(m[:pixels - a * ts, :pixels - b * ts].sum())
+    return total
+
+
+def k23_bound(occ, pixels: int, ts: int, P: int) -> dict:
+    """K23's :func:`bound`: the occupied blocks' values in the grid (8 B
+    each, re + im) and the occupancy bytes read once, the transposed
+    (P, N, N) pair written once; the column DFTs' flops."""
+    return bound(8 * P * k23_present(occ, pixels, ts) + occ.numel()
+                 + 8 * P * pixels * pixels,
+                 fp32=fft_flops(pixels, pixels * P))
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -276,7 +303,8 @@ def main() -> None:
         if any(name in k["function"] for name in (
             "18grid_planes_kernelI", "col_fft_k8_kernel",
             "cb_col_fft_kernel", "epi_col_fft_kernel", "pre_col_fft_kernel",
-            "cbout_col_fft_kernel", k5_instance))]})
+            "cbout_col_fft_kernel", "combine_cb_col_fft_kernel",
+            k5_instance))]})
     emit({"phase": "roofline", "card": card,
           "hbm_bytes_per_s": H100_SXM_HBM_BYTES_PER_S,
           "flop_per_s": H100_SXM_FLOP_PER_S,
@@ -445,6 +473,33 @@ def main() -> None:
            library_ms, inverse_dft)
     redesign_line("K3", ms, library_ms)
 
+    # K23, the slice loop's route: bitwise K3 on K2's grid (ar, ai), its
+    # plain version within 1e-5 of the peak.  It reads the colour planes'
+    # values that land in the grid from occupied blocks, once.
+    def k23_kernel():
+        out["k"] = fused_fft.combine_cb_col_fft(kr, ki, occ, pixels=N, ts=ts)
+
+    def k23_plain():
+        out["p"] = fused_fft.combine_cb_col_fft_plain(kr, ki, occ, pixels=N,
+                                                      ts=ts)
+
+    ms, plain_ms = timed_pair(k23_plain, k23_kernel, reps=20)
+    (yr, yi), (pyr, pyi) = out["k"], out["p"]
+    scale = max(pyr.abs().max().item(), pyi.abs().max().item())
+    plain_err = max(max_err(yr, pyr), max_err(yi, pyi))
+    record("K23 colour combine + checkerboard column DFT",
+           "katsdpimager_tpu_torch/csrc/fft.cu",
+           "katsdpimager_tpu/ops/pallas_gridder.py:570 + "
+           "katsdpimager_tpu/ops/pallas_fft.py:204",
+           max(max_err(yr, ar), max_err(yi, ai)), 0.0, ms, plain_ms,
+           k23_bound(occ, N, ts, P),
+           extra={"bitwise_k3_on_k2": bool(
+               torch.equal(yr.view(torch.int32), ar.view(torch.int32))
+               and torch.equal(yi.view(torch.int32), ai.view(torch.int32))),
+               "plain_max_err": plain_err, "plain_tolerance": 1e-5 * scale},
+           extra_ok=plain_err <= 1e-5 * scale)
+    del yr, yi, pyr, pyi
+
     taper = batch.taper1d[0]
     scal = fused_fft.scalars(batch.mid_w[0, 0], batch.pixel_size[0], dev)
     img_k = torch.zeros((cfg.num_pols, N, N), device=dev)
@@ -544,6 +599,7 @@ def main() -> None:
     del kr, ki, pr, pi, out, img_k, img_p, par, pai, ar, ai, gr, gi
     del pgr, pgi, model, dargs, xc
     k8_phase(dev, record, rows, fused_fft)
+    k23_turns_phase(card, cfg, batch, fused_fft, fused_gridder)
 
     # ---- the step: 8 channels through single_channel_step
     step = mc.single_channel_step(cfg)
@@ -555,7 +611,8 @@ def main() -> None:
     run_step()
     torch.cuda.synchronize()
     counters = (fused_gridder.grid_planes, fused_gridder.combine_planes,
-                fused_fft.cb_col_fft, fused_fft.epi_col_fft)
+                fused_fft.cb_col_fft, fused_fft.epi_col_fft,
+                fused_fft.combine_cb_col_fft)
     for fn in counters:
         fn.launches = 0
     iters = 3
@@ -571,17 +628,18 @@ def main() -> None:
           "elapsed_s": elapsed, "mvis_per_s": num_vis / elapsed / 1e6,
           "ggaps": num_vis * cfg.kernel_width ** 2 * cfg.num_pols
           / elapsed / 1e9,
-          "launches": dict(zip(("K1", "K2", "K3", "K4"), launches)),
+          "launches": dict(zip(("K1", "K2", "K3", "K4", "K23"), launches)),
           "nonempty_channel_slices": nonempty,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-    if min(launches) <= 0:
-        raise AssertionError(f"a kernel of the path never launched: "
-                             f"{launches}")
-    if launches != [iters * nonempty] * 4:
-        raise AssertionError(f"K1-K4 launched {launches} times, expected "
-                             f"{iters} x {nonempty} non-empty slices each")
-    for row, count in zip(rows, launches):
-        row["step_launches"] = count
+    # The slice loop takes K23 in place of K2 then K3.
+    want = [iters * nonempty, 0, 0, iters * nonempty, iters * nonempty]
+    if nonempty <= 0 or launches != want:
+        raise AssertionError(f"K1, K2, K3, K4, K23 launched {launches} "
+                             f"times, expected {want} ({iters} x "
+                             f"{nonempty} non-empty slices)")
+    by_name = {row["name"].split()[0]: row for row in rows}
+    for name, count in zip(("K1", "K2", "K3", "K4", "K23"), launches):
+        by_name[name]["step_launches"] = count
 
     # ---- step parity: channel 0 against the all-plain step on the card
     got = dirty[0]
@@ -654,6 +712,69 @@ def main() -> None:
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
+
+
+def k23_turns_phase(card, cfg, batch, fused_fft, fused_gridder) -> None:
+    """K23 at the production batch's four slices of channel 0, at P = 1
+    and at P = 4 (the slice's visibilities in every polarization), on
+    colour planes whose unwritten blocks hold NaN: bitwise equal to K3 on
+    K2's grid, and 20 single launches of each, timed by CUDA events, in
+    turns (K23 first in even turns, K2 then K3 first in odd ones), with
+    K23's byte bound from the slice's occupied blocks.  One line per P."""
+    N, ts = cfg.pixels, cfg.rv
+    turns = 20
+    for P in (1, 4):
+        slices = []
+        for s in range(cfg.w_slices):
+            n = int(batch.n_chunks[0, s])
+            vis = batch.vis[0, s].repeat(1, 1, P).contiguous()
+            accr, acci, occ = fused_gridder.grid_chunks_planes(
+                batch.kernel[0], None, batch.uv[0, s], batch.sub_uv[0, s],
+                batch.w_plane[0, s], vis, batch.anchor[0, s],
+                batch.valid[0, s], None, n, pixels=N, ts=ts)
+            written = occ.repeat_interleave(2 * ts, -2).repeat_interleave(
+                2 * ts, -1)[:, :, None]
+            for plane in (accr, acci):
+                plane.masked_fill_(~written, float("nan"))
+            del written
+
+            def k23():
+                return fused_fft.combine_cb_col_fft(accr, acci, occ,
+                                                    pixels=N, ts=ts)
+
+            def k2_k3():
+                return fused_fft.cb_col_fft(*fused_gridder.combine_planes(
+                    accr, acci, occ, pixels=N, ts=ts))
+
+            got, want = k23(), k2_k3()
+            torch.cuda.synchronize()
+            same = all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+                       for g, w in zip(got, want))
+            finite = all(bool(torch.isfinite(g).all()) for g in got)
+            del got, want
+            ms = {"k23": [], "k2_k3": []}
+            for t in range(turns):
+                order = (("k23", k23), ("k2_k3", k2_k3))
+                for name, fn in order if t % 2 == 0 else order[::-1]:
+                    ms[name].append(cuda_ms(fn, 1))
+            bnd = k23_bound(occ, N, ts, P)
+            slices.append({
+                "slice": s, "chunks": n, "occupied_blocks": int(occ.sum()),
+                "bitwise_k3_on_k2": same, "finite": finite,
+                "k23_ms_median": statistics.median(ms["k23"]),
+                "k2_k3_ms_median": statistics.median(ms["k2_k3"]),
+                "k23_ms": ms["k23"], "k2_k3_ms": ms["k2_k3"],
+                "k23_faster_turns": sum(a < b for a, b in zip(
+                    ms["k23"], ms["k2_k3"])),
+                **bnd, "share": bnd["bound_ms"]
+                / statistics.median(ms["k23"])})
+            del accr, acci, occ
+            if not (same and finite):
+                emit({"phase": "k23_turns", "P": P, "slices": slices})
+                raise AssertionError(f"K23 at P {P}, slice {s} is not "
+                                     f"bitwise K3 on K2's grid")
+        emit({"phase": "k23_turns", "card": card, "P": P, "turns": turns,
+              "slices": slices})
 
 
 def weights_phase(dev, card, record, rows, mc, batch, num_channels,
@@ -808,10 +929,7 @@ def wave_phases(mcfg, batch, num_channels, rows, card, mc, cube, fourier,
         return result
 
     cube._clean_stage = timed_clean_stage
-    counters = (fused_gridder.grid_planes, fused_gridder.combine_planes,
-                fused_fft.cb_col_fft, fused_fft.epi_col_fft,
-                fused_degrid.degrid_planes, fused_fft.pre_col_fft,
-                fused_fft.cbout_col_fft)
+    counters = kernel_counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn in counters:
@@ -827,7 +945,7 @@ def wave_phases(mcfg, batch, num_channels, rows, card, mc, cube, fourier,
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     minors = res.minor.tolist()
     nonempty = int((batch.n_chunks > 0).sum())
-    names = ("K1", "K2", "K3", "K4", "K5", "K6", "K7")
+    names = KERNEL_NAMES
     emit({"phase": "wave", "card": card, "num_channels": num_channels,
           "elapsed_s": elapsed, "s_per_channel": elapsed / num_channels,
           "minor_cycles_per_channel": minors,
@@ -837,10 +955,14 @@ def wave_phases(mcfg, batch, num_channels, rows, card, mc, cube, fourier,
           "launches": dict(zip(names, launches)),
           "nonempty_channel_slices": nonempty, "peak_mem_gb": peak_gb})
     want = (cfg.majors - 1) * nonempty
-    if launches[4:] != [want] * 3:
-        raise AssertionError(f"K5-K7 launched {launches[4:]} times, "
+    if launches[4:7] != [want] * 3:
+        raise AssertionError(f"K5-K7 launched {launches[4:7]} times, "
                              f"expected {want} each")
-    if launches[0] != (1 + cfg.majors) * nonempty or min(minors) <= 0:
+    # the PSF and each major's dirty image: K1, K23 and K4 a slice, the
+    # slice loop never K2 or K3
+    grids = (1 + cfg.majors) * nonempty
+    if (launches[0] != grids or launches[3] != grids or launches[7] != grids
+            or launches[1:3] != [0, 0] or min(minors) <= 0):
         raise AssertionError(f"wave launches {launches}, minor {minors}")
     by_name = {row["name"].split()[0]: row for row in rows}
     for name, count in zip(names, launches):
@@ -947,8 +1069,8 @@ def route_phase(dev, mc, cube, fused_fft) -> None:
     """The dirty step and a cube wave at 1000 px, where the grid <-> image
     transforms take ``torch.fft`` by ``fourier.use_fused_fft``'s rule (no
     power of two), against their all-plain runs: within 1e-4 of the peak
-    inside the field (the wave: the same component positions there), K3
-    and K6 launched no time."""
+    inside the field (the wave: the same component positions there), K3,
+    K6 and K23 launched no time."""
     small = dict(pixels=1000, num_pols=1, kernel_width=16, oversample=8,
                  w_planes=8, w_slices=2, chunks_per_slice=512,
                  chunk_size=128, rv=32, ru=32)
@@ -958,6 +1080,7 @@ def route_phase(dev, mc, cube, fused_fft) -> None:
     t2 = torch.outer(taper, taper)
     inside = t2 >= 0.002 * t2.max()
     fused_fft.cb_col_fft.launches = fused_fft.pre_col_fft.launches = 0
+    fused_fft.combine_cb_col_fft.launches = 0
     args = mc.channel_args(batch, 0)
     got = mc.single_channel_step(mcfg)(*args)[0]
     with plain_versions():
@@ -978,7 +1101,8 @@ def route_phase(dev, mc, cube, fused_fft) -> None:
     finite = all(bool(torch.isfinite(x).all()) for x in (
         got, wave.model, wave.residual))
     launches = {"K3": fused_fft.cb_col_fft.launches,
-                "K6": fused_fft.pre_col_fft.launches}
+                "K6": fused_fft.pre_col_fft.launches,
+                "K23": fused_fft.combine_cb_col_fft.launches}
     emit({"phase": "route", "pixels": 1000,
           "step_max_err_inside_over_peak": step_err,
           "wave_max_err_inside_over_peak_flux": wave_err, "tolerance": 1e-4,
@@ -986,7 +1110,7 @@ def route_phase(dev, mc, cube, fused_fft) -> None:
           "wave_components_inside": int((wave.model != 0)[..., inside].sum()),
           "finite": finite, "launches": launches})
     if not (step_err <= 1e-4 and wave_err <= 1e-4 and same and finite
-            and launches == {"K3": 0, "K6": 0}):
+            and launches == {"K3": 0, "K6": 0, "K23": 0}):
         raise AssertionError("route phase failed")
 
 
@@ -1339,18 +1463,19 @@ def truth_peaks(image_p, beam, image):
 IMAGER_VIS_BLOCK = 1 << 17
 
 #: The imaging kernels' names, in the order of :func:`kernel_counters`.
-KERNEL_NAMES = ("K1", "K2", "K3", "K4", "K5", "K6", "K7")
+KERNEL_NAMES = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K23")
 
 
 def kernel_counters():
-    """The wrappers of K1-K7, whose ``launches`` count their launches."""
+    """The wrappers of K1-K7 and K23, whose ``launches`` count their
+    launches."""
     from katsdpimager_tpu_torch.ops import (fused_degrid, fused_fft,
                                             fused_gridder)
 
     return (fused_gridder.grid_planes, fused_gridder.combine_planes,
             fused_fft.cb_col_fft, fused_fft.epi_col_fft,
             fused_degrid.degrid_planes, fused_fft.pre_col_fft,
-            fused_fft.cbout_col_fft)
+            fused_fft.cbout_col_fft, fused_fft.combine_cb_col_fft)
 
 
 def cli_run(dataset, args, dev, *, plain=False, timed=("clean_cycles",)):
@@ -1458,8 +1583,10 @@ def imager_phase(dev, card, rows):
         major = stats["major"]
         passes = 1 + major
         degrids = major - 1 if degrid else 0
+        # the CLI's running grid: K2 then K3, never K23
         want = [passes * got["blocks"]] * 2 + [passes * got["nonempty"]] * 2 \
-            + [degrids * got["blocks"]] + [degrids * got["nonempty"]] * 2
+            + [degrids * got["blocks"]] + [degrids * got["nonempty"]] * 2 \
+            + [0]
         peaks = truth_peaks(stats["image_parameters"],
                             stats["restoring_beam"], got["clean"])
         flux_ok = all(math.isclose(g, t, rel_tol=0.1) for g, t in peaks)
@@ -1629,11 +1756,13 @@ def pipeline_phase(dev, card, rows) -> None:
         finite = finite and bool(np.isfinite(a[0][both]).all())
         errs.append(float(np.abs(a[0] - b[0])[both].max())
                     / ref["dirty_peaks"][c])
-    # Per channel: the PSF and 2 majors grid each non-empty slice (K1-K4),
-    # the second major degrids each (K5-K7).  The slices are counted in
-    # the plain run: the same host packer on the same data.
-    per_channel = [[3 * n] * 4 + [n] * 3 for n in ref["nonempty"]]
-    want = [sum(w[k] for w in per_channel) for k in range(7)]
+    # Per channel: the PSF and 2 majors grid each non-empty slice (K1,
+    # K23 and K4; the wave's slice loop never launches K2 or K3), the
+    # second major degrids each (K5-K7).  The slices are counted in the
+    # plain run: the same host packer on the same data.
+    per_channel = [[3 * n, 0, 0, 3 * n, n, n, n, 3 * n]
+                   for n in ref["nonempty"]]
+    want = [sum(w[k] for w in per_channel) for k in range(len(names))]
     launches = dict(zip(names, got["launches"]))
     wall = profiled["timings"][0]["device_write_s"]
     checks = {
@@ -3130,8 +3259,9 @@ def distributed_phase(dev, card, dataset, vis_block: int) -> None:
     within 1e-6 of its peak (the chan split) and within 1e-4 inside the
     field (the vis split); each rank's seconds a channel, its seconds
     blocked in all-reduce (its own kernels synchronised first) and its
-    launches of K1-K7, which must show K1, K2 and K5 on every rank: K1 and
-    K2 summed over the chan split's ranks as in the 1-rank run, and at
+    launches of K1-K7 and K23, which must show K1, K5 and K23 (the chan
+    split) or K2 (the vis split) on every rank: K1 and K23 summed over
+    the chan split's ranks as in the 1-rank run, and at
     most its K1 on a vis rank (a slice whose chunks all lie on the other
     rank launches no K1 here).  Then the chan split once more in the
     ``--coordinator`` form (:func:`coordinator_run`, no ``torchrun``
@@ -3196,11 +3326,14 @@ def distributed_phase(dev, card, dataset, vis_block: int) -> None:
                       for g, r in zip(got, ref)) / peak
             lines = ranks(out, 2)
             launches = [ln["launches"] for ln in lines]
+            # the chan split's slice loop takes K23, the vis split's K2
+            # (its grid is summed over the group before K3)
+            k2 = "K23" if vis_shards == 1 else "K2"
             every = all(ln[k] > 0 for ln in launches
-                        for k in ("K1", "K2", "K5"))
+                        for k in ("K1", k2, "K5"))
             if vis_shards == 1:
                 counted = all(sum(ln[k] for ln in launches)
-                              == one_launches[k] for k in ("K1", "K2"))
+                              == one_launches[k] for k in ("K1", k2))
             else:
                 counted = all(ln["K1"] <= one_launches["K1"]
                               for ln in launches)

@@ -1,8 +1,9 @@
 // Column-FFT tile core for Hopper (sm_90a): the transform of every column
-// DFT of the port, K8, K3, K4, K6 and K7 (csrc/fft.cu), which differ only
-// in how a tile's values load (the `load` hook, and the optional per-value
-// `prep` hook that runs after all of a thread's loads) and how its finished
-// values store (the `store` hook below).
+// DFT of the port, K8, K3, K4, K6, K7 and K23 (csrc/fft.cu), which differ
+// only in how a tile's values load (the `load` hook, and the optional
+// per-value `prep` hook that runs after all of a thread's loads; K23's load
+// reads the shared-memory slots in which the kernel has summed each value)
+// and how its finished values store (the `store` hook below).
 //
 // The length-N transform of every column of a (N, M) plane pair is split
 // four-step as N = Q * R, with row r = q + Q r2 (q < Q, r2 < R) and output

@@ -4,14 +4,16 @@
 // image) for grid -> image; K6 (image -> layer prologue + forward column
 // DFT, transposed store) and K7 (forward column DFT + output checkerboard)
 // for image -> grid; K8 (plain column DFT, natural orientation) for the
-// 2-D transform building block.  Plain C interface, loaded with ctypes by
+// 2-D transform building block; and K23, K2 fused into K3 (K3 summing the
+// four colour planes of the gridder as it loads), which the slice loop
+// takes in place of K2 then K3.  Plain C interface, loaded with ctypes by
 // katsdpimager_tpu_torch/ops/_build.py; the Python wrappers and plain
 // PyTorch versions are in ops/fused_fft.py.
 //
 // Built WITHOUT -use_fast_math: the W-phase 2 pi w (n - 1) of K4 and K6
 // reaches far beyond +-pi, where __sinf/__cosf lose all accuracy.
 //
-// All five run on the four-step column-FFT tile core of col_fft_tile.cuh
+// All six run on the four-step column-FFT tile core of col_fft_tile.cuh
 // (one launch, clusters of Q CTAs, radix-16/32 butterflies in registers),
 // each with its own load and store hooks (K6 also with a per-value hook
 // for its prologue).  What bounds them on this card is device memory: the
@@ -31,13 +33,13 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// The tile kernels: K8, K3, K4, K6 and K7 on the core of col_fft_tile.cuh,
-// one launch each, a cluster of Q CTAs per 16-column tile and plane (grid
-// (Q, tiles, planes)), N = Q R four-step: each CTA reads its R rows
-// q + Q r2 once (64-byte row segments), does the length-R DFT as two
-// register-resident radix passes with one shared-memory exchange, and
-// after a cluster barrier finishes a length-Q DFT over the cluster's
-// shared memory.  What bounds them on this card: device memory, one read
+// The tile kernels: K8, K3, K4, K6, K7 and K23 on the core of
+// col_fft_tile.cuh, one launch each, a cluster of Q CTAs per 16-column tile
+// and plane (grid (Q, tiles, planes)), N = Q R four-step: each CTA reads
+// its R rows q + Q r2 once (64-byte row segments), does the length-R DFT as
+// two register-resident radix passes with one shared-memory exchange, and
+// after a cluster barrier finishes a length-Q DFT over the cluster's shared
+// memory.  What bounds them on this card: device memory, one read
 // and one write of two planes (268 MB at (1, 4096, 4096): 0.080 ms at
 // 3.35 TB/s; K6 reads one plane, 201 MB); the 5 N log2 N flops per column
 // are about a percent of the FP32 rate.
@@ -188,6 +190,198 @@ cb_col_fft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
 #pragma unroll
           for (int k1 = 0; k1 < Q; ++k1) {
             const size_t off = static_cast<size_t>(c0 + c) * N + k2 + R * k1;
+            __stcs(yr + off, y[k1].x);
+            __stcs(yi + off, y[k1].y);
+          }
+        });
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K23 -- K2 fused into K3: replaces, on the slice loop's path, K2
+// (csrc/gridder.cu, katsdpimager_tpu/ops/pallas_gridder.py:
+// _make_combine_kernel) then K3 (cb_col_fft_kernel above,
+// katsdpimager_tpu/ops/pallas_fft.py:_make_cb_col_kernel).
+//
+// y[p, c, k] = sum_r (-1)^(r+c) g[p, r, c] exp(+2 pi i r k / N) with
+// g[p, r, c] = ((x00 + x01) + x10) + x11 and x_ab the colour plane
+// (a, b) at (r - a ts, c - b ts) where that lies in the plane and its
+// tile's `occ` byte is set, else +0.0f: K2's value in K2's add order, then
+// K3's sign flip, transform and transposed store, so the output is bitwise
+// K3's on K2's grid.  The grid is never written or read back.
+//
+// What bounds it on this card: device memory.  It reads the colour
+// planes' values that land in the N x N grid from occupied blocks, once
+// (at most 4 x 8 B a pixel, 537 MB at N = 4096, P = 1, all occupied), and
+// writes the transposed pair once (134 MB); K2 + K3 moved those bytes plus
+// the grid, written then read (268 MB).
+//
+// Design: K3's tile core, whose load reads each value from shared memory
+// where the kernel has just summed it.  Four terms a value cannot all be
+// in flight in registers the way K3's loads are (a thread holds 32
+// complex values, at most 85 registers at three CTAs an SM; summing in
+// registers while the terms arrive spilled), so the kernel first works
+// through its values four at a time, with nothing else live: the four
+// terms' loads predicated on presence (an absent term, off the plane or
+// in a block K1 never wrote, is never read, so the garbage of unwritten
+// blocks, torch.empty, cannot leak), the adds in K2's order, the
+// checkerboard sign, and the sum stored in the tile slot that pass 1
+// later reads the value from and writes its output to.  Those slots are
+// the thread's own, so no barrier is needed.  Which terms are present is
+// worked out before any load, into a bit mask per colour, from `occ` read
+// through L1: the thread's values lie N / R1 rows apart in one column, so
+// each value's tile row follows from the last by an add.  At ts = 64 a
+// 16-column tile segment lies in one colour tile, so a warp's loads of an
+// absent block are all skipped.  A CTA reads 64 bytes of each row it
+// touches, the pattern that holds K3 near 55% of the card's bandwidth, so
+// the loads ask L2 for whole 128-byte lines (load_term), which serve the
+// neighbouring column tile's CTA too.  Every ts and every N of with_plan
+// run; ts >= 1.
+// ---------------------------------------------------------------------------
+
+// K23's load of a term: not kept in L1 (read once), and on a miss L2
+// fetches the whole 128-byte line, the 64-byte row segment of this column
+// tile and that of its neighbour, whose CTAs run at the same time.
+// Volatile, so that it is never moved out of the test of the term's
+// presence (an absent term's address may lie off the planes).
+__device__ __forceinline__ float load_term(const float* p) {
+  float v;
+  asm volatile("ld.global.L1::no_allocate.L2::128B.f32 %0, [%1];"
+               : "=f"(v)
+               : "l"(p));
+  return v;
+}
+
+template <int R, int R1, int R2, int Q>
+__global__ void __launch_bounds__(col_fft_tile::Tile<R, R1, R2, Q>::kThreads,
+                                  col_fft_tile::Tile<R, R1, R2, Q>::kMinBlocks)
+combine_cb_col_fft_kernel(const float* __restrict__ accr,
+                          const float* __restrict__ acci,
+                          const unsigned char* __restrict__ occ,
+                          const float2* __restrict__ tw,
+                          float* __restrict__ yr, float* __restrict__ yi,
+                          int P, int ts, int nt2) {
+  using T = col_fft_tile::Tile<R, R1, R2, Q>;
+  constexpr int N = Q * R;
+  constexpr int kCols = col_fft_tile::kCols;
+  constexpr int NB = col_fft_tile::kPerThread / R1;
+  constexpr int kRR = R / R1;      // local rows between values i and i + 1
+  constexpr int kStride = Q * kRR;  // plane rows between them
+  extern __shared__ float2 tile_buf[];
+  const int p = static_cast<int>(blockIdx.z);
+  const size_t plane = static_cast<size_t>(p) * N * N;
+  const int c0 = static_cast<int>(blockIdx.y) * kCols;
+  const int q = Q == 1 ? 0 : static_cast<int>(blockIdx.x);
+  yr += plane;
+  yi += plane;
+  const int ts2 = 2 * ts;
+  const size_t ext2 = static_cast<size_t>(nt2) * ts2;
+  const size_t colour = static_cast<size_t>(P) * ext2 * ext2;
+  // The thread's tile column, the same for each of its values (kThreads is
+  // a multiple of kCols), its column in planes (a, 0) and (a, 1) and the
+  // colour tile column there (-1: off the plane).
+  const int c = threadIdx.x % kCols;
+  int pc[2], tc[2];
+#pragma unroll
+  for (int b = 0; b < 2; ++b) {
+    pc[b] = c0 + c - b * ts;
+    tc[b] = pc[b] >= 0 ? pc[b] / ts2 : -1;
+  }
+  // have[ab][u], bit i: term (a, b) of value (u, i) is present.  Worked
+  // out first, so that no load of a term waits on a read of `occ`.
+  unsigned have[4][NB];
+  const int dq = kStride / ts2, dr = kStride % ts2;
+#pragma unroll
+  for (int u = 0; u < NB; ++u) {
+    const int j = (threadIdx.x + u * T::kThreads) / kCols;
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      // Value i's plane row is pr + i kStride: its tile row tr (floor; -1
+      // above the plane) and remainder rem, each from the last by an add.
+      const int pr = q + Q * j - a * ts;
+      int tr = pr >= 0 ? pr / ts2 : -((ts2 - 1 - pr) / ts2);
+      int rem = pr - tr * ts2;
+      unsigned m[2] = {0, 0};
+#pragma unroll 8
+      for (int i = 0; i < R1; ++i) {
+#pragma unroll
+        for (int b = 0; b < 2; ++b)
+          if (tr >= 0 && tc[b] >= 0 &&
+              __ldg(occ + (static_cast<size_t>(2 * a + b) * nt2 + tr) * nt2 +
+                    tc[b]))
+            m[b] |= 1u << i;
+        tr += dq;
+        rem += dr;
+        if (rem >= ts2) {
+          rem -= ts2;
+          ++tr;
+        }
+      }
+      have[2 * a][u] = m[0];
+      have[2 * a + 1][u] = m[1];
+    }
+  }
+  // The sums, a few values at a time.  Term (a, b) of value i + 1 lies
+  // kStride plane rows below that of value i, and the checkerboard's sign
+  // is the same for all of a thread's values (kStride is even).
+  const size_t step = static_cast<size_t>(kStride) * ext2;
+#pragma unroll
+  for (int u = 0; u < NB; ++u) {
+    const int j = (threadIdx.x + u * T::kThreads) / kCols;
+    const bool flip = (q + Q * j + c0 + c) & 1;
+    const float* xr[4];
+    const float* xi[4];
+    unsigned m[4];
+#pragma unroll
+    for (int ab = 0; ab < 4; ++ab) {
+      const int a = ab >> 1, b = ab & 1;
+      // Off the plane (a row or column below 0) only while its bit is 0.
+      const long long off =
+          static_cast<long long>(ab * colour + p * ext2 * ext2) +
+          static_cast<long long>(q + Q * j - a * ts) *
+              static_cast<long long>(ext2) +
+          pc[b];
+      xr[ab] = accr + off;
+      xi[ab] = acci + off;
+      m[ab] = have[ab][u];
+    }
+#pragma unroll 4
+    for (int i = 0; i < R1; ++i) {
+      float2 sum = make_float2(0.0f, 0.0f);
+#pragma unroll
+      for (int ab = 0; ab < 4; ++ab) {
+        float2 x = make_float2(0.0f, 0.0f);
+        if (m[ab] & 1u) x = make_float2(load_term(xr[ab]), load_term(xi[ab]));
+        sum = ab == 0 ? x : make_float2(sum.x + x.x, sum.y + x.y);
+        m[ab] >>= 1;
+        xr[ab] += step;
+        xi[ab] += step;
+      }
+      if (flip) sum = make_float2(-sum.x, -sum.y);
+      tile_buf[(j * R1 + i) * kCols + c] = sum;
+    }
+  }
+  // Value (u, i) of this thread, plane row r = q + Q (j + i kRR), is in
+  // slot (j R1 + i) kCols + c.
+  auto load = [&](int r, int cc) {
+    const int r2 = (r - q) / Q;
+    return tile_buf[((r2 % kRR) * R1 + r2 / kRR) * kCols + cc];
+  };
+  if constexpr (Q == 1) {
+    col_fft_tile::col_fft_tile<R, R1, R2, Q>(
+        tile_buf, tw, N, 0, 1.0f, load,
+        [&](int k, int cc, const float2(&y)[1]) {
+          tile_buf[col_fft_tile::column_slot<R>(k, cc)] = y[0];
+        });
+    __syncthreads();
+    col_fft_tile::store_staged_transposed<R, R1, R2>(tile_buf, yr, yi, N, c0);
+  } else {
+    col_fft_tile::col_fft_tile<R, R1, R2, Q, col_fft_tile::Finish::kAlongK>(
+        tile_buf, tw, N, q, 1.0f, load,
+        [&](int k2, int cc, const float2(&y)[Q]) {
+#pragma unroll
+          for (int k1 = 0; k1 < Q; ++k1) {
+            const size_t off = static_cast<size_t>(c0 + cc) * N + k2 + R * k1;
             __stcs(yr + off, y[k1].x);
             __stcs(yi + off, y[k1].y);
           }
@@ -450,6 +644,26 @@ extern "C" int ktt_cb_col_fft(const void* xr, const void* xi, const void* tw,
         N / col_fft_tile::kCols, P, stream, static_cast<const float*>(xr),
         static_cast<const float*>(xi), static_cast<const float2*>(tw),
         static_cast<float*>(yr), static_cast<float*>(yi));
+  });
+}
+
+// accr/acci (4, P, ext2, ext2) f32 colour planes with ext2 = nt2 * 2 ts
+// >= N + ts; occ (4, nt2, nt2) bytes; yr/yi the (P, N, N) output pair.
+extern "C" int ktt_combine_cb_col_fft(const void* accr, const void* acci,
+                                      const void* occ, const void* tw,
+                                      void* yr, void* yi, int P, int N,
+                                      int ts, int nt2, void* stream) {
+  if (ts <= 0 || nt2 <= 0 || static_cast<long long>(nt2) * 2 * ts < N + ts)
+    return cudaErrorInvalidValue;
+  return with_plan(N, [&](auto plan) {
+    using Pn = decltype(plan);
+    return launch_tiles<Pn>(
+        combine_cb_col_fft_kernel<Pn::kR, Pn::kR1, Pn::kR2, Pn::kQ>,
+        N / col_fft_tile::kCols, P, stream, static_cast<const float*>(accr),
+        static_cast<const float*>(acci),
+        static_cast<const unsigned char*>(occ),
+        static_cast<const float2*>(tw), static_cast<float*>(yr),
+        static_cast<float*>(yi), P, ts, nt2);
   });
 }
 

@@ -12,6 +12,10 @@ corrections riding on one of them.  Grid -> image (inverse DFT):
   ``imgT += Y.re * cos(ph) * common - Y.im * sin(ph) * common`` in place,
   with ``common = cb * n / taper^2`` and ``ph = 2 pi w (n - 1)``.
 
+The slice loop takes **K23** (:func:`combine_cb_col_fft`) in place of K2
+then K3: K3 whose load sums the gridder's four colour planes as K2 does,
+so the slice's grid is never written (:func:`planes_to_image_fused_parts`).
+
 Image -> grid (forward DFT, for the degridder):
 
 - **K6** (:func:`pre_col_fft`): from the transposed model image,
@@ -26,7 +30,7 @@ The 2-D transform building block:
   -1, stored in natural orientation; :func:`fft2` drives it twice, as the
   JAX package's ``fft2_pallas`` does.
 
-All five run on one four-step column-FFT tile core
+All six run on one four-step column-FFT tile core
 (``csrc/col_fft_tile.cuh``), each with its own load and store hooks (K6
 also with a per-value hook that computes its prologue after the loads).
 
@@ -51,6 +55,7 @@ import torch
 from ..device import runs_plain
 from ..profiling import profile
 from . import _build
+from .fused_gridder import combine_planes_plain
 
 #: Power-of-two sizes the CUDA kernels take.
 MIN_N, MAX_N = 256, 8192
@@ -98,10 +103,14 @@ def _check_kernel_size(n: int) -> None:
 
 def cb_col_fft_plain(gr, gi):
     """Plain PyTorch version of K3: ``(yT_re, yT_im)`` with
-    ``y = ifft(cb * (gr + i gi), dim=-2)`` unnormalised, transposed."""
+    ``y = ifft(cb * (gr + i gi), dim=-2)`` unnormalised, transposed.
+    Each plane is transformed on its own, so that, as in the kernel, a
+    plane's result does not depend on the planes beside it (the CPU's
+    ``torch.fft`` rounds a lone plane otherwise than one of a batch, and
+    K23 transforms each polarization group's planes apart)."""
     cb = checkerboard(gr.shape[-1], gr.device)
-    y = torch.fft.ifft(torch.complex(gr * cb, gi * cb), dim=-2,
-                       norm="forward")
+    x = torch.complex(gr * cb, gi * cb)
+    y = torch.stack([torch.fft.ifft(p, dim=-2, norm="forward") for p in x])
     return (y.real.transpose(-1, -2).contiguous(),
             y.imag.transpose(-1, -2).contiguous())
 
@@ -140,6 +149,84 @@ def cb_col_fft(gr, gi):
 
 
 cb_col_fft.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K23: K2 fused into K3
+
+
+def combine_cb_col_fft_plain(accr, acci, occ, *, pixels: int, ts: int,
+                             out=None):
+    """Plain PyTorch version of K23 (same arguments as
+    :func:`combine_cb_col_fft`): K2's plain version, then K3's."""
+    yr, yi = cb_col_fft_plain(*combine_planes_plain(accr, acci, occ,
+                                                    pixels=pixels, ts=ts))
+    if out is None:
+        return yr, yi
+    out[0].copy_(yr)
+    out[1].copy_(yi)
+    return out
+
+
+def combine_cb_col_fft(accr, acci, occ, *, pixels: int, ts: int, out=None):
+    """K23: K3 on the grid K2 would make from the colour planes, without
+    making it.  ``accr``/``acci`` (2, 2, P, ext2, ext2) f32 and ``occ``
+    (2, 2, nt2, nt2) bool, as
+    :func:`.fused_gridder.combine_planes` takes them, -> K3's transposed
+    (P, N, N) f32 pair; with ``out``, a (P, N, N) f32 pair (views of a
+    larger pair are fine where contiguous), written into it and returned.
+    Bitwise ``cb_col_fft(*combine_planes(accr, acci, occ, ...))``.
+
+    Runs :func:`combine_cb_col_fft_plain` where
+    :func:`..device.runs_plain` holds; otherwise launches
+    ``ktt_combine_cb_col_fft`` (``csrc/fft.cu``) or raises.  Counts its
+    launches in ``combine_cb_col_fft.launches``; a ``k3.launch`` span.
+
+    Replaces, on the slice loop's path, K2 then K3
+    (``katsdpimager_tpu/ops/pallas_gridder.py:_make_combine_kernel`` and
+    ``katsdpimager_tpu/ops/pallas_fft.py:_make_cb_col_kernel``).  Bound by
+    device memory: the colour planes' values in the N x N grid read once
+    from occupied blocks, the output written once; the grid K2 wrote and
+    K3 read back never exists.  The tile core of :func:`cb_col_fft`,
+    whose load reads each value from the shared-memory slot in which the
+    kernel has just summed its four terms, a few values at a time, in
+    K2's order; an absent term is never read (see the CUDA source)."""
+    with profile("k3.launch"):
+        if runs_plain(accr):
+            return combine_cb_col_fft_plain(accr, acci, occ, pixels=pixels,
+                                            ts=ts, out=out)
+        dev = accr.device
+        _check_kernel_size(pixels)
+        _, _, P, ext2, _ = accr.shape
+        if ts < 1 or ext2 % (2 * ts):
+            raise ValueError(f"K23: plane extent {ext2} is no multiple of "
+                             f"2 ts = {2 * ts}")
+        nt2 = ext2 // (2 * ts)
+        if pixels + ts > ext2:
+            raise ValueError(f"K23: pixels {pixels} incompatible with ts "
+                             f"{ts} and plane extent {ext2}")
+        _build.expect(accr, "accr", torch.float32, (2, 2, P, ext2, ext2), dev)
+        _build.expect(acci, "acci", torch.float32, (2, 2, P, ext2, ext2), dev)
+        _build.expect(occ, "occ", torch.bool, (2, 2, nt2, nt2), dev)
+        if out is None:
+            yr = torch.empty((P, pixels, pixels), dtype=torch.float32,
+                             device=dev)
+            yi = torch.empty_like(yr)
+        else:
+            yr, yi = out
+            _build.expect(yr, "yr", torch.float32, (P, pixels, pixels), dev)
+            _build.expect(yi, "yi", torch.float32, (P, pixels, pixels), dev)
+        tw = twiddles_full(pixels, dev)
+        err = _build.load().ktt_combine_cb_col_fft(
+            accr.data_ptr(), acci.data_ptr(), occ.data_ptr(), tw.data_ptr(),
+            yr.data_ptr(), yi.data_ptr(), P, pixels, ts, nt2,
+            _build.stream_of(accr))
+        _build.check(err, "ktt_combine_cb_col_fft")
+        combine_cb_col_fft.launches += 1
+        return yr, yi
+
+
+combine_cb_col_fft.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -220,6 +307,30 @@ def grid_to_image_fused_parts(gr, gi, imageT, kernel1d, w, pixel_size):
     taper = kernel1d.to(device=gr.device, dtype=torch.float32).contiguous()
     ar_t, ai_t = cb_col_fft(gr, gi)
     return epi_col_fft(ar_t, ai_t, imageT, taper, scal)
+
+
+def planes_to_image_fused_parts(groups, imageT, kernel1d, w, pixel_size, *,
+                                pixels: int, ts: int):
+    """K23 then K4: accumulate one W slice, given as its polarization
+    groups' colour planes (``(p0, p1, accr, acci, occ)`` each, from
+    :func:`.fused_gridder.slice_planes`), into the TRANSPOSED dirty image
+    ``imageT`` (in place; returned).  Each group's K23 writes planes
+    ``p0:p1`` of one (P, N, N) pair, which K4 takes whole.  The pair is
+    made once the first group's planes are, when the gridder's
+    temporaries are gone, as K2's grid was: the step's peak memory stays
+    that of K2 then K3."""
+    scal = scalars(w, pixel_size, imageT.device)
+    taper = kernel1d.to(device=imageT.device,
+                        dtype=torch.float32).contiguous()
+    yr = yi = None
+    for p0, p1, accr, acci, occ in groups:
+        if yr is None:
+            yr = torch.empty(imageT.shape, dtype=torch.float32,
+                             device=imageT.device)
+            yi = torch.empty_like(yr)
+        combine_cb_col_fft(accr, acci, occ, pixels=pixels, ts=ts,
+                           out=(yr[p0:p1], yi[p0:p1]))
+    return epi_col_fft(yr, yi, imageT, taper, scal)
 
 
 # ---------------------------------------------------------------------------

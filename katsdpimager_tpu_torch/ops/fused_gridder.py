@@ -3,7 +3,9 @@ r"""Fused gridder: kernels K1 (band accumulation) and K2 (colour combine).
 Counterpart of :mod:`katsdpimager_tpu.ops.pallas_gridder`'s gridding half
 (``_grid_chunks_planes``, ``combine_planes_fused``,
 ``grid_chunks_fused_parts``, ``grid_chunks_fused``), with one entry
-point for a slice, :func:`grid_slice`.  The wrapper prep is plain
+point for a slice, :func:`grid_slice`, and :func:`slice_planes`, its
+colour planes without K2 (for :func:`.fused_fft.combine_cb_col_fft`,
+which the slice loop takes in place of K2 then K3).  The wrapper prep is plain
 PyTorch: tap row indices ``iu/iv`` and in-window shifts ``su/sv``, the sample
 ``vis * valid * density``, each chunk's valid ``count`` (its valid slots
 are a prefix, the planner's invariant, so K1 grids slots below the count
@@ -26,7 +28,7 @@ into one index, as the JAX kernel's scalar prefetch does.
 
 The colour planes come from :func:`torch.empty`: slots no chunk wrote
 hold garbage, which K2 masks with a select (never a multiply, so a NaN
-there cannot leak).
+there cannot leak) and K23 never reads.
 
 The JAX kernel's bf16-split selection table (``_stack_tab``,
 ``_select_shift``) worked around the MXU's bf16 inputs; K1 reads the f32
@@ -456,12 +458,35 @@ def grid_chunks_planes(kernel, weights_grid, plan_uv, plan_sub, plan_wp,
     return accr, acci, occ
 
 
+def slice_planes(kernel, density, plan_uv, plan_sub, plan_wp, plan_vis,
+                 plan_anchor, plan_valid, n_chunks=None, *, pixels: int,
+                 ts: int, dw_chunks=None):
+    """Grid one slice's chunks into colour planes, one group of
+    polarizations at a time (those whose planes fit the accumulator cap,
+    :func:`.mxu_gridder.pol_groups`): yields ``(p0, p1, accr, acci,
+    occ)`` for polarizations ``p0:p1``, prep plus K1
+    (:func:`grid_chunks_planes`), each group gridded only when the
+    caller asks for it.  Arguments as :func:`grid_slice`'s."""
+    K = kernel.shape[-1]
+    if K > ts + 1:
+        raise NotImplementedError(
+            f"kernel width {K} > ts + 1 = {ts + 1}: the fused gridder's "
+            "2-tile window cannot hold it, and no other gridder is ported")
+    if n_chunks is None:
+        n_chunks = occupied_chunks(plan_valid)
+    for p0, p1 in pol_groups(plan_vis.shape[-1], pixels, ts):
+        yield (p0, p1, *grid_chunks_planes(
+            kernel, None if density is None else density[p0:p1], plan_uv,
+            plan_sub, plan_wp, plan_vis[..., p0:p1], plan_anchor, plan_valid,
+            None if dw_chunks is None else dw_chunks[..., p0:p1], n_chunks,
+            pixels=pixels, ts=ts))
+
+
 def grid_slice(kernel, density, plan_uv, plan_sub, plan_wp, plan_vis,
                plan_anchor, plan_valid, n_chunks=None, *, pixels: int,
                ts: int, dw_chunks=None, out=None):
-    """Grid one slice's chunks: prep plus K1, then K2, for each group of
-    polarizations whose colour planes fit the accumulator cap
-    (:func:`.mxu_gridder.pol_groups`).
+    """Grid one slice's chunks: :func:`slice_planes` (prep plus K1 for
+    each group of polarizations), then K2 for each group.
 
     ``density`` (P, N, N) or ``dw_chunks`` (NC, Mc, P) gives each
     visibility's density weight (:func:`samples`; neither: natural).
@@ -476,20 +501,11 @@ def grid_slice(kernel, density, plan_uv, plan_sub, plan_wp, plan_vis,
     XLA does it in the JAX package).  Kernels wider than ``ts + 1`` do
     not fit K1's ``2 ts`` window (the JAX package falls back to XLA
     there): they raise."""
-    K = kernel.shape[-1]
-    if K > ts + 1:
-        raise NotImplementedError(
-            f"kernel width {K} > ts + 1 = {ts + 1}: the fused gridder's "
-            "2-tile window cannot hold it, and no other gridder is ported")
-    if n_chunks is None:
-        n_chunks = occupied_chunks(plan_valid)
     parts = []
-    for p0, p1 in pol_groups(plan_vis.shape[-1], pixels, ts):
-        accr, acci, occ = grid_chunks_planes(
-            kernel, None if density is None else density[p0:p1], plan_uv,
-            plan_sub, plan_wp, plan_vis[..., p0:p1], plan_anchor, plan_valid,
-            None if dw_chunks is None else dw_chunks[..., p0:p1], n_chunks,
-            pixels=pixels, ts=ts)
+    for p0, p1, accr, acci, occ in slice_planes(
+            kernel, density, plan_uv, plan_sub, plan_wp, plan_vis,
+            plan_anchor, plan_valid, n_chunks, pixels=pixels, ts=ts,
+            dw_chunks=dw_chunks):
         if out is None:
             parts.append(combine_planes(accr, acci, occ, pixels=pixels,
                                         ts=ts))

@@ -4,7 +4,9 @@ Counterpart of :mod:`katsdpimager_tpu.parallel.multichannel` for one
 device: imaging density weights, then per W slice the fused gridder (K1,
 K2) and the grid -> image transform accumulating into the dirty image
 (K3, K4 on the transposed image, or ``torch.fft`` at sizes the kernels
-do not take, by :func:`~..ops.fourier.use_fused_fft`); with ``minor_cycles > 0``, a PSF from the weights
+do not take, by :func:`~..ops.fourier.use_fused_fft`; where K3 runs with
+no vis group to sum the grid first, K23 takes the colour planes in place
+of K2 then K3); with ``minor_cycles > 0``, a PSF from the weights
 and that many CLEAN minor cycles on the PSF-normalised dirty image.
 Channels of a batch share their geometry; the per-channel physics (kernel
 tables, taper, pixel size, mid-w values) are tensor inputs.
@@ -210,13 +212,22 @@ def image_slices(kernel, density, taper1d, pixel_size, mid_w, uv, sub_uv,
     transposed image, transposed back once at the end; elsewhere each
     slice takes :func:`fourier.grid_to_image_plain` (``torch.fft``), the
     counterpart of the JAX package's XLA branch.  CPU tensors take K3's
-    and K4's plain versions wherever the kernels take the size."""
+    and K4's plain versions wherever the kernels take the size.
+
+    On the K3 route with no vis group to sum the grid (``mesh`` None or
+    ``vis_size`` 1), each slice's colour planes
+    (:func:`..ops.fused_gridder.slice_planes`) go straight into K23
+    (:func:`fused_fft.planes_to_image_fused_parts`), which sums them as K2
+    does inside K3's load: bitwise the same image, and the grid is never
+    written.  Under a vis split K2 makes the grid that the group sums,
+    then K3."""
     dev = vis.device
     rdtype = precision_of(vis, taper1d)
     double = rdtype == torch.float64
     fused = not double and (
         fused_fft.kernel_size_ok(pixels) if dev.type == "cpu"
         else fourier.use_fused_fft(pixels, dev, vis.dtype, taper1d.dtype))
+    planes_fft = fused and (mesh is None or mesh.vis_size == 1)
     Pp = vis.shape[-1]
 
     def slice_body(image, xs):
@@ -224,6 +235,12 @@ def image_slices(kernel, density, taper1d, pixel_size, mid_w, uv, sub_uv,
         if take_s == 0:
             return image
         with profile("multichannel.slice"):
+            if planes_fft:
+                return fused_fft.planes_to_image_fused_parts(
+                    fused_gridder.slice_planes(
+                        kernel, density, uv_s, sub_s, wp_s, vis_s, anc_s,
+                        val_s, int(nc_s), pixels=pixels, ts=ts),
+                    image, taper1d, w_mid, pixel_size, pixels=pixels, ts=ts)
             out = None
             if double:
                 gr = torch.zeros((Pp, pixels, pixels), dtype=rdtype,

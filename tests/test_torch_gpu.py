@@ -211,6 +211,141 @@ def test_k3_k4_match_plain(cuda, n):
     assert (out_k - out_p).abs().max().item() <= 1e-5 * scale
 
 
+def _nan_unwritten(accr, acci, occ, ts):
+    """Fill the colour-plane blocks that ``occ`` marks unwritten with NaN,
+    in place: whatever reads them shows."""
+    written = occ.repeat_interleave(2 * ts, -2).repeat_interleave(
+        2 * ts, -1)[:, :, None]
+    for plane in (accr, acci):
+        plane.masked_fill_(~written, float("nan"))
+
+
+def _k2_then_k3(accr, acci, occ, *, pixels, ts):
+    """K3 on K2's grid, the route K23 replaces."""
+    return fused_fft.cb_col_fft(*fused_gridder.combine_planes(
+        accr, acci, occ, pixels=pixels, ts=ts))
+
+
+def _bitwise(got, want):
+    """Each pair of f32 tensors equal bit for bit (signed zeros and NaNs
+    too)."""
+    return all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+               for g, w in zip(got, want))
+
+
+#: K23's sizes: every N of the column-DFT kernels, at tile sizes 8, 50
+#: (a ts that is no multiple of 16: a 16-column segment crosses colour
+#: tiles), 64 and 128.
+K23_CASES = [(n, ts) for n in (256, 512, 1024, 2048, 4096, 8192)
+             for ts in (8, 50, 64, 128)]
+
+
+@pytest.mark.parametrize("n,ts", K23_CASES)
+def test_k23_is_k2_then_k3(cuda, n, ts):
+    """K23 bitwise equal to K3 on K2's grid, on planner output whose
+    unwritten colour-plane blocks hold NaN, and to its plain version
+    within 1e-5 of the peak; with ``out`` views of a larger pair it writes
+    only those planes."""
+    P = 2 if n <= 2048 else 1
+    K = min(16, ts)
+    kernel, wg, plan = _plan_case(n + ts, pixels=n, K=K, ts=ts, P=P,
+                                  n=20000)
+    accr, acci, occ = _planes(cuda, kernel, wg, plan, pixels=n, ts=ts,
+                              plain=False)
+    _nan_unwritten(accr, acci, occ, ts)
+    launches = fused_fft.combine_cb_col_fft.launches
+    got = fused_fft.combine_cb_col_fft(accr, acci, occ, pixels=n, ts=ts)
+    assert fused_fft.combine_cb_col_fft.launches == launches + 1
+    want = _k2_then_k3(accr, acci, occ, pixels=n, ts=ts)
+    torch.cuda.synchronize()
+    assert bool(occ.any()) and not bool(occ.all())
+    assert all(torch.isfinite(g).all() for g in got)
+    assert _bitwise(got, want)
+    with device.plain_versions():
+        plain = fused_fft.combine_cb_col_fft(accr, acci, occ, pixels=n,
+                                             ts=ts)
+    scale = max(p.abs().max().item() for p in plain)
+    assert max((g - p).abs().max().item()
+               for g, p in zip(got, plain)) <= 1e-5 * scale
+    # Into planes 1 : 1 + P of a (P + 2)-plane pair: the others untouched.
+    yr, yi = (torch.full((P + 2, n, n), 7.0, device=cuda) for _ in range(2))
+    fused_fft.combine_cb_col_fft(accr, acci, occ, pixels=n, ts=ts,
+                                 out=(yr[1:1 + P], yi[1:1 + P]))
+    assert _bitwise((yr[1:1 + P], yi[1:1 + P]), want)
+    for y in (yr, yi):
+        assert bool((y[0] == 7.0).all()) and bool((y[-1] == 7.0).all())
+
+
+def _production_batch(dev, P, weight_type="natural", channels=1):
+    """The production batch (``chip_smoke.py``'s step: 4096 px, K = 60,
+    ts 64, 4 slices of 2^19 visibilities a channel) and its config."""
+    cfg = multichannel.MultiChannelConfig(
+        pixels=4096, num_pols=P, kernel_width=60, oversample=8,
+        w_planes=32, w_slices=4, chunks_per_slice=8192, chunk_size=256,
+        rv=64, ru=64, minor_cycles=0, weight_type=weight_type)
+    return cfg, multichannel.make_example_batch(
+        cfg, channels, vis_per_slice=1 << 19, device=dev)
+
+
+@pytest.mark.parametrize("P", [1, 4])
+def test_k23_production_slices_are_k2_then_k3(cuda, P):
+    """K23 bitwise equal to K3 on K2's grid at the production batch's four
+    slices of channel 0, in Stokes I and in full Stokes, with NaN in the
+    unwritten colour-plane blocks."""
+    cfg, batch = _production_batch(cuda, P)
+    N, ts = cfg.pixels, cfg.rv
+    for s in range(cfg.w_slices):
+        n = int(batch.n_chunks[0, s])
+        accr, acci, occ = fused_gridder.grid_chunks_planes(
+            batch.kernel[0], None, batch.uv[0, s], batch.sub_uv[0, s],
+            batch.w_plane[0, s], batch.vis[0, s], batch.anchor[0, s],
+            batch.valid[0, s], None, n, pixels=N, ts=ts)
+        _nan_unwritten(accr, acci, occ, ts)
+        got = fused_fft.combine_cb_col_fft(accr, acci, occ, pixels=N, ts=ts)
+        want = _k2_then_k3(accr, acci, occ, pixels=N, ts=ts)
+        torch.cuda.synchronize()
+        assert n > 0 and got[0].shape == (P, N, N)
+        assert _bitwise(got, want), s
+
+
+def _via_k2(groups, imageT, kernel1d, w, pixel_size, *, pixels, ts):
+    """:func:`fused_fft.planes_to_image_fused_parts` by K2 then K3: the
+    slice loop's route before K23."""
+    gr = torch.empty(imageT.shape, device=imageT.device)
+    gi = torch.empty_like(gr)
+    for p0, p1, accr, acci, occ in groups:
+        gr[p0:p1], gi[p0:p1] = fused_gridder.combine_planes(
+            accr, acci, occ, pixels=pixels, ts=ts)
+    return fused_fft.grid_to_image_fused_parts(gr, gi, imageT, kernel1d, w,
+                                               pixel_size)
+
+
+@pytest.mark.parametrize("weight_type,P", [("natural", 1), ("uniform", 1),
+                                           ("natural", 4)])
+def test_k23_steps_are_k2_then_k3(cuda, monkeypatch, weight_type, P):
+    """The 8-channel production steps (natural, uniform and IQUV) through
+    K23 give images bitwise equal to the same steps with the slice loop
+    routed through K2 then K3; the step launches K23 once a non-empty
+    slice and K2 and K3 not at all."""
+    cfg, batch = _production_batch(cuda, P, weight_type, channels=8)
+    step = multichannel.single_channel_step(cfg)
+    counters = (fused_gridder.combine_planes, fused_fft.cb_col_fft,
+                fused_fft.combine_cb_col_fft)
+    for fn in counters:
+        fn.launches = 0
+    got = [step(*multichannel.channel_args(batch, c))[0] for c in range(8)]
+    torch.cuda.synchronize()
+    nonempty = int((batch.n_chunks > 0).sum())
+    assert [fn.launches for fn in counters] == [0, 0, nonempty]
+    monkeypatch.setattr(fused_fft, "planes_to_image_fused_parts", _via_k2)
+    want = [step(*multichannel.channel_args(batch, c))[0] for c in range(8)]
+    assert fused_gridder.combine_planes.launches == nonempty
+    assert fused_fft.cb_col_fft.launches == nonempty
+    for c, (g, w) in enumerate(zip(got, want)):
+        assert bool(torch.isfinite(g).all())
+        assert _bitwise((g,), (w,)), c
+
+
 @pytest.mark.parametrize("n", [512, 4096])
 def test_k4_accumulates(cuda, n):
     """K4 applied twice to the same image adds both updates, as its plain
@@ -469,7 +604,7 @@ def _inside(taper):
 @pytest.mark.parametrize("weight_type", ["natural", "uniform"])
 def test_step_at_1000px_matches_plain(cuda, weight_type):
     """The dirty step at 1000 px (no power of two: the grid -> image
-    transform takes torch.fft by rule, and K3 never launches) against the
+    transform takes torch.fft by rule, and K3 and K23 never launch) against the
     all-plain step, within 1e-4 of the peak inside the field, as
     :func:`test_step_matches_plain`."""
     cfg = multichannel.MultiChannelConfig(
@@ -479,10 +614,12 @@ def test_step_at_1000px_matches_plain(cuda, weight_type):
     batch = multichannel.make_example_batch(cfg, 1, seed=3, device=cuda)
     args = multichannel.channel_args(batch, 0)
     fused_fft.cb_col_fft.launches = 0
+    fused_fft.combine_cb_col_fft.launches = 0
     launches = fused_gridder.grid_planes.launches
     got = multichannel.single_channel_step(cfg)(*args)[0]
     assert fused_gridder.grid_planes.launches > launches
     assert fused_fft.cb_col_fft.launches == 0
+    assert fused_fft.combine_cb_col_fft.launches == 0
     with device.plain_versions():
         ref = multichannel.single_channel_step(cfg)(*args)[0]
     peak = ref.abs().max().item()
@@ -532,9 +669,11 @@ def test_wave_at_1000px_matches_plain(cuda):
         seed=3, device=cuda)
     batch, pos, flux = cube.with_point_sources(cfg, batch, seed=1)
     fused_fft.cb_col_fft.launches = 0
+    fused_fft.combine_cb_col_fft.launches = 0
     fused_degrid.degrid_planes.launches = 0
     got = cube.wave_image(cfg, batch)
     assert fused_fft.cb_col_fft.launches == 0
+    assert fused_fft.combine_cb_col_fft.launches == 0
     assert fused_degrid.degrid_planes.launches > 0
     with device.plain_versions():
         ref = cube.wave_image(cfg, batch)
@@ -652,9 +791,12 @@ def test_per_channel_run_matches_plain(cuda, pixels):
 
     fused_degrid.degrid_planes.launches = 0
     fused_fft.cb_col_fft.launches = 0
+    fused_fft.combine_cb_col_fft.launches = 0
     got = run(False)
     assert fused_degrid.degrid_planes.launches > 0
     assert (fused_fft.cb_col_fft.launches > 0) == (pixels == 512)
+    # the CLI's running grid takes K2 then K3, never K23
+    assert fused_fft.combine_cb_col_fft.launches == 0
     ref = run(True)
     taper = wkernel.taper(pixels, 7.0, 8, wkernel.default_beta(7.0))
     t2 = np.outer(taper, taper)
@@ -787,11 +929,14 @@ def test_cube_pipeline_matches_plain(cuda, tmp_path):
         return images, json.loads((out / "state.json").read_text())
 
     for fn in (fused_gridder.grid_planes, fused_fft.cb_col_fft,
-               fused_degrid.degrid_planes, fused_fft.pre_col_fft):
+               fused_fft.combine_cb_col_fft, fused_degrid.degrid_planes,
+               fused_fft.pre_col_fft):
         fn.launches = 0
     got, got_state = run("kernels", False)
     assert fused_gridder.grid_planes.launches > 0
-    assert fused_fft.cb_col_fft.launches > 0
+    # the wave's slice loop takes K23 in place of K2 then K3
+    assert fused_fft.combine_cb_col_fft.launches > 0
+    assert fused_fft.cb_col_fft.launches == 0
     assert fused_degrid.degrid_planes.launches > 0
     assert fused_fft.pre_col_fft.launches > 0
     ref, ref_state = run("plain", True)

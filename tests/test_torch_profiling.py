@@ -224,8 +224,9 @@ def test_step_span_tree(installed, weight_type):
     """One channel of the step at 256 px on the CPU: one
     ``multichannel.channel`` span; under it the weights (uniform only)
     and a ``multichannel.slice`` per non-empty slice, each holding K1's
-    prep (and in it the occupancy mask's ``k1.occupancy``) and the four
-    kernels' wrappers once."""
+    prep (and in it the occupancy mask's ``k1.occupancy``) and the
+    wrappers of K1, K23 (``k3.launch``: the slice loop takes it in place
+    of K2 then K3, so no ``k2.launch``) and K4 once."""
     import collections
 
     from katsdpimager_tpu_torch.parallel import multichannel as mc
@@ -245,7 +246,7 @@ def test_step_span_tree(installed, weight_type):
     sl = channel + ("multichannel.slice",)
     want = {channel: 1, sl: 3}
     want.update({sl + (name,): 3 for name in (
-        "k1.prep", "k1.launch", "k2.launch", "k3.launch", "k4.launch")})
+        "k1.prep", "k1.launch", "k3.launch", "k4.launch")})
     want[sl + ("k1.prep", "k1.occupancy")] = 3
     if weight_type == "uniform":
         want[channel + ("multichannel.weights",)] = 1
