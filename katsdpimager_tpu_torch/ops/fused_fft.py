@@ -318,7 +318,8 @@ def planes_to_image_fused_parts(groups, imageT, kernel1d, w, pixel_size, *,
     ``p0:p1`` of one (P, N, N) pair, which K4 takes whole.  The pair is
     made once the first group's planes are, when the gridder's
     temporaries are gone, as K2's grid was: the step's peak memory stays
-    that of K2 then K3."""
+    that of K2 then K3.  Each group's planes are dropped before the next
+    group's are made, so one group's are alive at a time."""
     scal = scalars(w, pixel_size, imageT.device)
     taper = kernel1d.to(device=imageT.device,
                         dtype=torch.float32).contiguous()
@@ -330,6 +331,7 @@ def planes_to_image_fused_parts(groups, imageT, kernel1d, w, pixel_size, *,
             yi = torch.empty_like(yr)
         combine_cb_col_fft(accr, acci, occ, pixels=pixels, ts=ts,
                            out=(yr[p0:p1], yi[p0:p1]))
+        del accr, acci, occ     # before the next group's planes are made
     return epi_col_fft(yr, yi, imageT, taper, scal)
 
 

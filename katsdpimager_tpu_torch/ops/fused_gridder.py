@@ -433,6 +433,8 @@ def grid_chunks_planes(kernel, weights_grid, plan_uv, plan_sub, plan_wp,
     (unwritten blocks uninitialised) and their occupancy mask.  On the
     CPU the valid slots are checked to be a prefix of every chunk.  The
     prep, every input of K1 and the occupancy mask, is the ``k1.prep``
+    span; in it, the part that no polarization changes (tap indices,
+    chunk slots, counts, occupancy, the table) is the ``k1.prep_shared``
     span."""
     Pp = plan_vis.shape[-1]
     K = kernel.shape[-1]
@@ -440,16 +442,17 @@ def grid_chunks_planes(kernel, weights_grid, plan_uv, plan_sub, plan_wp,
     ext2 = nt2 * 2 * ts
     dev = plan_vis.device
     with profile("k1.prep"):
-        iu, iv, su, sv = tap_indices(kernel, plan_uv, plan_sub, plan_wp,
-                                     plan_anchor, pixels=pixels, ts=ts)
+        with profile("k1.prep_shared"):
+            iu, iv, su, sv = tap_indices(kernel, plan_uv, plan_sub, plan_wp,
+                                         plan_anchor, pixels=pixels, ts=ts)
+            slot = chunk_slots(plan_anchor, n_chunks, ts=ts, nt2=nt2)
+            count = valid_counts(plan_valid)
+            if dev.type == "cpu":
+                check_valid_prefix(plan_valid, count)
+            occ = occupancy(slot, n_chunks, nt2)
+            table = conj_table(kernel)
         sre, sim = samples(plan_vis, plan_valid, weights_grid, dw_chunks,
                            plan_anchor, su, sv, kernel_width=K, ts=ts)
-        slot = chunk_slots(plan_anchor, n_chunks, ts=ts, nt2=nt2)
-        count = valid_counts(plan_valid)
-        if dev.type == "cpu":
-            check_valid_prefix(plan_valid, count)
-        occ = occupancy(slot, n_chunks, nt2)
-        table = conj_table(kernel)
         accr = torch.empty((2, 2, Pp, ext2, ext2), dtype=torch.float32,
                            device=dev)
         acci = torch.empty_like(accr)
@@ -465,8 +468,11 @@ def slice_planes(kernel, density, plan_uv, plan_sub, plan_wp, plan_vis,
     polarizations at a time (those whose planes fit the accumulator cap,
     :func:`.mxu_gridder.pol_groups`): yields ``(p0, p1, accr, acci,
     occ)`` for polarizations ``p0:p1``, prep plus K1
-    (:func:`grid_chunks_planes`), each group gridded only when the
-    caller asks for it.  Arguments as :func:`grid_slice`'s."""
+    (:func:`grid_chunks_planes`, the ``k1.group`` span), each group
+    gridded only when the caller asks for it.  The generator holds no
+    group's planes while it waits, so a caller that drops each group's
+    before asking for the next holds one group's at a time, the peak the
+    cap bounds.  Arguments as :func:`grid_slice`'s."""
     K = kernel.shape[-1]
     if K > ts + 1:
         raise NotImplementedError(
@@ -474,12 +480,18 @@ def slice_planes(kernel, density, plan_uv, plan_sub, plan_wp, plan_vis,
             "2-tile window cannot hold it, and no other gridder is ported")
     if n_chunks is None:
         n_chunks = occupied_chunks(plan_valid)
+
+    def group(p0, p1):
+        with profile("k1.group"):
+            return grid_chunks_planes(
+                kernel, None if density is None else density[p0:p1],
+                plan_uv, plan_sub, plan_wp, plan_vis[..., p0:p1],
+                plan_anchor, plan_valid,
+                None if dw_chunks is None else dw_chunks[..., p0:p1],
+                n_chunks, pixels=pixels, ts=ts)
+
     for p0, p1 in pol_groups(plan_vis.shape[-1], pixels, ts):
-        yield (p0, p1, *grid_chunks_planes(
-            kernel, None if density is None else density[p0:p1], plan_uv,
-            plan_sub, plan_wp, plan_vis[..., p0:p1], plan_anchor, plan_valid,
-            None if dw_chunks is None else dw_chunks[..., p0:p1], n_chunks,
-            pixels=pixels, ts=ts))
+        yield (p0, p1, *group(p0, p1))
 
 
 def grid_slice(kernel, density, plan_uv, plan_sub, plan_wp, plan_vis,
@@ -514,6 +526,7 @@ def grid_slice(kernel, density, plan_uv, plan_sub, plan_wp, plan_vis,
                   else combine_planes_plain)
             k2(accr, acci, occ, pixels=pixels, ts=ts,
                out=(out[0][p0:p1], out[1][p0:p1]))
+        del accr, acci, occ     # before the next group's planes are made
     if out is not None:
         return out
     if len(parts) == 1:

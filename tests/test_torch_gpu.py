@@ -399,6 +399,69 @@ def test_step_matches_plain(cuda, weight_type):
     assert (got - ref).abs()[:, inside].max().item() <= 1e-4 * peak
 
 
+def test_full_stokes_8192_step_takes_two_groups(cuda):
+    """One channel of ``mkat_l_8k_iquv`` (8192 px, P = 4, 6 W slices of
+    349,525 visibilities, 16384 chunks a slice) through
+    ``single_channel_step``: every slice takes two polarisation groups,
+    each Stokes plane lies within the cell's ``dirty_err`` limit of its
+    own peak from the float64 reference at sampled pixels, and the step's
+    peak memory holds one group's colour planes at a time (the batch, the
+    image and its transposed copy, one group's planes, K23's pair and
+    2 GB)."""
+    from portbench import manifest
+    from portbench.reference import imaging as reference
+    from portbench.runners import dirty_step
+
+    cell = manifest.cell("mkat_l_8k_iquv.dirty")
+    conf, traffic = cell.config, dict(cell.traffic, channels=1)
+    cfg = dirty_step.step_config(conf)
+    N, P, ts, S = cfg.pixels, cfg.num_pols, cfg.rv, cfg.w_slices
+    seed = 2 ** 31 + 26
+    batch, draws, _ = dirty_step.program_batch(conf, traffic, seed, cuda)
+    assert [len(d.uv) for d in draws[0]] == [traffic["vis_per_slice"]] * S
+    groups = mxu_gridder.pol_groups(P, N, ts)
+    assert groups == [(0, 2), (2, 4)]
+    step = multichannel.single_channel_step(cfg)
+    args = multichannel.channel_args(batch, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches = fused_gridder.grid_planes.launches
+    image = step(*args)[0]
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    nonempty = int((batch.n_chunks[0] > 0).sum())
+    assert nonempty == S
+    assert fused_gridder.grid_planes.launches - launches == 2 * S
+
+    batch_bytes = sum(t.numel() * t.element_size() for t in (
+        batch.uv, batch.sub_uv, batch.w_plane, batch.anchor, batch.valid,
+        batch.weights, batch.vis, batch.kernel, batch.taper1d,
+        batch.pixel_size, batch.mid_w))
+    ext2 = mxu_gridder.colour_tiles(N, ts) * 2 * ts
+    group_bytes = 2 * 4 * 2 * ext2 * ext2 * 4
+    image_bytes = P * N * N * 4
+    pair_bytes = 2 * image_bytes
+    assert peak < (batch_bytes + 2 * image_bytes + group_bytes + pair_bytes
+                   + 2e9), peak
+
+    rows, cols = reference.sample_axes(
+        seed, reference.wkernel.taper(N, conf["antialias_width"],
+                                      cfg.oversample),
+        traffic["sample_axis"])
+    got = image[:, torch.as_tensor(rows, device=cuda)][
+        :, :, torch.as_tensor(cols, device=cuda)].double().cpu()
+    del image, args, batch
+    freq = dirty_step.frequencies(traffic)[0]
+    ch = reference.Channel.of(reference.C_M_PER_S / freq, conf, cuda)
+    ref = ch.image(reference.weighted(draws[0], pixels=N,
+                                      weight_type="natural"),
+                   rows, cols).cpu()
+    limit = traffic["limits"]["dirty_err"]
+    for p in range(P):
+        err = ((got[p] - ref[p]).abs().max() / ref[p].abs().max()).item()
+        assert err <= limit, (p, err)
+
+
 @pytest.mark.parametrize("n", [256, 512, 1024, 2048, 4096, 8192])
 def test_k6_k7_match_plain(cuda, n):
     """K6 and K7 on the tile core at every size it takes within 1e-5 of

@@ -223,10 +223,12 @@ def test_records_enclose_their_spans_in_the_trace(installed, tmp_path):
 def test_step_span_tree(installed, weight_type):
     """One channel of the step at 256 px on the CPU: one
     ``multichannel.channel`` span; under it the weights (uniform only)
-    and a ``multichannel.slice`` per non-empty slice, each holding K1's
-    prep (and in it the occupancy mask's ``k1.occupancy``) and the
-    wrappers of K1, K23 (``k3.launch``: the slice loop takes it in place
-    of K2 then K3, so no ``k2.launch``) and K4 once."""
+    and a ``multichannel.slice`` per non-empty slice, each holding one
+    polarisation group's ``k1.group`` (in it K1's prep, whose
+    polarisation-independent part ``k1.prep_shared`` holds the occupancy
+    mask's ``k1.occupancy``, and K1's wrapper) and the
+    wrappers of K23 (``k3.launch``: the slice loop takes it in place of
+    K2 then K3, so no ``k2.launch``) and K4 once."""
     import collections
 
     from katsdpimager_tpu_torch.parallel import multichannel as mc
@@ -244,10 +246,13 @@ def test_step_span_tree(installed, weight_type):
     counts = collections.Counter(r.stack for r in prof.records)
     channel = ("multichannel.channel",)
     sl = channel + ("multichannel.slice",)
-    want = {channel: 1, sl: 3}
-    want.update({sl + (name,): 3 for name in (
-        "k1.prep", "k1.launch", "k3.launch", "k4.launch")})
-    want[sl + ("k1.prep", "k1.occupancy")] = 3
+    group = sl + ("k1.group",)
+    want = {channel: 1, sl: 3, group: 3}
+    want.update({sl + (name,): 3 for name in ("k3.launch", "k4.launch")})
+    want.update({group + (name,): 3 for name in ("k1.prep", "k1.launch")})
+    shared = group + ("k1.prep", "k1.prep_shared")
+    want[shared] = 3
+    want[shared + ("k1.occupancy",)] = 3
     if weight_type == "uniform":
         want[channel + ("multichannel.weights",)] = 1
     assert counts == want
@@ -288,8 +293,9 @@ def test_clean_stage_spans(installed):
 
 def test_cli_profile_names_the_programs_spans(tmp_path):
     """``--write-profile`` names the per-channel path's spans inside the
-    frontend's stages: the slice plans, K1's prep and wrappers, and
-    CLEAN's batches and stop-flag reads."""
+    frontend's stages: the slice plans, the polarisation group (K1's prep
+    and wrapper), K2's wrapper, and CLEAN's batches and stop-flag
+    reads."""
     path = tmp_path / "sim.h5"
     simulate.make_sim_dataset(str(path), num_antennas=16, num_times=24,
                               num_channels=1, max_radius=800.0)
@@ -300,8 +306,9 @@ def test_cli_profile_names_the_programs_spans(tmp_path):
                         str(prof)]) == 0
     stacks = {ln.rsplit(" ", 1)[0] for ln in prof.read_text().splitlines()}
     grid = "process_channel;make_dirty;grid_slice_0"
-    for stack in (grid + ";imaging.slice_plan", grid + ";k1.prep",
-                  grid + ";k1.launch", grid + ";k2.launch",
+    for stack in (grid + ";imaging.slice_plan", grid + ";k1.group",
+                  grid + ";k1.group;k1.prep", grid + ";k1.group;k1.launch",
+                  grid + ";k2.launch",
                   "process_channel;clean.batch",
                   "process_channel;clean.sync"):
         assert stack in stacks, stack
