@@ -33,10 +33,17 @@ per slice, natural weights), then:
   of channel 0, P = 1 and 4, with NaN in the unwritten colour-plane
   blocks: bitwise again, and 20 launches of each in turns against K2
   then K3, with its byte bound from the occupied blocks;
+- ``k4_slices``: K4 taking a channel's slices (``cfg.w_slices``, P = 1
+  and 4) in one launch against one launch a slice, bitwise, and 20 of
+  each in turns, with the byte bound a channel of each; where an
+  uncommitted copy of the parent's ``csrc/fft.cu`` lies at
+  :data:`PARENT_FFT_SOURCE`, one slice against the parent's K4, bitwise
+  and in turns;
 - runs the 8-channel dirty-image step through
   ``multichannel.single_channel_step`` (1 warm-up, 3 timed iterations)
-  with the launch counters reset just before (K1, K23 and K4 once a
-  non-empty slice, K2 and K3 never), and checks channel 0's
+  with the launch counters reset just before (K1 and K23 once a
+  non-empty slice, K4 once a channel, taking every non-empty slice, K2
+  and K3 never), and checks channel 0's
   dirty image against the all-plain step; then profiles one more step
   (the device's busy time and idle share, the top kernels by device
   time, and the host's seconds to enqueue it);
@@ -289,7 +296,8 @@ def main() -> None:
           "python": sys.version.split()[0]})
 
     t0 = time.perf_counter()
-    parent_build = start_parent_k1_build()
+    parent_build = start_parent_build(PARENT_K1_SOURCE)
+    parent_fft_build = start_parent_build(PARENT_FFT_SOURCE)
     _build.load()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": _build.lib_path()})
@@ -528,6 +536,7 @@ def main() -> None:
            bound(4 * plane_bytes + N * 4, fp32=fft_flops(N, N * P)),
            library_ms, inverse_dft)
     redesign_line("K4", ms, library_ms)
+    k4_slices_phase(card, cfg, batch, fused_fft, parent_k4(parent_fft_build))
     # K6 and K7 on a model of 2000 components of random flux in the
     # central half of the image, with the production taper and the
     # slice's w; K5 on the grid that gives, for the occupied chunks of
@@ -615,6 +624,7 @@ def main() -> None:
                 fused_fft.combine_cb_col_fft)
     for fn in counters:
         fn.launches = 0
+    fused_fft.epi_col_fft.slices = 0
     iters = 3
     t0 = time.perf_counter()
     for _ in range(iters):
@@ -623,20 +633,27 @@ def main() -> None:
     elapsed = (time.perf_counter() - t0) / iters
     launches = [fn.launches for fn in counters]
     nonempty = int((batch.n_chunks > 0).sum())
+    channels = int((batch.n_chunks > 0).any(dim=1).sum())
     emit({"phase": "step", "card": card, "num_vis": num_vis,
           "num_channels": num_channels, "iters": iters,
           "elapsed_s": elapsed, "mvis_per_s": num_vis / elapsed / 1e6,
           "ggaps": num_vis * cfg.kernel_width ** 2 * cfg.num_pols
           / elapsed / 1e9,
           "launches": dict(zip(("K1", "K2", "K3", "K4", "K23"), launches)),
+          "epi_col_fft.launches": fused_fft.epi_col_fft.launches,
+          "epi_col_fft.slices": fused_fft.epi_col_fft.slices,
           "nonempty_channel_slices": nonempty,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-    # The slice loop takes K23 in place of K2 then K3.
-    want = [iters * nonempty, 0, 0, iters * nonempty, iters * nonempty]
-    if nonempty <= 0 or launches != want:
-        raise AssertionError(f"K1, K2, K3, K4, K23 launched {launches} "
-                             f"times, expected {want} ({iters} x "
-                             f"{nonempty} non-empty slices)")
+    # The slice loop takes K23 in place of K2 then K3, and K4 once a
+    # channel over its non-empty slices.
+    want = [iters * nonempty, 0, 0, iters * channels, iters * nonempty]
+    if (nonempty <= 0 or launches != want
+            or fused_fft.epi_col_fft.slices != iters * nonempty):
+        raise AssertionError(
+            f"K1, K2, K3, K4, K23 launched {launches} times, K4 over "
+            f"{fused_fft.epi_col_fft.slices} slices, expected {want} and "
+            f"{iters * nonempty} ({iters} x {nonempty} non-empty slices, "
+            f"{channels} channels)")
     by_name = {row["name"].split()[0]: row for row in rows}
     for name, count in zip(("K1", "K2", "K3", "K4", "K23"), launches):
         by_name[name]["step_launches"] = count
@@ -775,6 +792,94 @@ def k23_turns_phase(card, cfg, batch, fused_fft, fused_gridder) -> None:
                                      f"bitwise K3 on K2's grid")
         emit({"phase": "k23_turns", "card": card, "P": P, "turns": turns,
               "slices": slices})
+
+
+def k4_slices_phase(card, cfg, batch, fused_fft, parent) -> None:
+    """K4 taking channel 0's ``cfg.w_slices`` slices (random transposed
+    pairs, the channel's mid-w values and pixel size, its taper) in one
+    launch against one launch a slice, at P = 1 and 4: bitwise from a zero
+    image and from a random one, and 20 turns of each, timed by CUDA
+    events over 5 back-to-back calls (so that the wrappers' host time
+    hides behind the device's), beside the byte bound a channel of each
+    route ((2 S + 2) planes against 4 S).  With the parent's K4
+    (``parent``), one slice bitwise equal to it and 20 turns of each, the
+    same way.  One line a P."""
+    N, S = cfg.pixels, cfg.w_slices
+    dev = batch.taper1d.device
+    taper = batch.taper1d[0]
+    scal = torch.stack([fused_fft.scalars(batch.mid_w[0, s],
+                                          batch.pixel_size[0], dev)
+                        for s in range(S)])
+    gen = torch.Generator(device=dev).manual_seed(4)
+    turns = 20
+    for P in (1, 4):
+        xr, xi = (torch.randn((S, P, N, N), device=dev, generator=gen)
+                  for _ in range(2))
+        start = torch.randn((P, N, N), device=dev, generator=gen)
+
+        def one(img):
+            return fused_fft.epi_col_fft(xr, xi, img, taper, scal)
+
+        def per_slice(img):
+            for s in range(S):
+                fused_fft.epi_col_fft(xr[s], xi[s], img, taper, scal[s])
+            return img
+
+        same = True
+        for img0 in (torch.zeros_like(start), start):
+            a, b = one(img0.clone()), per_slice(img0.clone())
+            same = same and torch.equal(a.view(torch.int32),
+                                        b.view(torch.int32))
+        img = start.clone()
+        ms = {"one": [], "per_slice": []}
+        for t in range(turns):
+            order = (("one", one), ("per_slice", per_slice))
+            for name, fn in order if t % 2 == 0 else order[::-1]:
+                ms[name].append(cuda_ms(lambda: fn(img), 5))
+        plane = P * N * N * 4
+        one_bnd = bound((2 * S + 2) * plane, fp32=fft_flops(N, N * P * S))
+        per_bnd = bound(4 * S * plane, fp32=fft_flops(N, N * P * S))
+        one_ms = statistics.median(ms["one"])
+        line = {"phase": "k4_slices", "card": card, "P": P, "S": S,
+                "N": N, "turns": turns, "bitwise_per_slice": same,
+                "one_launch_ms_median": one_ms,
+                "per_slice_ms_median": statistics.median(ms["per_slice"]),
+                "one_launch_faster_turns": sum(
+                    a < b for a, b in zip(ms["one"], ms["per_slice"])),
+                "one_launch_bound_ms": one_bnd["bound_ms"],
+                "one_launch_share": one_bnd["bound_ms"] / one_ms,
+                "per_slice_bound_ms": per_bnd["bound_ms"],
+                "per_slice_share": per_bnd["bound_ms"]
+                / statistics.median(ms["per_slice"]),
+                "one_launch_ms": ms["one"], "per_slice_ms": ms["per_slice"]}
+        if parent is not None:
+            a, b = start.clone(), start.clone()
+            fused_fft.epi_col_fft(xr[0], xi[0], a, taper, scal[0])
+            parent(xr[0], xi[0], b, taper, scal[0])
+            torch.cuda.synchronize()
+            pms = {"k4": [], "parent": []}
+            fns = (("k4", lambda: fused_fft.epi_col_fft(
+                xr[0], xi[0], img, taper, scal[0])),
+                   ("parent", lambda: parent(xr[0], xi[0], img, taper,
+                                             scal[0])))
+            for t in range(turns):
+                for name, fn in fns if t % 2 == 0 else fns[::-1]:
+                    pms[name].append(cuda_ms(fn, 5))
+            k4_s1, parent_s1 = (statistics.median(pms[k])
+                                for k in ("k4", "parent"))
+            line.update(one_slice_bitwise_parent=torch.equal(
+                a.view(torch.int32), b.view(torch.int32)),
+                one_slice_ms_median=k4_s1,
+                parent_one_slice_ms_median=parent_s1,
+                one_slice_no_slower=k4_s1 <= parent_s1,
+                one_slice_ms=pms["k4"], parent_one_slice_ms=pms["parent"])
+            same = same and line["one_slice_bitwise_parent"]
+        emit(line)
+        del xr, xi, start, img
+        if not same:
+            raise AssertionError(f"K4 over {S} slices at P {P} is not "
+                                 f"bitwise one launch a slice (or one "
+                                 f"slice the parent's K4)")
 
 
 def weights_phase(dev, card, record, rows, mc, batch, num_channels,
@@ -958,11 +1063,13 @@ def wave_phases(mcfg, batch, num_channels, rows, card, mc, cube, fourier,
     if launches[4:7] != [want] * 3:
         raise AssertionError(f"K5-K7 launched {launches[4:7]} times, "
                              f"expected {want} each")
-    # the PSF and each major's dirty image: K1, K23 and K4 a slice, the
-    # slice loop never K2 or K3
+    # the PSF and each major's dirty image: K1 and K23 a slice, K4 a
+    # channel, the slice loop never K2 or K3
     grids = (1 + cfg.majors) * nonempty
-    if (launches[0] != grids or launches[3] != grids or launches[7] != grids
-            or launches[1:3] != [0, 0] or min(minors) <= 0):
+    images = (1 + cfg.majors) * int((batch.n_chunks > 0).any(dim=1).sum())
+    if (launches[0] != grids or launches[3] != images
+            or launches[7] != grids or launches[1:3] != [0, 0]
+            or min(minors) <= 0):
         raise AssertionError(f"wave launches {launches}, minor {minors}")
     by_name = {row["name"].split()[0]: row for row in rows}
     for name, count in zip(names, launches):
@@ -1756,11 +1863,11 @@ def pipeline_phase(dev, card, rows) -> None:
         finite = finite and bool(np.isfinite(a[0][both]).all())
         errs.append(float(np.abs(a[0] - b[0])[both].max())
                     / ref["dirty_peaks"][c])
-    # Per channel: the PSF and 2 majors grid each non-empty slice (K1,
-    # K23 and K4; the wave's slice loop never launches K2 or K3), the
-    # second major degrids each (K5-K7).  The slices are counted in the
-    # plain run: the same host packer on the same data.
-    per_channel = [[3 * n, 0, 0, 3 * n, n, n, n, 3 * n]
+    # Per channel: the PSF and 2 majors grid each non-empty slice (K1 and
+    # K23, and K4 once an image; the wave's slice loop never launches K2
+    # or K3), the second major degrids each (K5-K7).  The slices are
+    # counted in the plain run: the same host packer on the same data.
+    per_channel = [[3 * n, 0, 0, 3 * (n > 0), n, n, n, 3 * n]
                    for n in ref["nonempty"]]
     want = [sum(w[k] for w in per_channel) for k in range(len(names))]
     launches = dict(zip(names, got["launches"]))
@@ -2110,22 +2217,63 @@ def tiles_phase(dev, card, parent) -> None:
 #: (a design comparison: the path lies in a git-ignored directory).
 PARENT_K1_SOURCE = "_archive/k1_parent/gridder.cu"
 
+#: An uncommitted copy of the parent's ``csrc/fft.cu`` (with its
+#: ``col_fft_tile.cuh``), whose K4 :func:`k4_slices_phase` holds one slice
+#: to, where it exists.
+PARENT_FFT_SOURCE = "_archive/fft_parent/fft.cu"
 
-def start_parent_k1_build():
-    """Start ``nvcc`` on :data:`PARENT_K1_SOURCE` into a shared library
-    beside it, with the port's flags; returns ``(process, library)``, or
-    None where the copy is absent."""
+
+def start_parent_build(source):
+    """Start ``nvcc`` on ``source``, an uncommitted copy of a parent's
+    kernel source, into a shared library beside it, with the port's
+    flags; returns ``(process, library)``, or None where the copy is
+    absent."""
     import os
 
     from katsdpimager_tpu_torch.ops import _build
 
-    if not os.path.exists(PARENT_K1_SOURCE):
+    if not os.path.exists(source):
         return None
-    lib = os.path.join(os.path.dirname(PARENT_K1_SOURCE), "libparent_k1.so")
+    where = os.path.dirname(source)
+    lib = os.path.join(where, "libparent_%s.so" % os.path.splitext(
+        os.path.basename(source))[0])
     cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *_build.COMPILE_FLAGS,
-           "-shared", "-o", lib, PARENT_K1_SOURCE]
+           "-I", where, "-shared", "-o", lib, source]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True), lib
+
+
+def parent_k4(build):
+    """The parent copy's one-slice K4 as ``fn(ar_t, ai_t, imageT, taper,
+    scal)`` (the parent's ``ktt_epi_col_fft`` argument list), or None
+    without the copy; prints its ptxas report."""
+    import ctypes
+    import os
+
+    from katsdpimager_tpu_torch.ops import _build, fused_fft
+
+    if build is None:
+        return None
+    proc, lib_path = build
+    _, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {PARENT_FFT_SOURCE}:\n{err}")
+    emit({"phase": "ptxas_parent_k4", "kernels": [
+        k for k in _build.ptxas_report(err)
+        if "epi_col_fft_kernel" in k["function"]]})
+    fn = ctypes.CDLL(os.path.abspath(lib_path)).ktt_epi_col_fft
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run(ar_t, ai_t, imageT, taper, scal):
+        P, n, _ = imageT.shape
+        tw = fused_fft.twiddles_full(n, imageT.device)
+        _build.check(fn(ar_t.data_ptr(), ai_t.data_ptr(), tw.data_ptr(),
+                        taper.data_ptr(), scal.data_ptr(), imageT.data_ptr(),
+                        P, n, _build.stream_of(imageT)),
+                     "parent ktt_epi_col_fft")
+    return run
 
 
 def parent_k1(build):

@@ -191,7 +191,7 @@ def main():
     emit({"card": cs.card_line()})
     t0 = time.perf_counter()
     builds = {n: start_build(n, VARIANTS[n][1]) for n in names}
-    parent_build = cs.start_parent_k1_build()
+    parent_build = cs.start_parent_build(cs.PARENT_K1_SOURCE)
     _build.load()
     runners = {}
     for name, b in builds.items():

@@ -1,14 +1,14 @@
 // Column-DFT kernels for the grid <-> image transforms on Hopper (sm_90a):
 // K3 (checkerboard + inverse column DFT, transposed store) and K4 (inverse
-// column DFT + imaging corrections, accumulated into the transposed dirty
-// image) for grid -> image; K6 (image -> layer prologue + forward column
-// DFT, transposed store) and K7 (forward column DFT + output checkerboard)
-// for image -> grid; K8 (plain column DFT, natural orientation) for the
-// 2-D transform building block; and K23, K2 fused into K3 (K3 summing the
-// four colour planes of the gridder as it loads), which the slice loop
-// takes in place of K2 then K3.  Plain C interface, loaded with ctypes by
-// katsdpimager_tpu_torch/ops/_build.py; the Python wrappers and plain
-// PyTorch versions are in ops/fused_fft.py.
+// column DFT + imaging corrections of one or several W slices, accumulated
+// into the transposed dirty image) for grid -> image; K6 (image -> layer
+// prologue + forward column DFT, transposed store) and K7 (forward column
+// DFT + output checkerboard) for image -> grid; K8 (plain column DFT,
+// natural orientation) for the 2-D transform building block; and K23, K2
+// fused into K3 (K3 summing the four colour planes of the gridder as it
+// loads), which the slice loop takes in place of K2 then K3.  Plain C
+// interface, loaded with ctypes by katsdpimager_tpu_torch/ops/_build.py;
+// the Python wrappers and plain PyTorch versions are in ops/fused_fft.py.
 //
 // Built WITHOUT -use_fast_math: the W-phase 2 pi w (n - 1) of K4 and K6
 // reaches far beyond +-pi, where __sinf/__cosf lose all accuracy.
@@ -74,20 +74,22 @@ cudaError_t with_plan(int N, F f) {
 }
 
 // Launches a tile kernel of plan Pn over `tiles` column tiles of `planes`
-// planes, in clusters of Q CTAs along x.
+// planes, in clusters of Q CTAs along x, with the tile's shared memory and
+// `extra_smem` bytes more.
 template <typename Pn, typename... KArgs, typename... Args>
 cudaError_t launch_tiles(void (*kernel)(KArgs...), int tiles, int planes,
-                         void* stream, Args... args) {
+                         void* stream, int extra_smem, Args... args) {
   using T = typename Pn::Tile;
   if (tiles > 65535 || planes <= 0 || planes > 65535)
     return cudaErrorInvalidValue;
+  const int smem = T::kSmemBytes + extra_smem;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(Pn::kQ, tiles, planes);
   cfg.blockDim = dim3(T::kThreads);
-  cfg.dynamicSmemBytes = T::kSmemBytes;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = static_cast<cudaStream_t>(stream);
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -391,28 +393,75 @@ combine_cb_col_fft_kernel(const float* __restrict__ accr,
 
 // ---------------------------------------------------------------------------
 // K4 -- replaces katsdpimager_tpu/ops/pallas_fft.py:_make_epi_col_kernel
-// (pass B of grid_to_image_fused_parts).
+// (pass B of grid_to_image_fused_parts), once for each of S W slices.
 //
-// Y = inverse column DFT of the transposed pass-A output, then in place
+// For each slice s in turn: Y_s = inverse column DFT of slice s's
+// transposed pass-A output, then in place
 //     imgT[p, r, c] += Y.re * (cos(ph) * common) - Y.im * (sin(ph) * common)
 // with the f32 formulas of pallas_fft.py: lm = (index - N/2) * pixel_size,
-// n = sqrt(1 - lm_r^2 - lm_c^2), ph = 2 pi w (n - 1),
+// n = sqrt(1 - lm_r^2 - lm_c^2), ph = 2 pi w_s (n - 1),
 // common = cb * n / (taper[r] * taper[c]), cb = (-1)^(r+c).
 // The factors are symmetric in (r, c), so the transposed image takes the
-// same formulas.  Each finished value (row k, column c) updates imgT at
-// (k, c) straight from the cluster's finish: 64-byte row segments, like
-// K8's stores.  w and the pixel size are read from a device array, so the
-// W-slice loop needs no host sync.
+// same formulas.  Each finished value (row k, column c) is updated straight
+// from the cluster's finish: 64-byte row segments, like K8's stores.
+// w_s and the pixel size are read from a device array, so the W-slice loop
+// needs no host sync.
 //
-// Bound, like K8, by device memory: two planes read, the image read and
-// written (268 MB at (1, 4096, 4096)).  What it adds to K8: the image's
-// read in the finish, which the loads prefetch into L2 and the hook
-// issues Q at a time, and the epilogue's ~70 instructions per value (IEEE
-// sqrtf, __fdiv_rn, the full-range sincosf).
+// Bound by device memory: each slice's two planes read, the image read and
+// written once a launch ((2 S + 2) planes: 671 MB at (S, P, N) =
+// (4, 1, 4096), 0.200 ms at 3.35 TB/s, where a launch a slice moves 4 S
+// planes).  A CTA takes its column tile of one plane through every slice:
+// the core's load, transform and finish for each, the finish adding that
+// slice's epilogue to the thread's image values.  The first slice's finish
+// reads the image (prefetched into L2 as its inputs load), the last one's
+// writes it with a streaming store; in between each thread keeps its
+// kPerThread values (EpiKeep): on chip, in shared memory beside the tile in
+// slots of its own, where that leaves the SM as many CTAs as the tile alone
+// (N = 8192); elsewhere in the image itself, through L2 under an evict-last
+// policy (on chip, the extra 32 KB a CTA at N = 4096 would cost a third of
+// the CTAs, and that was slower on an H100 SXM: 0.661 against 0.632 ms at
+// (S, P, N) = (4, 1, 4096); at (6, 4, 8192) on chip 16.30 against 16.81
+// ms).  So the adds are those of S one-slice launches, in the same order:
+// bitwise their image.  One slice (S = 1) runs as the one-slice kernel did.
+//
+// Each slice's copies of the twiddle table's and the taper's pointers, the
+// tile's first column and the cluster rank pass through an empty asm: the
+// twiddles and the taper every slice reads again, and their addresses, are
+// then not hoisted out of the slice loop into registers held across it,
+// which spilled ~1 KB a thread.  What K4 adds to K8: the image's
+// read and write and the epilogue's ~70 instructions per value and slice
+// (IEEE sqrtf, __fdiv_rn, the full-range sincosf), which, with the
+// transform's, set its pace more than its bytes do.
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ void prefetch_l2(const float* p) {
   asm volatile("prefetch.global.L2 [%0];" : : "l"(p));
+}
+
+// An L2 policy that evicts the lines it marks last, and a load and a store
+// under it (the image values K4 keeps between slices).
+__device__ __forceinline__ unsigned long long evict_last_policy() {
+  unsigned long long policy;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;"
+               : "=l"(policy));
+  return policy;
+}
+
+__device__ __forceinline__ float load_kept(const float* p,
+                                           unsigned long long policy) {
+  float v;
+  asm volatile("ld.global.L2::cache_hint.f32 %0, [%1], %2;"
+               : "=f"(v)
+               : "l"(p), "l"(policy));
+  return v;
+}
+
+__device__ __forceinline__ void store_kept(float* p, float v,
+                                           unsigned long long policy) {
+  asm volatile("st.global.L2::cache_hint.f32 [%0], %1, %2;"
+               :
+               : "l"(p), "f"(v), "l"(policy)
+               : "memory");
 }
 
 // K4's epilogue at image row r, column c: round-to-nearest intrinsics, so
@@ -436,56 +485,106 @@ __device__ __forceinline__ float epilogue(float img, float2 y, int r, int c,
                    __fmul_rn(y.y, __fmul_rn(sn, common)));
 }
 
+// The CTAs an SM holds of a kernel that asks `smem` bytes of shared memory
+// a CTA, at most `most` (H100: 228 KB a SM, 1 KB of it reserved a CTA).
+constexpr int ctas_per_sm(int smem, int most) {
+  return 233472 / (smem + 1024) < most ? 233472 / (smem + 1024) : most;
+}
+
+// Where K4 keeps a thread's image values between slices: kBytes of shared
+// memory a CTA beside the tile (value i of thread t at i kThreads + t) if
+// kOnChip, where the SM then holds as many CTAs as with the tile alone;
+// else in the image.
+template <int R, int R1, int R2, int Q>
+struct EpiKeep {
+  using T = col_fft_tile::Tile<R, R1, R2, Q>;
+  static constexpr int kBytes =
+      col_fft_tile::kPerThread * T::kThreads * static_cast<int>(sizeof(float));
+  static constexpr bool kOnChip =
+      ctas_per_sm(T::kSmemBytes + kBytes, T::kMinBlocks) >=
+      ctas_per_sm(T::kSmemBytes, T::kMinBlocks);
+};
+
+// xr/xi (S, P, N, N), scal (S, 2) [w, pixel size], img (P, N, N).
 template <int R, int R1, int R2, int Q>
 __global__ void __launch_bounds__(col_fft_tile::Tile<R, R1, R2, Q>::kThreads,
                                   col_fft_tile::Tile<R, R1, R2, Q>::kMinBlocks)
 epi_col_fft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                    const float2* __restrict__ tw,
                    const float* __restrict__ taper,
-                   const float* __restrict__ scal, float* __restrict__ img) {
+                   const float* __restrict__ scal, float* __restrict__ img,
+                   int S, int P) {
+  using T = col_fft_tile::Tile<R, R1, R2, Q>;
+  using Keep = EpiKeep<R, R1, R2, Q>;
   constexpr int N = Q * R;
-  extern __shared__ float2 tile_buf[];
-  const size_t plane = static_cast<size_t>(blockIdx.z) * N * N;
-  const int c0 = static_cast<int>(blockIdx.y) * col_fft_tile::kCols;
-  xr += plane;
-  xi += plane;
-  img += plane;
-  const float ps = scal[1];
-  const float half = 0.5f * static_cast<float>(N);
-  const float two_pi_w = __fmul_rn(6.28318530717958647692f, scal[0]);
-  const int q = Q == 1 ? 0 : static_cast<int>(blockIdx.x);
   constexpr int L = R / Q;
-  col_fft_tile::col_fft_tile<R, R1, R2, Q>(
-      tile_buf, tw, N, q, 1.0f,
-      [&](int r, int c) {
-        // The CTA updates as many image rows as it reads input rows: with
-        // r = q + Q r2, row q L + r2 % L + R (r2 / L).  That row's value
-        // at this column is prefetched into L2 here, so the epilogue's
-        // read of it waits on L2, not on device memory.
-        const int r2 = r / Q;
-        const size_t row = q * L + r2 % L + R * (r2 / L);
-        prefetch_l2(img + row * N + c0 + c);
-        const size_t off = static_cast<size_t>(r) * N + c0 + c;
-        return make_float2(__ldcs(xr + off), __ldcs(xi + off));
-      },
-      [&](int k2, int c, const float2(&y)[Q]) {
-        // All Q image values first, so their reads are in flight together.
-        float old[Q];
+  extern __shared__ float2 tile_buf[];
+  float* kept = reinterpret_cast<float*>(tile_buf + R * col_fft_tile::kCols);
+  const size_t plane = static_cast<size_t>(blockIdx.z) * N * N;
+  const size_t slice = static_cast<size_t>(P) * N * N;
+  const float half = 0.5f * static_cast<float>(N);
+  const unsigned long long policy = Keep::kOnChip ? 0 : evict_last_policy();
+  img += plane;
+  for (int s = 0; s < S; ++s) {
+    const float* sr = xr + plane + s * slice;
+    const float* si = xi + plane + s * slice;
+    const bool first = s == 0, last = s == S - 1;
+    const float ps = scal[2 * s + 1];
+    const float two_pi_w = __fmul_rn(6.28318530717958647692f, scal[2 * s]);
+    const float2* tws = tw;
+    const float* tps = taper;
+    int c0 = static_cast<int>(blockIdx.y) * col_fft_tile::kCols;
+    int q = Q == 1 ? 0 : static_cast<int>(blockIdx.x);
+    asm volatile("" : "+l"(tws), "+l"(tps), "+r"(c0), "+r"(q));
+    int i0 = 0;  // the thread's first value in this call of the store hook
+    col_fft_tile::col_fft_tile<R, R1, R2, Q>(
+        tile_buf, tws, N, q, 1.0f,
+        [&](int r, int c) {
+          // The CTA updates as many image rows as it reads input rows:
+          // with r = q + Q r2, row q L + r2 % L + R (r2 / L).  That row's
+          // value at this column is prefetched into L2 with the first
+          // slice's loads, so the first finish's read of it waits on L2,
+          // not on device memory.
+          if (first) {
+            const int r2 = r / Q;
+            const size_t row = q * L + r2 % L + R * (r2 / L);
+            prefetch_l2(img + row * N + c0 + c);
+          }
+          const size_t off = static_cast<size_t>(r) * N + c0 + c;
+          return make_float2(__ldcs(sr + off), __ldcs(si + off));
+        },
+        [&](int k2, int c, const float2(&y)[Q]) {
+          // All Q image values first, so their reads are in flight
+          // together.
+          float old[Q];
 #pragma unroll
-        for (int k1 = 0; k1 < Q; ++k1) {
-          const size_t off = static_cast<size_t>(k2 + R * k1) * N + c0 + c;
-          old[k1] = __ldcs(img + off);
-        }
-        const float taper_c = __ldg(taper + c0 + c);
+          for (int k1 = 0; k1 < Q; ++k1) {
+            const size_t off = static_cast<size_t>(k2 + R * k1) * N + c0 + c;
+            if (first)
+              old[k1] = __ldcs(img + off);
+            else if (Keep::kOnChip)
+              old[k1] = kept[(i0 + k1) * T::kThreads + threadIdx.x];
+            else
+              old[k1] = load_kept(img + off, policy);
+          }
+          const float taper_c = __ldg(tps + c0 + c);
 #pragma unroll
-        for (int k1 = 0; k1 < Q; ++k1) {
-          const int k = k2 + R * k1;
-          const size_t off = static_cast<size_t>(k) * N + c0 + c;
-          __stcs(img + off, epilogue(old[k1], y[k1], k, c0 + c,
-                                     __ldg(taper + k), taper_c, two_pi_w,
-                                     ps, half));
-        }
-      });
+          for (int k1 = 0; k1 < Q; ++k1) {
+            const int k = k2 + R * k1;
+            const size_t off = static_cast<size_t>(k) * N + c0 + c;
+            const float v = epilogue(old[k1], y[k1], k, c0 + c,
+                                     __ldg(tps + k), taper_c, two_pi_w, ps,
+                                     half);
+            if (last)
+              __stcs(img + off, v);
+            else if (Keep::kOnChip)
+              kept[(i0 + k1) * T::kThreads + threadIdx.x] = v;
+            else
+              store_kept(img + off, v, policy);
+          }
+          i0 += Q;
+        });
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -641,7 +740,7 @@ extern "C" int ktt_cb_col_fft(const void* xr, const void* xi, const void* tw,
     using Pn = decltype(plan);
     return launch_tiles<Pn>(
         cb_col_fft_kernel<Pn::kR, Pn::kR1, Pn::kR2, Pn::kQ>,
-        N / col_fft_tile::kCols, P, stream, static_cast<const float*>(xr),
+        N / col_fft_tile::kCols, P, stream, 0, static_cast<const float*>(xr),
         static_cast<const float*>(xi), static_cast<const float2*>(tw),
         static_cast<float*>(yr), static_cast<float*>(yi));
   });
@@ -659,7 +758,7 @@ extern "C" int ktt_combine_cb_col_fft(const void* accr, const void* acci,
     using Pn = decltype(plan);
     return launch_tiles<Pn>(
         combine_cb_col_fft_kernel<Pn::kR, Pn::kR1, Pn::kR2, Pn::kQ>,
-        N / col_fft_tile::kCols, P, stream, static_cast<const float*>(accr),
+        N / col_fft_tile::kCols, P, stream, 0, static_cast<const float*>(accr),
         static_cast<const float*>(acci),
         static_cast<const unsigned char*>(occ),
         static_cast<const float2*>(tw), static_cast<float*>(yr),
@@ -667,17 +766,22 @@ extern "C" int ktt_combine_cb_col_fft(const void* accr, const void* acci,
   });
 }
 
+// xr/xi (S, P, N, N) f32, scal (S, 2) f32, imgT (P, N, N) f32.
 extern "C" int ktt_epi_col_fft(const void* xr, const void* xi, const void* tw,
                                const void* taper, const void* scal,
-                               void* imgT, int P, int N, void* stream) {
+                               void* imgT, int S, int P, int N,
+                               void* stream) {
+  if (S <= 0) return cudaErrorInvalidValue;
   return with_plan(N, [&](auto plan) {
     using Pn = decltype(plan);
+    using Keep = EpiKeep<Pn::kR, Pn::kR1, Pn::kR2, Pn::kQ>;
+    const int keep = Keep::kOnChip && S > 1 ? Keep::kBytes : 0;
     return launch_tiles<Pn>(
         epi_col_fft_kernel<Pn::kR, Pn::kR1, Pn::kR2, Pn::kQ>,
-        N / col_fft_tile::kCols, P, stream, static_cast<const float*>(xr),
-        static_cast<const float*>(xi), static_cast<const float2*>(tw),
-        static_cast<const float*>(taper), static_cast<const float*>(scal),
-        static_cast<float*>(imgT));
+        N / col_fft_tile::kCols, P, stream, keep,
+        static_cast<const float*>(xr), static_cast<const float*>(xi),
+        static_cast<const float2*>(tw), static_cast<const float*>(taper),
+        static_cast<const float*>(scal), static_cast<float*>(imgT), S, P);
   });
 }
 
@@ -688,7 +792,7 @@ extern "C" int ktt_pre_col_fft(const void* imgT, const void* tw,
     using Pn = decltype(plan);
     return launch_tiles<Pn>(
         pre_col_fft_kernel<Pn::kR, Pn::kR1, Pn::kR2, Pn::kQ>,
-        N / col_fft_tile::kCols, P, stream, static_cast<const float*>(imgT),
+        N / col_fft_tile::kCols, P, stream, 0, static_cast<const float*>(imgT),
         static_cast<const float2*>(tw), static_cast<const float*>(taper),
         static_cast<const float*>(scal), static_cast<float*>(yr),
         static_cast<float*>(yi));
@@ -704,7 +808,7 @@ extern "C" int ktt_col_fft(const void* xr, const void* xi, const void* tw,
     using Pn = decltype(plan);
     return launch_tiles<Pn>(
         col_fft_k8_kernel<Pn::kR, Pn::kR1, Pn::kR2, Pn::kQ>, tiles, B,
-        stream, static_cast<const float*>(xr), static_cast<const float*>(xi),
+        stream, 0, static_cast<const float*>(xr), static_cast<const float*>(xi),
         static_cast<const float2*>(tw), static_cast<float*>(yr),
         static_cast<float*>(yi), N, M, static_cast<float>(sign));
   });
@@ -717,7 +821,7 @@ extern "C" int ktt_cbout_col_fft(const void* xr, const void* xi,
     using Pn = decltype(plan);
     return launch_tiles<Pn>(
         cbout_col_fft_kernel<Pn::kR, Pn::kR1, Pn::kR2, Pn::kQ>,
-        N / col_fft_tile::kCols, P, stream, static_cast<const float*>(xr),
+        N / col_fft_tile::kCols, P, stream, 0, static_cast<const float*>(xr),
         static_cast<const float*>(xi), static_cast<const float2*>(tw),
         static_cast<float*>(yr), static_cast<float*>(yi));
   });

@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import functools
+import os
 
 import torch
 
@@ -55,3 +57,27 @@ def select(host: bool) -> torch.device:
     """``--host``: the CPU (the kernels' plain versions); otherwise the
     CUDA device, which must exist."""
     return resolve("cpu" if host else None)
+
+
+@functools.lru_cache(maxsize=None)
+def _card_memory(index: int) -> int:
+    """The bytes CUDA card ``index`` had free when this process first
+    asked, plus what PyTorch's caching allocator had reserved then: read
+    once a process, since ``cudaMemGetInfo`` waits for the device."""
+    free, _ = torch.cuda.mem_get_info(index)
+    return free + torch.cuda.memory_reserved(index)
+
+
+def free_memory(device) -> int:
+    """Bytes a new allocation on ``device`` could take now.  On a CUDA
+    device: what the card had free when this process first asked, and
+    what PyTorch's caching allocator had reserved then
+    (:func:`_card_memory`), less what it holds allocated now, so that
+    only the first call waits for the device (what other processes take
+    later is not seen).  On the CPU the free physical memory."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        index = (torch.cuda.current_device() if device.index is None
+                 else device.index)
+        return _card_memory(index) - torch.cuda.memory_allocated(index)
+    return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")

@@ -61,8 +61,8 @@ SIGNATURES = {
     "ktt_cb_col_fft": [_P, _P, _P, _P, _P, _I, _I, _P],
     # accr, acci, occ, tw, yr, yi, P, N, ts, nt2, stream
     "ktt_combine_cb_col_fft": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # xr, xi, tw, taper, scal, imgT, P, N, stream
-    "ktt_epi_col_fft": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # xr, xi, tw, taper, scal, imgT, S, P, N, stream
+    "ktt_epi_col_fft": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # imgT, tw, taper, scal, yr, yi, P, N, stream
     "ktt_pre_col_fft": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     # xr, xi, tw, yr, yi, P, N, stream

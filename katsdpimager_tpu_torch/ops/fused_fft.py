@@ -10,11 +10,14 @@ corrections riding on one of them.  Grid -> image (inverse DFT):
   kernel's store);
 - **K4** (:func:`epi_col_fft`): ``Y = colDFT(y)``, then
   ``imgT += Y.re * cos(ph) * common - Y.im * sin(ph) * common`` in place,
-  with ``common = cb * n / taper^2`` and ``ph = 2 pi w (n - 1)``.
+  with ``common = cb * n / taper^2`` and ``ph = 2 pi w (n - 1)``; one W
+  slice a launch, or several, each slice's update added in turn.
 
 The slice loop takes **K23** (:func:`combine_cb_col_fft`) in place of K2
 then K3: K3 whose load sums the gridder's four colour planes as K2 does,
-so the slice's grid is never written (:func:`planes_to_image_fused_parts`).
+so the slice's grid is never written; each slice's K23 pair goes into a
+stack, and K4 takes the channel's stack in one launch, so the image is
+read and written once a channel (:class:`SliceStack`).
 
 Image -> grid (forward DFT, for the degridder):
 
@@ -52,6 +55,7 @@ import math
 import numpy as np
 import torch
 
+from .. import device as device_mod
 from ..device import runs_plain
 from ..profiling import profile
 from . import _build
@@ -235,22 +239,24 @@ combine_cb_col_fft.launches = 0
 
 def epi_col_fft_plain(ar_t, ai_t, imageT, taper, scal):
     """Plain PyTorch version of K4 (same arguments as :func:`epi_col_fft`),
-    with the f32 formulas of the JAX epilogue.  Updates ``imageT`` in
-    place and returns it."""
+    with the f32 formulas of the JAX epilogue: each slice's update in
+    slice order.  Updates ``imageT`` in place and returns it."""
+    if ar_t.dim() == 3:
+        ar_t, ai_t, scal = ar_t[None], ai_t[None], scal[None]
     n = ar_t.shape[-1]
     dev = ar_t.device
-    y = torch.fft.ifft(torch.complex(ar_t, ai_t), dim=-2, norm="forward")
-    w, ps = scal[0], scal[1]
     idx = torch.arange(n, device=dev, dtype=torch.float32)
     half = 0.5 * n
-    lm_r = ((idx - half) * ps)[:, None]
-    lm_c = ((idx - half) * ps)[None, :]
-    n_lm = sqrt_rn(1.0 - lm_r * lm_r - lm_c * lm_c)
-    phase = ((2.0 * math.pi) * w) * (n_lm - 1.0)
     taper2 = taper[:, None] * taper[None, :]
-    common = checkerboard(n, dev) * n_lm / taper2
-    imageT.copy_((imageT + y.real * (torch.cos(phase) * common))
-                 - y.imag * (torch.sin(phase) * common))
+    for xr, xi, (w, ps) in zip(ar_t, ai_t, scal):
+        y = torch.fft.ifft(torch.complex(xr, xi), dim=-2, norm="forward")
+        lm_r = ((idx - half) * ps)[:, None]
+        lm_c = ((idx - half) * ps)[None, :]
+        n_lm = sqrt_rn(1.0 - lm_r * lm_r - lm_c * lm_c)
+        phase = ((2.0 * math.pi) * w) * (n_lm - 1.0)
+        common = checkerboard(n, dev) * n_lm / taper2
+        imageT.copy_((imageT + y.real * (torch.cos(phase) * common))
+                     - y.imag * (torch.sin(phase) * common))
     return imageT
 
 
@@ -258,39 +264,55 @@ def epi_col_fft(ar_t, ai_t, imageT, taper, scal):
     """K4: unnormalised inverse column DFT of the transposed pass-A
     output, imaging corrections, accumulated into ``imageT`` in place.
 
-    ar_t/ai_t/imageT (P, N, N) f32; taper (N,) f32; scal (2,) f32 holding
-    the slice's mid-w and the pixel size (on the device, so no sync).
-    Returns ``imageT``.
+    ar_t/ai_t (P, N, N) f32 and scal (2,) f32 for one W slice, or
+    (S, P, N, N) and (S, 2) for S slices; imageT (P, N, N) f32; taper
+    (N,) f32.  ``scal[s]`` holds slice s's mid-w and the pixel size (on
+    the device, so no sync).  The slices' updates are added in slice
+    order, each as one launch of one slice would add it, so the image is
+    bitwise that of S one-slice calls.  Returns ``imageT``.
 
     Runs :func:`epi_col_fft_plain` where
     :func:`..device.runs_plain` holds; otherwise launches
-    ``ktt_epi_col_fft`` (``csrc/fft.cu``) or raises.
+    ``ktt_epi_col_fft`` (``csrc/fft.cu``) or raises.  Counts its launches
+    in ``epi_col_fft.launches`` and the slices they took in
+    ``epi_col_fft.slices``; a ``k4.launch`` span.
 
     Replaces ``katsdpimager_tpu/ops/pallas_fft.py:_make_epi_col_kernel``.
-    Bound by device memory: both planes read, the image read and written.
-    The tile core of :func:`col_fft`; each finished value takes the
-    epilogue, computed in registers from its indices, and updates the
-    image straight from the cluster's finish."""
+    Bound by device memory: every slice's planes read, the image read
+    and written once a launch.  The tile core of :func:`col_fft`, a CTA
+    taking its tile through every slice; each finished value takes the
+    epilogue, computed in registers from its indices.  Between slices each
+    thread keeps its image values in shared memory where that costs the
+    SM no CTA (N = 8192), else in the image through L2 under an
+    evict-last policy; the first slice's finish reads the image, the last
+    one's writes it."""
     with profile("k4.launch"):
         if runs_plain(ar_t):
             return epi_col_fft_plain(ar_t, ai_t, imageT, taper, scal)
         dev = ar_t.device
-        P, n, _ = ar_t.shape
+        S = 1 if ar_t.dim() == 3 else ar_t.shape[0]
+        P, n, _ = imageT.shape
         _check_kernel_size(n)
-        for name, t in (("ar_t", ar_t), ("ai_t", ai_t), ("imageT", imageT)):
-            _build.expect(t, name, torch.float32, (P, n, n), dev)
+        stacked = (P, n, n) if ar_t.dim() == 3 else (S, P, n, n)
+        _build.expect(ar_t, "ar_t", torch.float32, stacked, dev)
+        _build.expect(ai_t, "ai_t", torch.float32, stacked, dev)
+        _build.expect(imageT, "imageT", torch.float32, (P, n, n), dev)
         _build.expect(taper, "taper", torch.float32, (n,), dev)
-        _build.expect(scal, "scal", torch.float32, (2,), dev)
+        _build.expect(scal, "scal", torch.float32,
+                      (2,) if ar_t.dim() == 3 else (S, 2), dev)
         tw = twiddles_full(n, dev)
         err = _build.load().ktt_epi_col_fft(
             ar_t.data_ptr(), ai_t.data_ptr(), tw.data_ptr(), taper.data_ptr(),
-            scal.data_ptr(), imageT.data_ptr(), P, n, _build.stream_of(ar_t))
+            scal.data_ptr(), imageT.data_ptr(), S, P, n,
+            _build.stream_of(ar_t))
         _build.check(err, "ktt_epi_col_fft")
         epi_col_fft.launches += 1
+        epi_col_fft.slices += S
         return imageT
 
 
 epi_col_fft.launches = 0
+epi_col_fft.slices = 0
 
 
 def scalars(w, pixel_size, device) -> torch.Tensor:
@@ -309,30 +331,74 @@ def grid_to_image_fused_parts(gr, gi, imageT, kernel1d, w, pixel_size):
     return epi_col_fft(ar_t, ai_t, imageT, taper, scal)
 
 
-def planes_to_image_fused_parts(groups, imageT, kernel1d, w, pixel_size, *,
-                                pixels: int, ts: int):
-    """K23 then K4: accumulate one W slice, given as its polarization
-    groups' colour planes (``(p0, p1, accr, acci, occ)`` each, from
-    :func:`.fused_gridder.slice_planes`), into the TRANSPOSED dirty image
-    ``imageT`` (in place; returned).  Each group's K23 writes planes
-    ``p0:p1`` of one (P, N, N) pair, which K4 takes whole.  The pair is
-    made once the first group's planes are, when the gridder's
-    temporaries are gone, as K2's grid was: the step's peak memory stays
-    that of K2 then K3.  Each group's planes are dropped before the next
-    group's are made, so one group's are alive at a time."""
-    scal = scalars(w, pixel_size, imageT.device)
-    taper = kernel1d.to(device=imageT.device,
-                        dtype=torch.float32).contiguous()
-    yr = yi = None
-    for p0, p1, accr, acci, occ in groups:
-        if yr is None:
-            yr = torch.empty(imageT.shape, dtype=torch.float32,
-                             device=imageT.device)
-            yi = torch.empty_like(yr)
-        combine_cb_col_fft(accr, acci, occ, pixels=pixels, ts=ts,
-                           out=(yr[p0:p1], yi[p0:p1]))
-        del accr, acci, occ     # before the next group's planes are made
-    return epi_col_fft(yr, yi, imageT, taper, scal)
+class SliceStack:
+    """K23 then K4 over a channel's W slices: each slice, given as its
+    polarization groups' colour planes, is added into the TRANSPOSED
+    dirty image ``imageT`` (in place) through a stack of the slices' K23
+    pairs, which K4 takes in one launch, so that the image is read and
+    written once a channel, not once a slice.
+
+    ``slices`` is how many slices the channel will :meth:`add`.  The
+    stack, (S', P, N, N) f32 twice, is made once the first group's planes
+    are, when the gridder's temporaries are gone, as K2's grid was; it
+    holds S' = ``slices`` slices where that fits beside the first group's
+    planes in the memory free on the device (:func:`..device.free_memory`,
+    read then), else as many as fit, at least one: K4 then launches each
+    time the stack is full, on consecutive slices, which adds the same
+    updates in the same order.  :meth:`flush`, after the last slice,
+    launches K4 on what is left."""
+
+    def __init__(self, imageT, kernel1d, pixel_size, *, slices: int,
+                 pixels: int, ts: int):
+        self.imageT = imageT
+        self.taper = kernel1d.to(device=imageT.device,
+                                 dtype=torch.float32).contiguous()
+        self.pixel_size = pixel_size
+        self.slices, self.pixels, self.ts = slices, pixels, ts
+        self.yr = self.yi = None
+        self.scal = []
+        self.added = 0
+
+    def _make(self, planes_bytes: int) -> None:
+        """The stack, as deep as :class:`SliceStack` says."""
+        dev = self.imageT.device
+        pair = 2 * self.imageT.numel() * 4
+        fits = (device_mod.free_memory(dev) - planes_bytes) // pair
+        depth = max(1, min(self.slices, fits))
+        self.yr = torch.empty((depth,) + tuple(self.imageT.shape),
+                              dtype=torch.float32, device=dev)
+        self.yi = torch.empty_like(self.yr)
+
+    def add(self, groups, w) -> None:
+        """K23 of one W slice, given as its polarization groups' colour
+        planes (``(p0, p1, accr, acci, occ)`` each, from
+        :func:`.fused_gridder.slice_planes`), into the stack: each group's
+        planes ``p0:p1`` of the slice's (P, N, N) pair.  ``w`` is the
+        slice's mid-w (a 0-d tensor on the device: no sync).  Each
+        group's planes are dropped before the next group's are made, so
+        one group's are alive at a time."""
+        for p0, p1, accr, acci, occ in groups:
+            if self.yr is None:
+                self._make(2 * accr.numel() * accr.element_size())
+            k = len(self.scal)
+            combine_cb_col_fft(accr, acci, occ, pixels=self.pixels,
+                               ts=self.ts,
+                               out=(self.yr[k, p0:p1], self.yi[k, p0:p1]))
+            del accr, acci, occ     # before the next group's planes are made
+        self.scal.append(scalars(w, self.pixel_size, self.imageT.device))
+        self.added += 1
+        if len(self.scal) == len(self.yr) and self.added < self.slices:
+            self.flush()                # full, with slices still to come
+
+    def flush(self):
+        """K4 on the slices added since its last launch (none: nothing);
+        returns ``imageT``."""
+        k = len(self.scal)
+        if k:
+            epi_col_fft(self.yr[:k], self.yi[:k], self.imageT, self.taper,
+                        torch.stack(self.scal))
+            self.scal = []
+        return self.imageT
 
 
 # ---------------------------------------------------------------------------

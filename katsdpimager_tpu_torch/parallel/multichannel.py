@@ -6,8 +6,9 @@ K2) and the grid -> image transform accumulating into the dirty image
 (K3, K4 on the transposed image, or ``torch.fft`` at sizes the kernels
 do not take, by :func:`~..ops.fourier.use_fused_fft`; where K3 runs with
 no vis group to sum the grid first, K23 takes the colour planes in place
-of K2 then K3); with ``minor_cycles > 0``, a PSF from the weights
-and that many CLEAN minor cycles on the PSF-normalised dirty image.
+of K2 then K3, and K4 takes all of a channel's slices in one launch);
+with ``minor_cycles > 0``, a PSF from the weights and that many CLEAN
+minor cycles on the PSF-normalised dirty image.
 Channels of a batch share their geometry; the per-channel physics (kernel
 tables, taper, pixel size, mid-w values) are tensor inputs.
 """
@@ -216,11 +217,13 @@ def image_slices(kernel, density, taper1d, pixel_size, mid_w, uv, sub_uv,
 
     On the K3 route with no vis group to sum the grid (``mesh`` None or
     ``vis_size`` 1), each slice's colour planes
-    (:func:`..ops.fused_gridder.slice_planes`) go straight into K23
-    (:func:`fused_fft.planes_to_image_fused_parts`), which sums them as K2
-    does inside K3's load: bitwise the same image, and the grid is never
-    written.  Under a vis split K2 makes the grid that the group sums,
-    then K3."""
+    (:func:`..ops.fused_gridder.slice_planes`) go straight into K23,
+    which sums them as K2 does inside K3's load, and K4 takes the
+    channel's slices in one launch once the last is added
+    (:class:`fused_fft.SliceStack`): bitwise the same image, the grid is
+    never written, and the image is read and written once.  Under a vis
+    split K2 makes the grid that the group sums, then K3 and K4, once a
+    slice."""
     dev = vis.device
     rdtype = precision_of(vis, taper1d)
     double = rdtype == torch.float64
@@ -229,6 +232,11 @@ def image_slices(kernel, density, taper1d, pixel_size, mid_w, uv, sub_uv,
         else fourier.use_fused_fft(pixels, dev, vis.dtype, taper1d.dtype))
     planes_fft = fused and (mesh is None or mesh.vis_size == 1)
     Pp = vis.shape[-1]
+    take = list(nc_slices if take is None else take)
+    image = torch.zeros((Pp, pixels, pixels), dtype=rdtype, device=dev)
+    stack = fused_fft.SliceStack(
+        image, taper1d, pixel_size, slices=sum(int(t) > 0 for t in take),
+        pixels=pixels, ts=ts) if planes_fft else None
 
     def slice_body(image, xs):
         uv_s, sub_s, wp_s, anc_s, val_s, vis_s, w_mid, nc_s, take_s = xs
@@ -236,11 +244,10 @@ def image_slices(kernel, density, taper1d, pixel_size, mid_w, uv, sub_uv,
             return image
         with profile("multichannel.slice"):
             if planes_fft:
-                return fused_fft.planes_to_image_fused_parts(
-                    fused_gridder.slice_planes(
-                        kernel, density, uv_s, sub_s, wp_s, vis_s, anc_s,
-                        val_s, int(nc_s), pixels=pixels, ts=ts),
-                    image, taper1d, w_mid, pixel_size, pixels=pixels, ts=ts)
+                stack.add(fused_gridder.slice_planes(
+                    kernel, density, uv_s, sub_s, wp_s, vis_s, anc_s, val_s,
+                    int(nc_s), pixels=pixels, ts=ts), w_mid)
+                return image
             out = None
             if double:
                 gr = torch.zeros((Pp, pixels, pixels), dtype=rdtype,
@@ -256,11 +263,12 @@ def image_slices(kernel, density, taper1d, pixel_size, mid_w, uv, sub_uv,
             return fourier.grid_to_image_plain(torch.complex(gr, gi), image,
                                                taper1d, w_mid, pixel_size)
 
-    image = torch.zeros((Pp, pixels, pixels), dtype=rdtype, device=dev)
     image = scan_slices(slice_body, image,
                         (uv, sub_uv, w_plane, anchor, valid, vis, mid_w,
-                         list(nc_slices),
-                         list(nc_slices if take is None else take)))
+                         list(nc_slices), take))
+    if planes_fft:
+        image = stack.flush()
+        del stack           # its pairs, before the transposed copy is made
     return image.transpose(-1, -2).contiguous() if fused else image
 
 

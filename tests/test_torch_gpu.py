@@ -16,6 +16,7 @@ from katsdpimager_tpu_torch.ops import (clean, fused_degrid, fused_fft,
                                         fused_gridder, mxu_gridder)
 from katsdpimager_tpu_torch.parallel import cube, multichannel
 from test_torch_k1_schedule import k1_schedule
+from test_torch_k23 import _ViaK2
 from test_torch_weight_grid import add_at
 
 pytestmark = pytest.mark.gpu
@@ -308,39 +309,33 @@ def test_k23_production_slices_are_k2_then_k3(cuda, P):
         assert _bitwise(got, want), s
 
 
-def _via_k2(groups, imageT, kernel1d, w, pixel_size, *, pixels, ts):
-    """:func:`fused_fft.planes_to_image_fused_parts` by K2 then K3: the
-    slice loop's route before K23."""
-    gr = torch.empty(imageT.shape, device=imageT.device)
-    gi = torch.empty_like(gr)
-    for p0, p1, accr, acci, occ in groups:
-        gr[p0:p1], gi[p0:p1] = fused_gridder.combine_planes(
-            accr, acci, occ, pixels=pixels, ts=ts)
-    return fused_fft.grid_to_image_fused_parts(gr, gi, imageT, kernel1d, w,
-                                               pixel_size)
-
-
 @pytest.mark.parametrize("weight_type,P", [("natural", 1), ("uniform", 1),
                                            ("natural", 4)])
 def test_k23_steps_are_k2_then_k3(cuda, monkeypatch, weight_type, P):
     """The 8-channel production steps (natural, uniform and IQUV) through
-    K23 give images bitwise equal to the same steps with the slice loop
-    routed through K2 then K3; the step launches K23 once a non-empty
-    slice and K2 and K3 not at all."""
+    K23 and K4 over each channel's slices give images bitwise equal to the
+    same steps with the slice loop routed through K2 then K3 and K4 once a
+    slice (the route before K23); the step launches K23 once a non-empty
+    slice, K4 once a channel over all its non-empty slices, and K2 and K3
+    not at all."""
     cfg, batch = _production_batch(cuda, P, weight_type, channels=8)
     step = multichannel.single_channel_step(cfg)
     counters = (fused_gridder.combine_planes, fused_fft.cb_col_fft,
-                fused_fft.combine_cb_col_fft)
+                fused_fft.combine_cb_col_fft, fused_fft.epi_col_fft)
     for fn in counters:
         fn.launches = 0
+    fused_fft.epi_col_fft.slices = 0
     got = [step(*multichannel.channel_args(batch, c))[0] for c in range(8)]
     torch.cuda.synchronize()
     nonempty = int((batch.n_chunks > 0).sum())
-    assert [fn.launches for fn in counters] == [0, 0, nonempty]
-    monkeypatch.setattr(fused_fft, "planes_to_image_fused_parts", _via_k2)
+    channels = int((batch.n_chunks > 0).any(dim=1).sum())
+    assert [fn.launches for fn in counters] == [0, 0, nonempty, channels]
+    assert fused_fft.epi_col_fft.slices == nonempty
+    monkeypatch.setattr(fused_fft, "SliceStack", _ViaK2)
     want = [step(*multichannel.channel_args(batch, c))[0] for c in range(8)]
     assert fused_gridder.combine_planes.launches == nonempty
     assert fused_fft.cb_col_fft.launches == nonempty
+    assert fused_fft.epi_col_fft.launches == channels + nonempty
     for c, (g, w) in enumerate(zip(got, want)):
         assert bool(torch.isfinite(g).all())
         assert _bitwise((g,), (w,)), c
@@ -363,6 +358,41 @@ def test_k4_accumulates(cuda, n):
     torch.cuda.synchronize()
     scale = (out_p - img).abs().max().item()
     assert (out_k - out_p).abs().max().item() <= 1e-5 * scale
+
+
+#: (N, P, S) of the one-launch K4 against S one-slice launches: every N
+#: of the kernels, P 1 and 4, S 1-6.
+K4_SLICES_CASES = [(256, 1, 6), (256, 4, 3), (512, 1, 5), (512, 4, 2),
+                   (1024, 1, 4), (1024, 4, 1), (2048, 1, 3), (2048, 4, 6),
+                   (4096, 1, 4), (4096, 4, 4), (4096, 1, 1), (8192, 4, 6),
+                   (8192, 1, 2), (8192, 4, 1)]
+
+
+@pytest.mark.parametrize("n,P,S", K4_SLICES_CASES)
+def test_k4_slices_are_one_slice_launches(cuda, n, P, S):
+    """K4 over S slices in one launch is bitwise S one-slice launches in
+    slice order (the route of one launch a slice), from a zero image and
+    from a random one, with a w of its own a slice; it counts one launch
+    and S slices."""
+    gen = torch.Generator(device="cpu").manual_seed(n + 10 * P + S)
+    xr, xi = (torch.randn((S, P, n, n), generator=gen).to(cuda)
+              for _ in range(2))
+    start = torch.randn((P, n, n), generator=gen).to(cuda)
+    taper = (0.5 + torch.rand(n, generator=gen)).to(cuda)
+    scal = torch.tensor([[150.0 * s - 400.0, 1.0 / (n * 16)]
+                         for s in range(S)], device=cuda)
+    for img0 in (torch.zeros_like(start), start):
+        launches = fused_fft.epi_col_fft.launches
+        slices = fused_fft.epi_col_fft.slices
+        got = fused_fft.epi_col_fft(xr, xi, img0.clone(), taper, scal)
+        assert (fused_fft.epi_col_fft.launches - launches,
+                fused_fft.epi_col_fft.slices - slices) == (1, S)
+        want = img0.clone()
+        for s in range(S):
+            fused_fft.epi_col_fft(xr[s], xi[s], want, taper, scal[s])
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all())
+        assert _bitwise((got,), (want,))
 
 
 def test_kernels_reject_unsupported(cuda):
@@ -399,15 +429,17 @@ def test_step_matches_plain(cuda, weight_type):
     assert (got - ref).abs()[:, inside].max().item() <= 1e-4 * peak
 
 
-def test_full_stokes_8192_step_takes_two_groups(cuda):
+def test_full_stokes_8192_step_takes_two_groups(cuda, monkeypatch):
     """One channel of ``mkat_l_8k_iquv`` (8192 px, P = 4, 6 W slices of
     349,525 visibilities, 16384 chunks a slice) through
     ``single_channel_step``: every slice takes two polarisation groups,
-    each Stokes plane lies within the cell's ``dirty_err`` limit of its
-    own peak from the float64 reference at sampled pixels, and the step's
-    peak memory holds one group's colour planes at a time (the batch, the
-    image and its transposed copy, one group's planes, K23's pair and
-    2 GB)."""
+    K4 takes the six slices in one launch, each Stokes plane lies within
+    the cell's ``dirty_err`` limit of its own peak from the float64
+    reference at sampled pixels, and the step's peak memory holds one
+    group's colour planes at a time (the batch, the image and its
+    transposed copy, one group's planes, K23's stack of six pairs and
+    2 GB).  With no memory free for a deeper stack, K4 takes one slice a
+    launch, and the image is bitwise the same."""
     from portbench import manifest
     from portbench.reference import imaging as reference
     from portbench.runners import dirty_step
@@ -426,12 +458,15 @@ def test_full_stokes_8192_step_takes_two_groups(cuda):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     launches = fused_gridder.grid_planes.launches
+    k4 = fused_fft.epi_col_fft.launches, fused_fft.epi_col_fft.slices
     image = step(*args)[0]
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     nonempty = int((batch.n_chunks[0] > 0).sum())
     assert nonempty == S
     assert fused_gridder.grid_planes.launches - launches == 2 * S
+    assert (fused_fft.epi_col_fft.launches - k4[0],
+            fused_fft.epi_col_fft.slices - k4[1]) == (1, S)
 
     batch_bytes = sum(t.numel() * t.element_size() for t in (
         batch.uv, batch.sub_uv, batch.w_plane, batch.anchor, batch.valid,
@@ -441,8 +476,15 @@ def test_full_stokes_8192_step_takes_two_groups(cuda):
     group_bytes = 2 * 4 * 2 * ext2 * ext2 * 4
     image_bytes = P * N * N * 4
     pair_bytes = 2 * image_bytes
-    assert peak < (batch_bytes + 2 * image_bytes + group_bytes + pair_bytes
-                   + 2e9), peak
+    assert peak < (batch_bytes + 2 * image_bytes + group_bytes
+                   + S * pair_bytes + 2e9), peak
+
+    monkeypatch.setattr(device, "free_memory", lambda dev: 0)
+    k4 = fused_fft.epi_col_fft.launches
+    one_a_slice = step(*args)[0]
+    assert fused_fft.epi_col_fft.launches - k4 == S
+    assert _bitwise((one_a_slice,), (image,))
+    del one_a_slice
 
     rows, cols = reference.sample_axes(
         seed, reference.wkernel.taper(N, conf["antialias_width"],

@@ -103,17 +103,19 @@ def grid_one_slice(route):
     if route == "grid":
         return fused_gridder.grid_slice(kernel, None, uv, sub, wp, vis, anc,
                                         val, n, pixels=N, ts=TS)
-    return fused_fft.planes_to_image_fused_parts(
-        fused_gridder.slice_planes(kernel, None, uv, sub, wp, vis, anc, val,
-                                   n, pixels=N, ts=TS),
-        torch.zeros((P, N, N)), batch.taper1d[0], batch.mid_w[0, 0],
-        batch.pixel_size[0], pixels=N, ts=TS)
+    stack = fused_fft.SliceStack(torch.zeros((P, N, N)), batch.taper1d[0],
+                                 batch.pixel_size[0], slices=1, pixels=N,
+                                 ts=TS)
+    stack.add(fused_gridder.slice_planes(kernel, None, uv, sub, wp, vis, anc,
+                                         val, n, pixels=N, ts=TS),
+              batch.mid_w[0, 0])
+    return stack.flush()
 
 
 @pytest.mark.parametrize("route", ["grid", "image"])
 def test_one_groups_planes_are_alive_at_a_time(route, monkeypatch):
     """When the second group's colour planes are made, the first group's
-    are gone: ``grid_slice`` and ``planes_to_image_fused_parts`` drop each
+    are gone: ``grid_slice`` and ``SliceStack.add`` drop each
     group's planes before asking ``slice_planes`` for the next, and the
     generator holds none while it waits."""
     monkeypatch.setattr(mxu_gridder, "MAX_ACC_GB", two_group_cap())

@@ -52,15 +52,18 @@ def _route_counts(monkeypatch) -> dict:
         (fused_fft, "combine_cb_col_fft"))}
 
 
-def _via_k2(groups, imageT, kernel1d, w, pixel_size, *, pixels, ts):
-    """:func:`fused_fft.planes_to_image_fused_parts` by K2 then K3."""
-    gr = torch.empty(imageT.shape)
-    gi = torch.empty_like(gr)
-    for p0, p1, accr, acci, occ in groups:
-        gr[p0:p1], gi[p0:p1] = fused_gridder.combine_planes(
-            accr, acci, occ, pixels=pixels, ts=ts)
-    return fused_fft.grid_to_image_fused_parts(gr, gi, imageT, kernel1d, w,
-                                               pixel_size)
+class _ViaK2(fused_fft.SliceStack):
+    """:class:`fused_fft.SliceStack` by K2 then K3, and K4 once a slice:
+    the slice loop's route before K23."""
+
+    def add(self, groups, w):
+        gr = torch.empty(self.imageT.shape, device=self.imageT.device)
+        gi = torch.empty_like(gr)
+        for p0, p1, accr, acci, occ in groups:
+            gr[p0:p1], gi[p0:p1] = fused_gridder.combine_planes(
+                accr, acci, occ, pixels=self.pixels, ts=self.ts)
+        fused_fft.grid_to_image_fused_parts(gr, gi, self.imageT, self.taper,
+                                            w, self.pixel_size)
 
 
 def _bits(t):
@@ -118,7 +121,7 @@ def test_slice_loop_takes_k23(monkeypatch, weight_type):
     assert {k: len(v) for k, v in counts.items()} == {
         "combine_planes": 0, "combine_planes_plain": 0, "cb_col_fft": 0,
         "combine_cb_col_fft": nonempty}
-    monkeypatch.setattr(fused_fft, "planes_to_image_fused_parts", _via_k2)
+    monkeypatch.setattr(fused_fft, "SliceStack", _ViaK2)
     want = _image(cfg, batch, density)
     assert len(counts["combine_planes"]) == nonempty
     assert len(counts["cb_col_fft"]) == nonempty
@@ -138,7 +141,7 @@ def test_slice_loop_k23_by_polarization_groups(monkeypatch):
     split = _image(cfg, batch)
     nonempty = sum(int(n) > 0 for n in batch.n_chunks[0])
     assert len(calls) == groups * nonempty
-    monkeypatch.setattr(fused_fft, "planes_to_image_fused_parts", _via_k2)
+    monkeypatch.setattr(fused_fft, "SliceStack", _ViaK2)
     via_k2 = _image(cfg, batch)
     assert torch.equal(_bits(split), _bits(joint))
     assert torch.equal(_bits(split), _bits(via_k2))

@@ -227,8 +227,9 @@ def test_step_span_tree(installed, weight_type):
     polarisation group's ``k1.group`` (in it K1's prep, whose
     polarisation-independent part ``k1.prep_shared`` holds the occupancy
     mask's ``k1.occupancy``, and K1's wrapper) and the
-    wrappers of K23 (``k3.launch``: the slice loop takes it in place of
-    K2 then K3, so no ``k2.launch``) and K4 once."""
+    wrapper of K23 (``k3.launch``: the slice loop takes it in place of
+    K2 then K3, so no ``k2.launch``); after the last slice, K4's wrapper
+    once (``k4.launch``: one launch takes the channel's slices)."""
     import collections
 
     from katsdpimager_tpu_torch.parallel import multichannel as mc
@@ -248,7 +249,8 @@ def test_step_span_tree(installed, weight_type):
     sl = channel + ("multichannel.slice",)
     group = sl + ("k1.group",)
     want = {channel: 1, sl: 3, group: 3}
-    want.update({sl + (name,): 3 for name in ("k3.launch", "k4.launch")})
+    want[sl + ("k3.launch",)] = 3
+    want[channel + ("k4.launch",)] = 1
     want.update({group + (name,): 3 for name in ("k1.prep", "k1.launch")})
     shared = group + ("k1.prep", "k1.prep_shared")
     want[shared] = 3
